@@ -12,7 +12,8 @@ Run from the repository root on a machine with a CUDA device. It
      PyTorch twin on the card, at the HUS run's agent count, and times
      the kernel, the twin and, where there is one, the PyTorch library
      call that computes the same function (CUDA events, cold L2, median
-     of 7), beside the least time the card could take (bound);
+     of 7), beside the least time the card could take (bound), and
+     times each launch of the prefix and ledger kernels;
   3. drives the main path: build_run for the default HUS scenario (365
      days, 1,685,983 agents) on "cuda", then run_days, counting every
      kernel's launches in that run;
@@ -197,6 +198,8 @@ def main() -> None:
     bad = [n for n, (_, r) in results.items() if not r.ok]
     if bad:
         fail(f"kernels disagree with their twins: {bad}")
+    print("per-launch ms (cold L2, median of 7): "
+          + json.dumps(checks.launch_times(checks.HUS_N, 0, "cuda")))
 
     # ---- the main path
     from reina_tpu_torch.config.variables import VARIABLE_DEFAULTS

@@ -13,7 +13,9 @@ The library lands in ``build/reina_tpu_torch/`` at the repository root,
 named by a hash of the sources, and is built at first use. It is loaded
 with ctypes: every pointer and the stream are ``c_void_p``, and each C
 entry point returns ``cudaGetLastError()`` after its launches, on which
-:func:`check` raises.
+:func:`check` raises. The prefix and ledger entry points also take an
+optional array of two CUDA events that they record around their
+launch.
 """
 from __future__ import annotations
 
@@ -34,8 +36,8 @@ _L = ctypes.c_longlong
 
 # C entry points and their argument types (see the .cu files)
 _SIGNATURES = {
-    "reina_ledger_scan": [_P] * 8 + [_P, _P, _L, _L, _I, _P],
-    "reina_concat_prefix": [_P, _P, _P, _P, _L, _I, _I, _P],
+    "reina_ledger_grants": [_P] * 9 + [_L, _L, _I, _P, _P],
+    "reina_concat_prefix": [_P, _P, _P, _P, _L, _I, _I, _P, _P],
     "reina_onehot_sum": [_P, _P, _P, _P, _L, _I, _I, _P],
     "reina_fn_onehot_output_masks": [_P] * 12 + [_L] + [_I] * 5 + [_P],
     "reina_bihistogram": [_P] * 5 + [_L, _I, _I, _P],
@@ -119,6 +121,14 @@ def lib():
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def event_handles(events):
+    """None, or the handles of recorded ``torch.cuda.Event``s as the C
+    array an entry point records them into (its ``void* const*``)."""
+    if events is None:
+        return None
+    return (_P * len(events))(*(e.cuda_event for e in events))
 
 
 def stream_of(t):

@@ -8,7 +8,7 @@ tolerance, and three device times (kernel, twin and, where one PyTorch
 call computes the same function, that call). Used by
 tests/test_torch_cuda.py and chip_smoke.py.
 
-Tolerances: the prefix sums, histograms and ledger outputs (U, grants,
+Tolerances: the prefix sums, histograms and ledger outputs (grants and
 final balances) are exact; the fused bodies' integer and bool outputs
 are exact and their float outputs within 2 ulp (libdevice ``exp`` and
 the twin's ``torch.exp`` may round differently).
@@ -16,7 +16,9 @@ the twin's ``torch.exp`` may round differently).
 Timing (:func:`time_ms`): the median of 7 single launches, each with a
 cold L2 (a 64 MiB buffer is written just before it) and each behind a
 device-side sleep long enough for the host to enqueue the launch, so
-that the CUDA events bracket device time only.
+that the CUDA events bracket device time only. :func:`launch_times`
+times each launch of the prefix and ledger kernels the same way,
+through the CUDA events their entry points record around it.
 
 Bound (:func:`bound_ms`): the larger of the bytes the function must
 move (each input read once, each output written once; for the
@@ -171,18 +173,30 @@ def checks(n: int, seed: int, dev) -> List[Check]:
            s["doi"], b[0], b[1], b[2], b[3], b[4], day, 1]
     init = torch.tensor([300, 60], dtype=torch.int32, device=dev)
 
-    def ledger_kernel():
-        U, rm = clamped.ledger_streams(s["rel"], s["req"], s["offset"])
-        g, fin_ = clamped.grants_from_streams(U, rm, s["rel"], s["req"],
-                                              init, s["offset"])
-        return tuple(U) + tuple(g) + (fin_,)
+    def ledger(fn, offset, rel=s["rel"], req=s["req"]):
+        def call():
+            g, fin_ = fn(rel, req, init, offset)
+            return tuple(g) + (fin_,)
+        return call
 
-    def ledger_twin():
-        U = [torch.cumsum(r - q.to(torch.int32), 0, dtype=torch.int32)
-             - (r - q.to(torch.int32)) + r
-             for r, q in zip(s["rel"], s["req"])]
-        g, fin_ = clamped.grants_twin(s["rel"], s["req"], init, s["offset"])
-        return tuple(U) + tuple(g) + (fin_,)
+    def ledger_pair(offset, **kw):
+        return (ledger(clamped.clamped_counter_grants, offset, **kw),
+                ledger(clamped.grants_twin, offset, **kw))
+
+    # a partial last tile of 4096 agents and a length % 4 != 0
+    n_odd = n - 3095
+    rel_odd = [r[:n_odd].clone() for r in s["rel"]]
+    req_odd = [q[:n_odd].clone() for q in s["req"]]
+    # prefix weights that are not integers (f[0]), and 21504 of them,
+    # whose blocks of 56 rows (max_block_rows 64) are no power of two
+    r56 = np.random.default_rng(seed + 1)
+    w56 = torch.from_numpy(r56.random(21504).astype(np.float32)).to(dev)
+    codes56 = torch.from_numpy(r56.integers(0, V, 21504)
+                               .astype(np.int32)).to(dev)
+
+    def prefix_pair(w, c, n_seg, rows):
+        return (lambda: (fusedmap.fused_concat_prefix(w, c, n_seg, rows),),
+                lambda: (fusedmap.concat_prefix_twin(w, c, n_seg, rows),))
 
     masks = [bb for bb in b[:13]]
     codes = s["var"].to(torch.int32)
@@ -222,9 +236,12 @@ def checks(n: int, seed: int, dev) -> List[Check]:
               lambda: step.finalize(*fin), 2, fin,
               library_note="none: no one call computes a fused body"),
         Check("ledger_scan", "cuda", "reina_tpu_torch/kernels/csrc/ledger.cu",
-              "reina_tpu/ops/clamped.py:159", ledger_kernel, ledger_twin,
+              "reina_tpu/ops/clamped.py:159", *ledger_pair(s["offset"]),
               inputs=s["rel"] + s["req"] + [init],
-              library_note="none: no one call computes the FCFS ledger"),
+              library_note="none: no one call computes the FCFS ledger",
+              extra=[ledger_pair(0), ledger_pair(n - 1), ledger_pair(4096),
+                     ledger_pair(n_odd - 1, rel=rel_odd, req=req_odd),
+                     ledger_pair(n_odd // 2, rel=rel_odd, req=req_odd)]),
         Check("fused_concat_prefix", "cuda",
               "reina_tpu_torch/kernels/csrc/prefix.cu", f"{_FM}:553",
               lambda: (fusedmap.fused_concat_prefix(s["newly"], None, 1),
@@ -236,7 +253,11 @@ def checks(n: int, seed: int, dev) -> List[Check]:
                                torch.cumsum(cat, 0)),
               library_note="torch.cumsum of newly and of the materialised "
                            "concatenation (not bit-equal: another "
-                           "association)"),
+                           "association)",
+              extra=[prefix_pair(f[0], None, 1, 16),
+                     prefix_pair(f[0], codes, V, 16),
+                     prefix_pair(w56, None, 1, 64),
+                     prefix_pair(w56, codes56, V, 64)]),
         Check("fused_onehot_sum", "cuda",
               "reina_tpu_torch/kernels/csrc/onehot.cu", f"{_FM}:318",
               lambda: (fusedmap.fused_onehot_sum(masks, s["code"], G + 1),),
@@ -311,27 +332,75 @@ def compare(got, want, float_ulp: int):
 _flush = None
 
 
-def time_ms(fn, repeats: int = 7) -> float:
-    """Median device time of ``repeats`` single calls, each with a cold
-    L2 and behind a device-side sleep (see the module docstring)."""
+def _cold() -> None:
+    """A device-side sleep for the host to enqueue behind, then an L2
+    flush (64 MiB written)."""
     global _flush
     if _flush is None:
         _flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    torch.cuda._sleep(4_000_000)     # ~2 ms at the H100's boost clock
+    _flush.fill_(1)
+
+
+def _events(k: int):
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(k)]
+    for e in evs:
+        e.record()                   # creates the CUDA event
+    return evs
+
+
+def time_ms(fn, repeats: int = 7) -> float:
+    """Median device time of ``repeats`` single calls, each with a cold
+    L2 and behind a device-side sleep (see the module docstring)."""
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(repeats):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(4_000_000)     # ~2 ms at the H100's boost clock
-        _flush.fill_(1)
+        a, b = _events(2)
+        _cold()
         a.record()
         fn()
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def launch_times(n: int, seed: int, dev, repeats: int = 7) -> dict:
+    """{call: [ms of each launch]}: the median device time of each launch
+    of the prefix kernel (one; the day step's n_seg 1 and n_seg 2 calls
+    apart) and of the ledger kernel (three), on :func:`checks`' inputs,
+    between the CUDA events their entry points record around each
+    launch, cold L2 before each call as in :func:`time_ms`."""
+    s = _streams(n, seed, dev)
+    codes = s["var"].to(torch.int32)
+    init = torch.tensor([300, 60], dtype=torch.int32, device=dev)
+    calls = {
+        "fused_concat_prefix n_seg 1": (1, lambda ev: fusedmap.
+                                        fused_concat_prefix(
+                                            s["newly"], None, 1, events=ev)),
+        "fused_concat_prefix n_seg 2": (1, lambda ev: fusedmap.
+                                        fused_concat_prefix(
+                                            s["w"], codes, V, events=ev)),
+        "ledger_scan": (3, lambda ev: clamped.ledger_grants(
+            s["rel"], s["req"], init, s["offset"], events=ev)),
+    }
+    out = {}
+    for name, (k, fn) in calls.items():
+        evs = _events(k + 1)
+        for _ in range(2):
+            fn(evs)
+        torch.cuda.synchronize()
+        per = [[] for _ in range(k)]
+        for _ in range(repeats):
+            _cold()
+            fn(evs)
+            torch.cuda.synchronize()
+            for j in range(k):
+                per[j].append(evs[j].elapsed_time(evs[j + 1]))
+        out[name] = [float(np.median(p)) for p in per]
+    return out
 
 
 def _nbytes(ts) -> int:

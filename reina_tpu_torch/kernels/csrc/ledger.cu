@@ -1,176 +1,301 @@
-// Capacity-ledger scan for the bed and ICU ledgers of the day step.
+// Capacity-ledger grants for the bed and ICU ledgers of the day step.
 //
 // Replaces reina_tpu/ops/clamped.py:_ledger_kernel (the Pallas streaming
-// scan). For each ledger, over positions i of the agent axis:
+// scan) and the grant arithmetic that consumes its streams
+// (_grants_from_streams). For each ledger, over positions i of the agent
+// axis, with a = rel - req, s the prefix sum of a and
+// key[i] = (req[i] ? 0 : NEG) - s_incl[i]:
 //
-//   a[i]   = rel[i] - req[i]
-//   U[i]   = s_excl[i] + rel[i]                        (s = prefix sum of a)
-//   key[i] = (req[i] ? 0 : NEG) - s_incl[i]
-//   rm[i]  = max(NEG, max_{j<i, j>=offset} key[j])     if i >= offset
-//            max(NEG, max_{j<i} key[j])                otherwise
+//   s_excl[offset] = c_off,  base_a = init - c_off
+//   final_a = s_tot + max(base_a, max_{j >= offset} key[j])
+//   final_b = c_off + max(final_a, max_{j < offset} key[j])    -> final
+//   granted[i] = req[i] && s_excl[i] + rel[i]
+//                + (i >= offset ? max(base_a, max_{offset <= j < i} key[j])
+//                               : max(final_a, max_{j < i} key[j])) > 0
 //
-// The plain twin consumes U and rm into grants (ops/clamped.py).
+// the first-come-first-served sweep from offset to the end and then from
+// 0 to offset. It equals the plain twin (ops/clamped.py:grants_twin)
+// exactly: all arithmetic is in int64, where every association gives the
+// same integers.
 //
-// What bounds it on the card: bytes. Per agent it reads 4+1 bytes and
-// writes 8 bytes per ledger, ~45 MB in all at HUS size, a few
-// microseconds of HBM time; the sequential carry is the design problem.
-// The Pallas kernel carried (sum, masked max, max) from one grid step to
-// the next. Blocks on the GPU run in no order, so the carry becomes a
-// three-phase scan over the monoid
+// What bounds it on the card: bytes, 5 read and 1 written per agent and
+// ledger. The Pallas kernel carried (sum, masked max, max) from one grid
+// step to the next; blocks on the GPU run in no order, so the carry is a
+// scan over the monoid
 //
 //   (s1, ka1, kf1) + (s2, ka2, kf2) = (s1 + s2, max(ka1, ka2 - s1),
 //                                      max(kf1, kf2 - s1))
 //
-// (a segment's key maxima are kept relative to the segment's own start,
-// so appending a segment subtracts the sum before it): each block folds
-// its tile, one thread scans the tile totals, and each block rescans its
-// tile from its carry. Sums and keys are int64 inside the scan, so no
-// intermediate saturates; rm is clamped to NEG only at the store.
+// (a segment's key maxima are kept relative to its own start, so
+// appending a segment subtracts the sum before it; ka counts positions
+// >= offset only), in three launches over tiles of 4096 agents:
+//
+//   K1 ledger_tile_fold   each CTA folds its tile: a lane reads 16
+//                         consecutive agents (4 int4 of rel, 16 bytes of
+//                         req), folds them in registers, and the lanes
+//                         and warps are scanned with shuffles, left
+//                         operand first. The CTA that holds offset also
+//                         writes the fold of its tile before offset.
+//   K2 ledger_tile_scan   one CTA per ledger scans the tile folds in
+//                         parallel and computes the boundary scalars
+//                         (c_off, base_a, final_a; final_b into finals).
+//   K3 ledger_emit        each CTA rescans its tile from its carry and
+//                         writes the grants, 16 bytes a lane.
+//
+// Nothing agent-sized but the grants is written.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int ITEMS = 16;
-constexpr int TILE = THREADS * ITEMS;
+constexpr int WARPS = THREADS / 32;
+constexpr int ITEMS = 16;                // consecutive agents a lane owns
+constexpr int TILE = THREADS * ITEMS;    // 4096
+constexpr int SCAN_THREADS = 1024;
 constexpr long long NEG = -(1LL << 30);
 constexpr long long NEG_INF = -(1LL << 62);
+constexpr unsigned FULL = 0xffffffffu;
 
 struct Tup {
   long long s, ka, kf;
 };
 
-__device__ __forceinline__ Tup tup_id() {
-  Tup t;
-  t.s = 0;
-  t.ka = NEG_INF;
-  t.kf = NEG_INF;
-  return t;
-}
+__device__ __forceinline__ Tup tup_id() { return Tup{0, NEG_INF, NEG_INF}; }
 
 // x followed by y
 __device__ __forceinline__ Tup combine(const Tup& x, const Tup& y) {
-  Tup r;
-  r.s = x.s + y.s;
-  r.ka = max(x.ka, y.ka - x.s);
-  r.kf = max(x.kf, y.kf - x.s);
-  return r;
+  return Tup{x.s + y.s, max(x.ka, y.ka - x.s), max(x.kf, y.kf - x.s)};
 }
 
-__device__ __forceinline__ Tup element(const int* rel, const uint8_t* req,
-                                       long long i, long long n,
-                                       long long offset) {
-  if (i >= n) return tup_id();
-  long long r = rel[i];
-  long long q = req[i] ? 1 : 0;
-  Tup t;
-  t.s = r - q;
-  t.kf = (q ? 0 : NEG) - t.s;
-  t.ka = i >= offset ? t.kf : NEG_INF;
-  return t;
+__device__ __forceinline__ Tup shfl_up(const Tup& x, int d) {
+  return Tup{__shfl_up_sync(FULL, x.s, d), __shfl_up_sync(FULL, x.ka, d),
+             __shfl_up_sync(FULL, x.kf, d)};
 }
 
-// Exclusive scan of one Tup per thread across the block (Hillis-Steele
-// over shared memory; the monoid is not commutative, so the left operand
-// is always the earlier segment).
-__device__ Tup block_exclusive(Tup v, Tup* buf) {
-  const int tid = threadIdx.x;
-  int cur = 0;
-  buf[tid] = v;
-  __syncthreads();
-  for (int d = 1; d < THREADS; d <<= 1) {
-    Tup x = buf[cur * THREADS + tid];
-    if (tid >= d) x = combine(buf[cur * THREADS + tid - d], x);
-    buf[(1 - cur) * THREADS + tid] = x;
-    cur = 1 - cur;
-    __syncthreads();
+// Exclusive scan of one value a thread across the block, in thread
+// order; returns the fold of the whole block. buf: 33 Tups of shared
+// memory. The monoid is not commutative: the left operand is always the
+// earlier segment.
+template <int NW>
+__device__ Tup block_exclusive(const Tup& v, Tup& ex, Tup* buf) {
+  static_assert(NW <= 32, "one warp scans the warp folds");
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  Tup inc = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const Tup y = shfl_up(inc, d);
+    if (lane >= d) inc = combine(y, inc);
   }
-  Tup ex = tid == 0 ? tup_id() : buf[cur * THREADS + tid - 1];
+  if (lane == 31) buf[warp] = inc;
   __syncthreads();
-  return ex;
+  if (warp == 0) {
+    Tup x = lane < NW ? buf[lane] : tup_id();
+#pragma unroll
+    for (int d = 1; d < NW; d <<= 1) {
+      const Tup y = shfl_up(x, d);
+      if (lane >= d) x = combine(y, x);
+    }
+    Tup xe = shfl_up(x, 1);
+    if (lane == 0) xe = tup_id();
+    __syncwarp();
+    buf[lane] = xe;
+    if (lane == NW - 1) buf[32] = x;
+  }
+  __syncthreads();
+  Tup e = shfl_up(inc, 1);
+  if (lane == 0) e = tup_id();
+  ex = combine(buf[warp], e);
+  const Tup total = buf[32];
+  __syncthreads();
+  return total;
+}
+
+// A lane's 16 agents from i (i % 16 == 0): rel as 4 int4, req as one
+// 16-byte word; positions >= n read as nothing.
+struct Agents {
+  int r[ITEMS];
+  unsigned q[ITEMS / 4];   // req bytes, 4 a word
+  __device__ int req(int e) const { return (q[e / 4] >> (8 * (e % 4))) & 0xff; }
+};
+
+__device__ __forceinline__ void load_agents(const int* __restrict__ rel,
+                                            const uint8_t* __restrict__ req,
+                                            long long i, long long n,
+                                            Agents& a) {
+  if (i + ITEMS <= n) {
+#pragma unroll
+    for (int j = 0; j < ITEMS / 4; ++j) {
+      const int4 x = __ldg(reinterpret_cast<const int4*>(rel + i) + j);
+      a.r[4 * j] = x.x, a.r[4 * j + 1] = x.y, a.r[4 * j + 2] = x.z,
+      a.r[4 * j + 3] = x.w;
+    }
+    const uint4 y = __ldg(reinterpret_cast<const uint4*>(req + i));
+    a.q[0] = y.x, a.q[1] = y.y, a.q[2] = y.z, a.q[3] = y.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < ITEMS / 4; ++j) a.q[j] = 0;
+#pragma unroll
+    for (int e = 0; e < ITEMS; ++e) {
+      a.r[e] = i + e < n ? rel[i + e] : 0;
+      if (i + e < n) a.q[e / 4] |= (unsigned)req[i + e] << (8 * (e % 4));
+    }
+  }
+}
+
+// The running form of the fold: from (s, ka, kf), agent i with release
+// r and request q moves s to s + r - q and raises kf (and, from offset
+// on, ka) to its key (q ? 0 : NEG) - s. This is combine with the agent's
+// element, with ka left at its value before offset where combine would
+// give NEG_INF - s; either stays far below every balance it is maxed
+// with.
+__device__ __forceinline__ void step(Tup& t, int r, int q, bool in_a) {
+  t.s += (long long)r - q;
+  const long long key = (q ? 0 : NEG) - t.s;
+  t.kf = max(t.kf, key);
+  if (in_a) t.ka = max(t.ka, key);
+}
+
+// Fold of the agents i .. i + 15 below lim.
+__device__ __forceinline__ Tup fold(const Agents& a, long long i,
+                                    long long lim, long long offset) {
+  Tup acc = tup_id();
+#pragma unroll
+  for (int e = 0; e < ITEMS; ++e)
+    if (i + e < lim) step(acc, a.r[e], a.req(e), i + e >= offset);
+  return acc;
 }
 
 struct Ledgers {
   const int* rel[2];
   const uint8_t* req[2];
-  int* U[2];
-  int* rm[2];
+  uint8_t* granted[2];
 };
 
-__global__ void tile_reduce(Ledgers lg, int L, long long n, long long offset,
-                            Tup* tiles) {
-  __shared__ Tup buf[2 * THREADS];
-  const long long base = (long long)blockIdx.x * TILE +
-                         (long long)threadIdx.x * ITEMS;
-  for (int led = 0; led < L; ++led) {
-    Tup acc = tup_id();
-    for (int j = 0; j < ITEMS; ++j)
-      acc = combine(acc, element(lg.rel[led], lg.req[led], base + j, n,
-                                 offset));
-    Tup ex = block_exclusive(acc, buf);
-    if (threadIdx.x == THREADS - 1)
-      tiles[(long long)led * gridDim.x + blockIdx.x] = combine(ex, acc);
-  }
+// Loads this lane's 16 agents of ledger blockIdx.y and scans the CTA's
+// tile: ex is the fold of the tile before them; returns the tile's fold.
+__device__ __forceinline__ Tup scan_tile(const Ledgers& lg, long long n,
+                                         long long offset, long long i,
+                                         Agents& a, Tup& ex, Tup* buf) {
+  const bool second = blockIdx.y != 0;
+  load_agents(second ? lg.rel[1] : lg.rel[0], second ? lg.req[1] : lg.req[0],
+              i, n, a);
+  return block_exclusive<WARPS>(fold(a, i, n, offset), ex, buf);
 }
 
-__global__ void tile_scan(const Tup* tiles, Tup* excl, int L, int ntiles) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
-  for (int led = 0; led < L; ++led) {
-    Tup c = tup_id();
-    for (int b = 0; b < ntiles; ++b) {
-      excl[(long long)led * ntiles + b] = c;
-      c = combine(c, tiles[(long long)led * ntiles + b]);
-    }
-  }
+// K1: tiles[led * ntiles + tile] = the tile's fold; pre[led] = the fold
+// of the agents of offset's tile before offset.
+__global__ void __launch_bounds__(THREADS, 3)
+ledger_tile_fold(Ledgers lg, long long n, long long offset, Tup* tiles,
+                 Tup* pre) {
+  __shared__ Tup buf[33];
+  const long long i = (long long)blockIdx.x * TILE + ITEMS * threadIdx.x;
+  Agents a;
+  Tup ex;
+  const Tup total = scan_tile(lg, n, offset, i, a, ex, buf);
+  const int led = blockIdx.y;
+  if (threadIdx.x == 0) tiles[(long long)led * gridDim.x + blockIdx.x] = total;
+  if (offset >= i && offset < i + ITEMS)
+    pre[led] = combine(ex, fold(a, i, offset, offset));
 }
 
-__global__ void tile_emit(Ledgers lg, int L, long long n, long long offset,
-                          const Tup* excl) {
-  __shared__ Tup buf[2 * THREADS];
-  const long long base = (long long)blockIdx.x * TILE +
-                         (long long)threadIdx.x * ITEMS;
-  for (int led = 0; led < L; ++led) {
-    const int* rel = lg.rel[led];
-    const uint8_t* req = lg.req[led];
-    Tup acc = tup_id();
-    for (int j = 0; j < ITEMS; ++j)
-      acc = combine(acc, element(rel, req, base + j, n, offset));
-    Tup ex = block_exclusive(acc, buf);
-    Tup c = combine(excl[(long long)led * gridDim.x + blockIdx.x], ex);
-    for (int j = 0; j < ITEMS; ++j) {
-      const long long i = base + j;
-      if (i >= n) break;
-      lg.U[led][i] = (int)(c.s + rel[i]);
-      const long long m = i >= offset ? c.ka : c.kf;
-      lg.rm[led][i] = (int)(m > NEG ? m : NEG);
-      c = combine(c, element(rel, req, i, n, offset));
-    }
+// K2: excl[led * ntiles + t] = the fold of the tiles before t; the
+// boundary scalars into scal[2 * led + {0, 1}] = (base_a, final_a) and
+// finals[led] = final_b.
+__global__ void ledger_tile_scan(const Tup* tiles, Tup* excl, const Tup* pre,
+                                 const int* init, long long offset,
+                                 int ntiles, long long* scal, int* finals) {
+  __shared__ Tup buf[33];
+  const int led = blockIdx.x;
+  const Tup* tl = tiles + (long long)led * ntiles;
+  Tup* el = excl + (long long)led * ntiles;
+  Tup carry = tup_id();
+  for (int base = 0; base < ntiles; base += SCAN_THREADS) {
+    const int j = base + threadIdx.x;
+    Tup ex;
+    const Tup total = block_exclusive<SCAN_THREADS / 32>(
+        j < ntiles ? tl[j] : tup_id(), ex, buf);
+    if (j < ntiles) el[j] = combine(carry, ex);
+    carry = combine(carry, total);
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const Tup at_off = combine(el[offset / TILE], pre[led]);
+  const long long c_off = at_off.s;
+  const long long base_a = init[led] - c_off;
+  const long long final_a = carry.s + max(base_a, carry.ka);
+  scal[2 * led] = base_a;
+  scal[2 * led + 1] = final_a;
+  finals[led] = (int)(c_off + max(final_a, at_off.kf));
+}
+
+// K3: the grants of this lane's 16 agents, one 16-byte store.
+__global__ void __launch_bounds__(THREADS, 3)
+ledger_emit(Ledgers lg, long long n, long long offset, const Tup* excl,
+            const long long* scal) {
+  __shared__ Tup buf[33];
+  const long long i = (long long)blockIdx.x * TILE + ITEMS * threadIdx.x;
+  Agents a;
+  Tup ex;
+  scan_tile(lg, n, offset, i, a, ex, buf);
+  const int led = blockIdx.y;
+  Tup cur = combine(excl[(long long)led * gridDim.x + blockIdx.x], ex);
+  const long long base_a = scal[2 * led], final_a = scal[2 * led + 1];
+  unsigned out[ITEMS / 4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int e = 0; e < ITEMS; ++e) {
+    const int q = a.req(e);
+    const bool in_a = i + e >= offset;
+    const long long m = in_a ? max(base_a, cur.ka) : max(final_a, cur.kf);
+    out[e / 4] |= (unsigned)(q && cur.s + a.r[e] + m > 0) << (8 * (e % 4));
+    step(cur, a.r[e], q, in_a);
+  }
+  uint8_t* g = led ? lg.granted[1] : lg.granted[0];
+  if (i + ITEMS <= n) {
+    *reinterpret_cast<uint4*>(g + i) = make_uint4(out[0], out[1], out[2],
+                                                  out[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < ITEMS; ++e)
+      if (i + e < n) g[i + e] = (out[e / 4] >> (8 * (e % 4))) & 0xff;
   }
 }
 
 }  // namespace
 
-// tiles and excl: int64 scratch of 3 * L * ceil(n / 4096) entries each.
-extern "C" int reina_ledger_scan(const void* rel0, const void* rel1,
-                                 const void* req0, const void* req1,
-                                 void* U0, void* U1, void* rm0, void* rm1,
-                                 void* tiles, void* excl, long long n,
-                                 long long offset, int L, void* stream) {
+// 0 <= offset < n; rel, req and granted 16-byte aligned. init: (L,) int32
+// on the device; finals: (L,) int32 out. scratch: int64, 6 * L *
+// ceil(n / 4096) + 5 * L entries. events: NULL, or 4 CUDA events
+// recorded before K1 and after each launch.
+extern "C" int reina_ledger_grants(const void* rel0, const void* rel1,
+                                   const void* req0, const void* req1,
+                                   void* granted0, void* granted1,
+                                   const void* init, void* finals,
+                                   void* scratch, long long n,
+                                   long long offset, int L,
+                                   void* const* events, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Ledgers lg;
   lg.rel[0] = (const int*)rel0;
   lg.rel[1] = (const int*)rel1;
   lg.req[0] = (const uint8_t*)req0;
   lg.req[1] = (const uint8_t*)req1;
-  lg.U[0] = (int*)U0;
-  lg.U[1] = (int*)U1;
-  lg.rm[0] = (int*)rm0;
-  lg.rm[1] = (int*)rm1;
+  lg.granted[0] = (uint8_t*)granted0;
+  lg.granted[1] = (uint8_t*)granted1;
   const int ntiles = (int)((n + TILE - 1) / TILE);
-  tile_reduce<<<ntiles, THREADS, 0, st>>>(lg, L, n, offset, (Tup*)tiles);
-  tile_scan<<<1, 32, 0, st>>>((const Tup*)tiles, (Tup*)excl, L, ntiles);
-  tile_emit<<<ntiles, THREADS, 0, st>>>(lg, L, n, offset,
-                                        (const Tup*)excl);
+  Tup* tiles = (Tup*)scratch;
+  Tup* excl = tiles + (long long)L * ntiles;
+  Tup* pre = excl + (long long)L * ntiles;
+  long long* scal = (long long*)(pre + L);
+  const dim3 grid(ntiles, L);
+  if (events) cudaEventRecord((cudaEvent_t)events[0], st);
+  ledger_tile_fold<<<grid, THREADS, 0, st>>>(lg, n, offset, tiles, pre);
+  if (events) cudaEventRecord((cudaEvent_t)events[1], st);
+  ledger_tile_scan<<<L, SCAN_THREADS, 0, st>>>(tiles, excl, pre,
+                                               (const int*)init, offset,
+                                               ntiles, scal, (int*)finals);
+  if (events) cudaEventRecord((cudaEvent_t)events[2], st);
+  ledger_emit<<<grid, THREADS, 0, st>>>(lg, n, offset, excl, scal);
+  if (events) cudaEventRecord((cudaEvent_t)events[3], st);
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,9 @@
 // Blockwise prefix sum over a virtual concatenation of masked copies.
 //
 // Replaces reina_tpu/ops/fusedmap.py:fused_concat_prefix (the Pallas
-// kernel). With R = n / 128 rows of 128 lanes and blocks of blk rows
-// (G = R / blk blocks per segment), the output is, for segment s and
-// block j (flat block b = s * G + j, in grid order):
+// kernel). With R = n / 128 rows of 128 lanes and logical blocks of blk
+// rows (G = R / blk blocks per segment), the output is, for segment s
+// and block j (flat block b = s * G + j, in grid order):
 //
 //   x      = where(codes == s, w, 0) on the (blk, 128) block
 //   x_ls   = Hillis-Steele scan of each row's 128 lanes
@@ -13,85 +13,144 @@
 //
 // which is the reference's float association step for step
 // (_hs_prefix_block and the serial carry), so the result equals the
-// plain twin bit for bit even for real-valued weights. Only additions
-// occur, so no FMA contraction can change a rounding.
+// plain twin bit for bit even for real-valued weights. Each step adds
+// +0.0 where the twin's shifted copy is zero. Only additions occur, so
+// no FMA contraction can change a rounding.
 //
-// What bounds it on the card: bytes. It reads the weights and codes
-// twice per segment and writes the output once, ~60 MB for the two-
-// segment pass at HUS size. The Pallas kernel carried the running total
-// from one grid step to the next; here the carry is split out: pass A
-// scans each block's rows and row totals, one thread folds the n_seg * G
-// block totals in grid order (9 per segment at HUS size), and pass C
-// rescans the rows and adds the row offsets and the block's carry.
+// What bounds it on the card: bytes (each weight and code read once,
+// each output written once), and at these sizes the launches: a cold
+// launch costs several microseconds. So the three phases run in one
+// cooperative launch, separated by grid-wide barriers, with a CTA per SM
+// slot (all resident), and the logical block fixes the association, not
+// the launch shape:
+//
+//   1. row totals   one warp per row, 4 rows a warp loaded before any is
+//                   summed. A lane holds 4 lanes of a row in registers
+//                   (one float4 of w, one int4 of codes). The scan's last
+//                   lane is a pairwise tree of the row (row_total), 5
+//                   xor-shuffles. One read gives the row totals of all
+//                   n_seg segments; the rows stay in registers for
+//                   phase 3.
+//   2. row offsets  a CTA per logical block: the Hillis-Steele scan of
+//                   its blk row totals in shared memory, the row offsets
+//                   d = r - t (in place of t) and the block's last value.
+//   3. emit         every CTA folds the n_seg * G last values into the
+//                   carries, serially in grid order, then scans its rows
+//                   (lane_scan: Hillis-Steele steps k = 1, 2 combine the
+//                   lane's own values and its left neighbour's, steps
+//                   k >= 4 shuffle by k / 4 lanes) and writes
+//                   (x_ls + d) + carry as float4.
+//
+// Values written inside the launch are read back through L2 (__ldcg):
+// another SM's L1 may hold the row totals that the offsets replaced.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
-#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int LANE = 128;
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
+constexpr int ROWS = 4;               // rows a warp holds
+constexpr int ROWS_PER_CTA = WARPS * ROWS;
+constexpr unsigned FULL = 0xffffffffu;
 
-// Load one row (lanes 4*lane .. 4*lane+3 of this thread), masked to
-// segment s.
-__device__ __forceinline__ void load_row(const float* w, const int* codes,
-                                         long long row, int seg, int lane,
-                                         float v[4]) {
-  const long long i = row * LANE + 4 * lane;
-  const float4 x = *reinterpret_cast<const float4*>(w + i);
-  v[0] = x.x;
-  v[1] = x.y;
-  v[2] = x.z;
-  v[3] = x.w;
-  if (codes != nullptr) {
-    const int4 c = *reinterpret_cast<const int4*>(codes + i);
-    v[0] = c.x == seg ? v[0] : 0.0f;
-    v[1] = c.y == seg ? v[1] : 0.0f;
-    v[2] = c.z == seg ? v[2] : 0.0f;
-    v[3] = c.w == seg ? v[3] : 0.0f;
-  }
+struct Rows {
+  float x[ROWS][4];
+  int c[ROWS][4];
+};
+
+// Rows g * ROWS_PER_CTA + warp + k * WARPS (k < ROWS) of group g, those
+// below R.
+__device__ __forceinline__ long long row_of(long long g, int k) {
+  return g * ROWS_PER_CTA + threadIdx.x / 32 + k * WARPS;
 }
 
-// Hillis-Steele scan of a 128-lane row held by one warp, through a
-// per-warp double buffer: step k adds lane l-k (or 0) to lane l.
-__device__ void lane_scan(float* sb, int lane, float v[4]) {
-  int cur = 0;
-  for (int i = 0; i < 4; ++i) sb[4 * lane + i] = v[i];
-  __syncwarp();
-  for (int k = 1; k < LANE; k <<= 1) {
-    for (int i = 0; i < 4; ++i) {
-      const int l = 4 * lane + i;
-      const float x = sb[cur * LANE + l];
-      const float y = l >= k ? sb[cur * LANE + l - k] : 0.0f;
-      sb[(1 - cur) * LANE + l] = x + y;
+__device__ __forceinline__ void load_rows(const float* __restrict__ w,
+                                          const int* __restrict__ codes,
+                                          long long R, long long g,
+                                          Rows& rows) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const long long row = row_of(g, k);
+    if (row >= R) break;
+    const long long i = row * LANE + 4 * lane;
+    const float4 v = __ldg(reinterpret_cast<const float4*>(w + i));
+    rows.x[k][0] = v.x, rows.x[k][1] = v.y, rows.x[k][2] = v.z,
+    rows.x[k][3] = v.w;
+    if (codes != nullptr) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(codes + i));
+      rows.c[k][0] = q.x, rows.c[k][1] = q.y, rows.c[k][2] = q.z,
+      rows.c[k][3] = q.w;
     }
-    cur ^= 1;
-    __syncwarp();
   }
-  for (int i = 0; i < 4; ++i) v[i] = sb[cur * LANE + 4 * lane + i];
-  __syncwarp();
 }
 
-// Pass A: row totals, their Hillis-Steele scan, the per-row offsets
-// (r - t) and the block's last value.
-__global__ void prefix_rows(const float* w, const int* codes, int G, int blk,
-                            float* dscr, float* hs_last) {
-  extern __shared__ float smem[];
-  float* t = smem;                  // blk
-  float* rb = t + blk;              // 2 * blk
-  float* wb = rb + 2 * blk;         // WARPS * 2 * LANE
-  const int b = blockIdx.x;
-  const int seg = b / G, j = b % G;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* sb = wb + warp * 2 * LANE;
-  for (int rr = warp; rr < blk; rr += WARPS) {
-    float v[4];
-    load_row(w, codes, (long long)j * blk + rr, seg, lane, v);
-    lane_scan(sb, lane, v);
-    if (lane == 31) t[rr] = v[3];
+// Row k masked to segment s (no mask without codes).
+__device__ __forceinline__ void masked(const Rows& rows, int k,
+                                       bool has_codes, int s, float v[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    v[i] = (!has_codes || rows.c[k][i] == s) ? rows.x[k][i] : 0.0f;
+}
+
+// Hillis-Steele scan of a 128-lane row held by one warp, 4 values a lane
+// (row lanes 4 * lane + i): step k adds lane l - k, or +0.0 for l < k.
+__device__ __forceinline__ void lane_scan(float v[4], int lane) {
+  const bool left = lane >= 1;
+  {  // k = 1
+    const float u3 = __shfl_up_sync(FULL, v[3], 1);
+    const float n0 = v[0] + (left ? u3 : 0.0f);
+    const float n1 = v[1] + v[0];
+    const float n2 = v[2] + v[1];
+    const float n3 = v[3] + v[2];
+    v[0] = n0, v[1] = n1, v[2] = n2, v[3] = n3;
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < blk; i += THREADS) rb[i] = t[i];
+  {  // k = 2
+    const float u2 = __shfl_up_sync(FULL, v[2], 1);
+    const float u3 = __shfl_up_sync(FULL, v[3], 1);
+    const float n0 = v[0] + (left ? u2 : 0.0f);
+    const float n1 = v[1] + (left ? u3 : 0.0f);
+    const float n2 = v[2] + v[0];
+    const float n3 = v[3] + v[1];
+    v[0] = n0, v[1] = n1, v[2] = n2, v[3] = n3;
+  }
+#pragma unroll
+  for (int m = 1; m < 32; m <<= 1) {  // k = 4m: lane l - m, same slot
+    float u[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) u[i] = __shfl_up_sync(FULL, v[i], m);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = v[i] + (lane >= m ? u[i] : 0.0f);
+  }
+}
+
+// The row's total as the Hillis-Steele scan leaves it in lane 127: the
+// sums it adds into that lane form a balanced pairwise tree (lanes
+// 2i + 1 and 2i, then pairs of those, ...), and float addition is
+// commutative, so 5 xor-shuffles give the same bits in every lane.
+__device__ __forceinline__ float row_total(const float v[4]) {
+  float x = (v[3] + v[2]) + (v[1] + v[0]);
+#pragma unroll
+  for (int m = 1; m < 32; m <<= 1) x = x + __shfl_xor_sync(FULL, x, m);
+  return x;
+}
+
+// Phase 2 for logical block b: the scan of its row totals tb[0, blk);
+// d = r - t in place of t, hs_last[b] = its last output before the
+// carry. sm: 3 * blk floats.
+__device__ void block_offsets(float* tb, int blk, float* hs_last, int b,
+                              float* sm) {
+  float* t = sm;        // blk
+  float* rb = t + blk;  // 2 * blk
+  for (int i = threadIdx.x; i < blk; i += THREADS) {
+    const float x = __ldcg(tb + i);
+    t[i] = x;
+    rb[i] = x;
+  }
   __syncthreads();
   int cur = 0;
   for (int k = 1; k < blk; k <<= 1) {
@@ -104,68 +163,130 @@ __global__ void prefix_rows(const float* w, const int* codes, int G, int blk,
     __syncthreads();
   }
   for (int i = threadIdx.x; i < blk; i += THREADS)
-    dscr[(long long)b * blk + i] = rb[cur * blk + i] - t[i];
+    tb[i] = rb[cur * blk + i] - t[i];
   if (threadIdx.x == 0)
     hs_last[b] = t[blk - 1] + (rb[cur * blk + blk - 1] - t[blk - 1]);
+  __syncthreads();
 }
 
-// The serial carry across blocks in grid order.
-__global__ void prefix_carry(const float* hs_last, float* carry, int nb) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
+// carry[b] = the serial fold of hs_last[< b], b < nb, by one warp: 32
+// block values loaded at a time, folded in order by every lane alike
+// (lane k stores the carry of block j0 + k).
+__device__ void fold_carries(const float* hs_last, int nb, float* carry) {
+  const int lane = threadIdx.x % 32;
   float c = 0.0f;
-  for (int b = 0; b < nb; ++b) {
-    carry[b] = c;
-    c = hs_last[b] + c;
+  for (int j0 = 0; j0 < nb; j0 += 32) {
+    const int j = j0 + lane;
+    const float h = j < nb ? __ldcg(hs_last + j) : 0.0f;
+    const int m = min(32, nb - j0);
+    for (int k = 0; k < m; ++k) {
+      const float hk = __shfl_sync(FULL, h, k);
+      if (lane == k) carry[j] = c;
+      c = hk + c;
+    }
   }
 }
 
-// Pass C: rescan each row and write (x_ls + (r - t)) + carry.
-__global__ void prefix_emit(const float* w, const int* codes, int G, int blk,
-                            const float* dscr, const float* carry,
-                            float* out) {
-  __shared__ float wbuf[WARPS * 2 * LANE];
-  const int b = blockIdx.x;
-  const int seg = b / G, j = b % G;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* sb = wbuf + warp * 2 * LANE;
-  const float cb = carry[b];
-  for (int rr = warp; rr < blk; rr += WARPS) {
-    float v[4];
-    load_row(w, codes, (long long)j * blk + rr, seg, lane, v);
-    lane_scan(sb, lane, v);
-    const float d = dscr[(long long)b * blk + rr];
-    float4 o;
-    o.x = (v[0] + d) + cb;
-    o.y = (v[1] + d) + cb;
-    o.z = (v[2] + d) + cb;
-    o.w = (v[3] + d) + cb;
-    *reinterpret_cast<float4*>(out + ((long long)b * blk + rr) * LANE +
-                               4 * lane) = o;
+__global__ void __launch_bounds__(THREADS)
+prefix_fused(const float* __restrict__ w, const int* __restrict__ codes,
+             long long R, int n_seg, int blk, float* td, float* hs_last,
+             float* __restrict__ out) {
+  extern __shared__ float sm[];  // max(3 * blk, n_seg * G) floats
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x % 32;
+  const bool has_codes = codes != nullptr;
+  const long long groups = (R + ROWS_PER_CTA - 1) / ROWS_PER_CTA;
+  const int G = (int)(R / blk), nb = n_seg * G;
+  // this CTA's groups are blockIdx.x + m * gridDim.x; phase 1 walks them
+  // last first, so that the registers end up holding the first
+  Rows rows;
+  const long long mine =
+      blockIdx.x < groups ? (groups - 1 - blockIdx.x) / gridDim.x : -1;
+  for (long long m = mine; m >= 0; --m) {
+    const long long g = blockIdx.x + m * gridDim.x;
+    load_rows(w, codes, R, g, rows);
+#pragma unroll
+    for (int k = 0; k < ROWS; ++k) {
+      const long long row = row_of(g, k);
+      if (row >= R) break;
+      for (int s = 0; s < n_seg; ++s) {
+        float v[4];
+        masked(rows, k, has_codes, s, v);
+        const float t = row_total(v);
+        if (lane == 31) td[s * R + row] = t;
+      }
+    }
+  }
+  grid.sync();
+  for (int b = blockIdx.x; b < nb; b += gridDim.x)
+    block_offsets(td + (long long)b * blk, blk, hs_last, b, sm);
+  grid.sync();
+  if (threadIdx.x < 32) fold_carries(hs_last, nb, sm);
+  __syncthreads();
+  for (long long m = 0; m <= mine; ++m) {
+    const long long g = blockIdx.x + m * gridDim.x;
+    if (m > 0) load_rows(w, codes, R, g, rows);
+    for (int s = 0; s < n_seg; ++s) {
+      float dr[ROWS];   // the row offsets, all loaded before any scan
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) {
+        const long long row = row_of(g, k);
+        dr[k] = row < R ? __ldcg(td + s * R + row) : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) {
+        const long long row = row_of(g, k);
+        if (row >= R) break;
+        float v[4];
+        masked(rows, k, has_codes, s, v);
+        lane_scan(v, lane);
+        const float cb = sm[s * G + (int)(row / blk)];
+        float4 o;
+        o.x = (v[0] + dr[k]) + cb;
+        o.y = (v[1] + dr[k]) + cb;
+        o.z = (v[2] + dr[k]) + cb;
+        o.w = (v[3] + dr[k]) + cb;
+        *reinterpret_cast<float4*>(out + (s * R + row) * LANE + 4 * lane) =
+            o;
+      }
+    }
   }
 }
 
 }  // namespace
 
-// n % 128 == 0, (n / 128) % blk == 0. scratch: n_seg * n / 128 row
-// offsets, then n_seg * G block totals, then n_seg * G carries (floats).
+// n % 1024 == 0, (n / 128) % blk == 0, w and codes 16-byte aligned.
+// scratch (floats): n_seg * n / 128 row totals / offsets, then n_seg * G
+// block values. events: NULL, or 2 CUDA events recorded before and after
+// the launch.
 extern "C" int reina_concat_prefix(const void* w, const void* codes,
                                    void* out, void* scratch, long long n,
-                                   int n_seg, int blk, void* stream) {
+                                   int n_seg, int blk, void* const* events,
+                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const long long R = n / LANE;
-  const int G = (int)(R / blk);
-  const int nb = n_seg * G;
-  float* dscr = (float*)scratch;
-  float* hs_last = dscr + (long long)n_seg * R;
-  float* carry = hs_last + nb;
-  const size_t smem = (size_t)(3 * blk + WARPS * 2 * LANE) * sizeof(float);
-  cudaFuncSetAttribute(prefix_rows,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  prefix_rows<<<nb, THREADS, smem, st>>>((const float*)w, (const int*)codes,
-                                         G, blk, dscr, hs_last);
-  prefix_carry<<<1, 32, 0, st>>>(hs_last, carry, nb);
-  prefix_emit<<<nb, THREADS, 0, st>>>((const float*)w, (const int*)codes, G,
-                                      blk, dscr, carry, (float*)out);
-  return (int)cudaGetLastError();
+  long long R = n / LANE;
+  const int nb = n_seg * (int)(R / blk);
+  float* td = (float*)scratch;
+  float* hs_last = td + (long long)n_seg * R;
+  size_t smem = (size_t)max(3 * blk, nb) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      prefix_fused, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, prefix_fused,
+                                                      THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long groups = (R + ROWS_PER_CTA - 1) / ROWS_PER_CTA;
+  const unsigned ctas = (unsigned)min((long long)sms * per_sm, groups);
+  const float* wp = (const float*)w;
+  const int* cp = (const int*)codes;
+  float* op = (float*)out;
+  void* args[] = {&wp, &cp, &R, &n_seg, &blk, &td, &hs_last, &op};
+  if (events) cudaEventRecord((cudaEvent_t)events[0], st);
+  err = cudaLaunchCooperativeKernel((const void*)prefix_fused, dim3(ctas),
+                                    dim3(THREADS), args, smem, st);
+  if (events) cudaEventRecord((cudaEvent_t)events[1], st);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

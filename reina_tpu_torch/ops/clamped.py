@@ -7,11 +7,11 @@ and one cummax per ledger, with the cyclic sweep [offset, N) then
 [0, offset) handled as two masked segments over the original order.
 
 The twin (CPU) evaluates that closed form directly. On CUDA the ledger
-kernel (kernels/csrc/ledger.cu) emits the streams U = s_excl + rel and
-rm (the running key maxima, saturated at _NEG) for every ledger in one
-launch, and :func:`grants_from_streams` turns them into grants and the
-final balance. Only (granted, final) are held equal to the twin: the
-saturation of rm is the kernel's own.
+kernel (kernels/csrc/ledger.cu) computes the same grants and final
+balances of both ledgers in int64 in three launches: a fold of each
+tile of 4096 agents, a scan of the tile folds that also yields the
+closed form's boundary scalars, and a rescan of each tile that writes
+the grants.
 """
 from __future__ import annotations
 
@@ -21,38 +21,6 @@ from .. import kernels
 
 _NEG = -(1 << 30)
 I32 = torch.int32
-
-
-def grants_from_streams(U, rm, releases, requests, init, offset: int):
-    """Grants and final balances from the kernel's U/rm streams (lists
-    of (n,) int32 per ledger); the boundary scalars come back out of
-    U/rm by single-element reads."""
-    n = releases[0].shape[0]
-    idx = torch.arange(n, dtype=I32, device=U[0].device)
-    in_a = idx >= offset
-    om1 = min(max(offset - 1, 0), n - 1)
-    granted, finals = [], []
-    for led in range(len(releases)):
-        rel = releases[led].to(I32)
-        req = requests[led].to(I32)
-        Ul, rml = U[led], rm[led]
-
-        def key_at(i):
-            return torch.where(req[i] == 1, 0, _NEG) - (Ul[i] - req[i])
-
-        s_tot = Ul[n - 1] - req[n - 1]
-        rm_a_end = torch.maximum(rml[n - 1], key_at(n - 1))
-        c_off = Ul[offset] - rel[offset]
-        rmb_end = (torch.maximum(rml[om1], key_at(om1)) if offset > 0
-                   else torch.tensor(_NEG, dtype=I32, device=Ul.device))
-        base_a = init[led].to(I32) - c_off
-        final_a = s_tot + torch.maximum(base_a, rm_a_end)
-        final_b = c_off + torch.maximum(final_a, rmb_end)
-        arriving_p = Ul + torch.where(in_a, torch.maximum(base_a, rml),
-                                      torch.maximum(final_a, rml))
-        granted.append(requests[led] & (arriving_p > 0))
-        finals.append(final_b)
-    return granted, torch.stack(finals).to(I32)
 
 
 def grants_twin(releases, requests, init, offset: int):
@@ -87,9 +55,12 @@ def grants_twin(releases, requests, init, offset: int):
     return granted, torch.stack(finals)
 
 
-def ledger_streams(releases, requests, offset: int):
-    """The ledger kernel: per-ledger U and rm streams for 1 or 2 ledgers
-    of (n,) int32 releases and bool requests on one CUDA device."""
+def ledger_grants(releases, requests, init, offset: int, events=None):
+    """The ledger kernel (kernels/csrc/ledger.cu): grants and final
+    balances of 1 or 2 ledgers of (n,) int32 releases and bool requests
+    on one CUDA device, in three launches and no other op. ``events``:
+    None, or 4 recorded CUDA events the kernel records again before its
+    first launch and after each one (for timing)."""
     L = len(releases)
     if not 1 <= L <= 2 or len(requests) != L:
         raise ValueError("ledger kernel takes 1 or 2 ledgers")
@@ -103,27 +74,35 @@ def ledger_streams(releases, requests, offset: int):
         if r.shape != (n,) or q.shape != (n,) or not (
                 r.is_contiguous() and q.is_contiguous()):
             raise ValueError("ledger kernel takes contiguous (n,) streams")
+        if r.data_ptr() % 16 or q.data_ptr() % 16:
+            raise ValueError("ledger kernel takes 16-byte aligned streams")
+    if init.device != dev or init.dtype != I32 or init.shape != (L,) \
+            or not init.is_contiguous():
+        raise TypeError("ledger kernel takes (L,) contiguous int32 init on "
+                        "the streams' device")
+    if not 0 <= offset < n:
+        raise ValueError(f"ledger kernel: offset {offset} outside [0, {n})")
     from ..kernels import build
-    U = [torch.empty(n, dtype=I32, device=dev) for _ in range(L)]
-    rm = [torch.empty(n, dtype=I32, device=dev) for _ in range(L)]
+    req = [q.view(torch.uint8) for q in requests]
+    granted = [torch.empty(n, dtype=torch.bool, device=dev)
+               for _ in range(L)]
+    final = torch.empty(L, dtype=I32, device=dev)
     ntiles = (n + 4095) // 4096
-    tiles = torch.empty(3 * L * ntiles, dtype=torch.int64, device=dev)
-    excl = torch.empty_like(tiles)
+    # tile folds, their exclusive scan, the fold of offset's tile before
+    # offset (3 int64 each), the boundary scalars (2 per ledger)
+    scratch = torch.empty(6 * L * ntiles + 5 * L, dtype=torch.int64,
+                          device=dev)
 
-    def ptr(lst, i, view=None):
-        if i >= L:
-            return None
-        t = lst[i] if view is None else lst[i].view(view)
-        return t.data_ptr()
+    def ptr(lst, i):
+        return lst[i].data_ptr() if i < L else None
 
     kernels.LAUNCHES["ledger_scan"] += 1
-    build.check(build.lib().reina_ledger_scan(
-        ptr(releases, 0), ptr(releases, 1),
-        ptr(requests, 0, torch.uint8), ptr(requests, 1, torch.uint8),
-        ptr(U, 0), ptr(U, 1), ptr(rm, 0), ptr(rm, 1),
-        tiles.data_ptr(), excl.data_ptr(), n, int(offset), L,
+    build.check(build.lib().reina_ledger_grants(
+        ptr(releases, 0), ptr(releases, 1), ptr(req, 0), ptr(req, 1),
+        ptr(granted, 0), ptr(granted, 1), init.data_ptr(), final.data_ptr(),
+        scratch.data_ptr(), n, int(offset), L, build.event_handles(events),
         build.stream_of(releases[0])), "ledger_scan")
-    return U, rm
+    return granted, final
 
 
 def clamped_counter_grants(releases, requests, init, offset: int):
@@ -138,8 +117,7 @@ def clamped_counter_grants(releases, requests, init, offset: int):
     if dev.type == "cpu":
         granted, final = grants_twin(releases, requests, init, offset)
     else:
-        rel = [r.to(I32).contiguous() for r in releases]
-        U, rm = ledger_streams(rel, list(requests), offset)
-        granted, final = grants_from_streams(U, rm, rel, requests, init,
-                                             offset)
+        granted, final = ledger_grants(
+            [r.to(I32).contiguous() for r in releases], list(requests),
+            init.to(I32).contiguous(), offset)
     return tuple(granted), final

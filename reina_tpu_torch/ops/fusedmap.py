@@ -262,33 +262,42 @@ def concat_prefix_twin(weights, codes, n_seg: int,
 
 
 def fused_concat_prefix(weights, codes, n_seg: int,
-                        max_block_rows: int = 2048):
+                        max_block_rows: int = 2048, events=None):
     """(n_seg·N,) float32 inclusive prefix (kernel on CUDA:
-    kernels/csrc/prefix.cu, bit-identical to the twin)."""
+    kernels/csrc/prefix.cu, bit-identical to the twin, one launch).
+    ``events``: None, or 2 recorded CUDA events the kernel records again
+    before and after its launch (for timing)."""
     dev = _same_device([weights] + ([] if codes is None else [codes]))
     if dev.type == "cpu":
         return concat_prefix_twin(weights, codes, n_seg, max_block_rows)
     N = weights.shape[0]
     if N % (8 * LANE) != 0:
         raise ValueError("fused_concat_prefix kernel needs N % 1024 == 0")
-    if weights.dtype != torch.float32 or not weights.is_contiguous():
-        raise TypeError("fused_concat_prefix kernel takes contiguous f32")
+    if weights.dtype != torch.float32 or not weights.is_contiguous() \
+            or weights.data_ptr() % 16:
+        raise TypeError("fused_concat_prefix kernel takes contiguous, "
+                        "16-byte aligned f32")
     if codes is None:
         if n_seg != 1:
             raise ValueError("codes=None needs n_seg == 1")
     elif codes.dtype != torch.int32 or not codes.is_contiguous() \
-            or codes.shape != weights.shape:
-        raise TypeError("fused_concat_prefix kernel takes int32 codes (N,)")
+            or codes.shape != weights.shape or codes.data_ptr() % 16:
+        raise TypeError("fused_concat_prefix kernel takes contiguous, "
+                        "16-byte aligned int32 codes (N,)")
     from ..kernels import build
     R = N // LANE
     blk = _largest_block(R, max_block_rows, 8)
     nb = n_seg * (R // blk)
+    if 4 * max(3 * blk, nb) > MAX_BLOCK_SMEM:
+        raise ValueError(f"fused_concat_prefix: {nb} blocks of {blk} rows "
+                         f"exceed a block's shared memory")
     out = torch.empty(n_seg * N, dtype=torch.float32, device=dev)
-    scratch = torch.empty(n_seg * R + 2 * nb, dtype=torch.float32,
-                          device=dev)
+    # row totals (then row offsets), then the blocks' last values
+    scratch = torch.empty(n_seg * R + nb, dtype=torch.float32, device=dev)
     kernels.LAUNCHES["fused_concat_prefix"] += 1
     build.check(build.lib().reina_concat_prefix(
         weights.data_ptr(), None if codes is None else codes.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), N, n_seg, blk,
-        build.stream_of(weights)), "fused_concat_prefix")
+        build.event_handles(events), build.stream_of(weights)),
+        "fused_concat_prefix")
     return out

@@ -96,9 +96,10 @@ def test_resume_on_cuda_equals_uninterrupted(tmp_path):
 
 
 def test_wrappers_raise_and_never_fall_back():
-    """On CUDA tensors the new wrappers launch their kernel or raise: a
-    mask function without a kernel, a wrong dtype or bins beyond a
-    block's shared memory are refused, never run by the twin."""
+    """On CUDA tensors the wrappers launch their kernel or raise: a
+    mask function without a kernel, a wrong dtype, bins beyond a
+    block's shared memory, an offset outside the ledger or a misaligned
+    stream are refused, never run by the twin."""
     _need_cuda()
     from reina_tpu_torch.core import step
     from reina_tpu_torch.kernels import checks
@@ -130,4 +131,50 @@ def test_wrappers_raise_and_never_fall_back():
         fusedmap.fused_bihistogram(ca.long(), 84, ks, ages, 101)
     with pytest.raises(ValueError, match="shared memory"):
         fusedmap.fused_bihistogram(ca, 600, ks, ages, 101)
+    from reina_tpu_torch.ops import clamped
+    rel, req = s["rel"], s["req"]
+    init = torch.tensor([3, 1], dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="offset"):
+        clamped.clamped_counter_grants(rel, req, init, 8192)
+    with pytest.raises(ValueError, match="aligned"):
+        clamped.clamped_counter_grants([r[1:] for r in rel],
+                                       [q[1:] for q in req], init, 0)
+    with pytest.raises(TypeError):
+        fusedmap.fused_concat_prefix(s["w"][1:1025], None, 1)
     assert kernels.launches() == before
+
+
+@pytest.mark.parametrize("L", [1, 2])
+def test_ledger_partial_last_tile(L):
+    """3 tiles of 4096 agents and 1001 more (a length % 4 != 0): the
+    kernel's scalar tail, at offsets on and beside the tile edges."""
+    _need_cuda()
+    from reina_tpu_torch.ops import clamped
+    r = np.random.default_rng(3)
+    n = 3 * 4096 + 1001
+    rel = [torch.from_numpy((r.random(n) < 0.05).astype(np.int32)).cuda()
+           for _ in range(L)]
+    req = [torch.from_numpy(r.random(n) < 0.08).cuda() for _ in range(L)]
+    init = torch.tensor([20, 4][:L], dtype=torch.int32, device="cuda")
+    for offset in (0, 1, 4095, 4096, 3 * 4096, n - 1):
+        got, fin = clamped.clamped_counter_grants(rel, req, init, offset)
+        want, tfin = clamped.grants_twin(rel, req, init, offset)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), offset
+        assert torch.equal(fin, tfin), offset
+
+
+@pytest.mark.parametrize("n_seg", [1, 2])
+def test_prefix_many_blocks(n_seg):
+    """max_block_rows=16: 32 logical blocks a segment, real-valued
+    weights, bit for bit."""
+    _need_cuda()
+    from reina_tpu_torch.ops import fusedmap
+    r = np.random.default_rng(4)
+    n = 512 * fusedmap.LANE
+    w = torch.from_numpy((r.random(n) * 3).astype(np.float32)).cuda()
+    codes = None if n_seg == 1 else torch.from_numpy(
+        r.integers(0, n_seg, n).astype(np.int32)).cuda()
+    got = fusedmap.fused_concat_prefix(w, codes, n_seg, max_block_rows=16)
+    want = fusedmap.concat_prefix_twin(w, codes, n_seg, max_block_rows=16)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

@@ -11,6 +11,8 @@ samplers draw the same uniforms; their transcendental functions differ
 by ulps, so gamma draws are held to 1e-5 relative and binomial counts
 agree on at least 99.9% of entries.
 """
+import functools
+
 import jax.numpy as jnp
 import jax.random as jr
 import numpy as np
@@ -174,23 +176,195 @@ def test_clamped_counter_grants(force, case):
     np.testing.assert_array_equal(np.asarray(jfin), fin.numpy())
 
 
-@pytest.mark.parametrize("offset", [0, 1, 1500, 4095])
-def test_grants_from_kernel_streams(offset):
-    """The glue the CUDA path runs after the ledger kernel, fed the U/rm
-    streams of the JAX package's Pallas ledger kernel (interpret)."""
-    rel, req = _ledger_inputs(5, N)
-    init = np.array([20, 4], np.int32)
-    U, rm, _ = jclamped._ledger_kernel(
+# ---- plain-torch models of the CUDA kernels' association, held to the
+# twins here because the kernels themselves run only on the card
+
+NEG = -(1 << 30)               # the key of a position without a request
+NEG_INF = -(1 << 62)
+ID = (0, NEG_INF, NEG_INF)     # identity of the ledger monoid
+
+
+def _combine(x, y):
+    """(s, ka, kf) of segment x followed by segment y (ledger.cu)."""
+    return (x[0] + y[0], torch.maximum(x[1], y[1] - x[0]),
+            torch.maximum(x[2], y[2] - x[0]))
+
+
+def _shift(x, k):
+    """Each part moved k places later along the last axis, identities
+    in front."""
+    return tuple(torch.cat([torch.full_like(v[..., :k], i), v[..., :-k]],
+                           -1) for v, i in zip(x, ID))
+
+
+def _scan(x):
+    """Inclusive monoid scan along the last axis (Hillis-Steele, the
+    association of the kernel's shuffles; any gives the same ints)."""
+    k = 1
+    while k < x[0].shape[-1]:
+        x = _combine(_shift(x, k), x)
+        k *= 2
+    return x
+
+
+def _ledger_model(rel, req, init, offset, tile):
+    """ledger.cu's three launches over tiles of ``tile`` agents: tile
+    folds (and the fold of offset's tile before offset), the scan of
+    the tile folds with the boundary scalars, the rescan that emits the
+    grants. int64 throughout."""
+    n = rel[0].shape[0]
+    ntiles = -(-n // tile)
+    idx = torch.arange(ntiles * tile)
+    valid = idx < n
+    t_off, o = divmod(offset, tile)
+    granted, finals = [], []
+    for r, q, i0 in zip(rel, req, init):
+        r = torch.nn.functional.pad(r.long(), (0, ntiles * tile - n))
+        q = torch.nn.functional.pad(q.long(), (0, ntiles * tile - n))
+        s = r - q
+        kf = torch.where(q == 1, 0, NEG) - s
+        ka = torch.where(idx >= offset, kf, NEG_INF)
+        e = tuple(torch.where(valid, v, i).reshape(ntiles, tile)
+                  for v, i in zip((s, ka, kf), ID))
+        # K1
+        inc = _scan(e)
+        folds = tuple(v[:, -1] for v in inc)
+        pre = ID if o == 0 else tuple(v[t_off, o - 1] for v in inc)
+        # K2
+        tinc = _scan(folds)
+        excl = _shift(tinc, 1)
+        total = tuple(v[-1] for v in tinc)
+        at_off = _combine(tuple(v[t_off] for v in excl),
+                          tuple(torch.as_tensor(v) for v in pre))
+        c_off = at_off[0]
+        base_a = int(i0) - c_off
+        final_a = total[0] + torch.maximum(base_a, total[1])
+        finals.append(c_off + torch.maximum(final_a, at_off[2]))
+        # K3
+        cur = _combine(tuple(v[:, None] for v in excl), _shift(inc, 1))
+        cur = tuple(v.reshape(-1) for v in cur)
+        m = torch.where(idx >= offset, torch.maximum(base_a, cur[1]),
+                        torch.maximum(final_a, cur[2]))
+        granted.append(((q == 1) & (cur[0] + r + m > 0))[:n])
+    return granted, torch.stack(finals).to(torch.int32)
+
+
+NL = 9 * 1024            # 2.25 tiles of 4096: the last one partial
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_grants(offset):
+    """The JAX package's Pallas ledger (interpret) on test inputs."""
+    rel, req = _ledger_inputs(5, NL)
+    return jclamped.clamped_counter_grants(
         [jnp.asarray(x) for x in rel], [jnp.asarray(x) for x in req],
-        jnp.int32(offset), jnp.int32(0), interpret=True)
-    granted, fin = clamped.grants_from_streams(
-        [_t(np.asarray(u)) for u in U], [_t(np.asarray(x)) for x in rm],
-        [_t(x) for x in rel], [_t(x) for x in req], _t(init), offset)
-    (t0, t1), tfin = clamped.grants_twin(
-        [_t(x) for x in rel], [_t(x) for x in req], _t(init), offset)
-    np.testing.assert_array_equal(granted[0].numpy(), t0.numpy())
-    np.testing.assert_array_equal(granted[1].numpy(), t1.numpy())
-    np.testing.assert_array_equal(fin.numpy(), tfin.numpy())
+        jnp.asarray(np.array([20, 4], np.int32)), jnp.int32(offset),
+        force="interpret")
+
+
+@pytest.mark.parametrize("offset", [0, 1, 4096, NL - 1],
+                         ids=["0", "1", "tile-edge", "last"])
+@pytest.mark.parametrize("tile", [4, 64, 4096])
+def test_ledger_kernel_model(tile, offset):
+    """The kernel's tile fold, tile scan with boundary scalars and emit
+    equal the twin and the JAX package's Pallas ledger (interpret)."""
+    rel, req = _ledger_inputs(5, NL)
+    init = np.array([20, 4], np.int32)
+    (j0, j1), jfin = _jax_grants(offset)
+    trel, treq = [_t(x) for x in rel], [_t(x) for x in req]
+    granted, fin = _ledger_model(trel, treq, init, offset, tile)
+    (t0, t1), tfin = clamped.grants_twin(trel, treq, _t(init), offset)
+    for got, twin, jax_ in ((granted[0], t0, j0), (granted[1], t1, j1),
+                            (fin, tfin, jfin)):
+        np.testing.assert_array_equal(got.numpy(), twin.numpy())
+        np.testing.assert_array_equal(got.numpy(), np.asarray(jax_))
+
+
+def _shift_lanes(v, m):
+    """Lane l gets lane l - m's value, +0.0 for l < m (__shfl_up_sync)."""
+    out = torch.zeros_like(v)
+    out[:, m:] = v[:, :-m]
+    return out
+
+
+def _row_lane_scan(v):
+    """prefix.cu's lane_scan of (rows, 32 lanes, 4 values): steps k = 1, 2
+    within a lane and its left neighbour, k >= 4 across k / 4 lanes."""
+    u3 = _shift_lanes(v[..., 3], 1)
+    v = torch.stack([v[..., 0] + u3, v[..., 1] + v[..., 0],
+                     v[..., 2] + v[..., 1], v[..., 3] + v[..., 2]], -1)
+    u2, u3 = _shift_lanes(v[..., 2], 1), _shift_lanes(v[..., 3], 1)
+    v = torch.stack([v[..., 0] + u2, v[..., 1] + u3,
+                     v[..., 2] + v[..., 0], v[..., 3] + v[..., 1]], -1)
+    m = 1
+    while m < 32:
+        v = v + _shift_lanes(v, m)
+        m *= 2
+    return v
+
+
+def _row_total(v):
+    """prefix.cu's row_total of (rows, 32 lanes, 4 values): a pairwise
+    tree in each lane, then 5 xor-shuffle rounds; every lane ends with
+    the row's total."""
+    x = (v[..., 3] + v[..., 2]) + (v[..., 1] + v[..., 0])
+    lanes = torch.arange(32)
+    m = 1
+    while m < 32:
+        x = x + x[:, lanes ^ m]
+        m *= 2
+    return x
+
+
+def _prefix_model(w, codes, n_seg, max_block_rows):
+    """prefix.cu's three phases: row totals as a pairwise tree, each
+    logical block's row-offset scan and last value, then the serial
+    carry and (x_ls + d) + carry from the lane scan."""
+    R = w.shape[0] // fusedmap.LANE
+    blk = fusedmap._largest_block(R, max_block_rows, 8)
+    G = R // blk
+    x = w.reshape(R, 32, 4)
+    rows, offsets, last = [], [], []
+    for s in range(n_seg):
+        v = x if codes is None else torch.where(
+            codes.reshape(R, 32, 4) == s, x, torch.zeros(()))
+        tot = _row_total(v)                                   # 1
+        assert (tot == tot[:, :1]).all()
+        t = tot[:, 31].reshape(G, blk)
+        r, k = t, 1
+        while k < blk:                                        # 2
+            r = r + torch.cat([torch.zeros_like(r[:, :k]), r[:, :-k]], 1)
+            k *= 2
+        rows.append(v)
+        offsets.append((r - t).reshape(R))
+        last.append(t[:, -1] + (r[:, -1] - t[:, -1]))
+    carry, c = [], torch.zeros((), dtype=torch.float32)
+    for h in torch.cat(last):                                 # 3
+        carry.append(c)
+        c = h + c
+    row_block = torch.arange(R) // blk
+    outs = [(_row_lane_scan(v) + d[:, None, None])
+            + torch.stack(carry[s * G:(s + 1) * G])[row_block][:, None, None]
+            for s, (v, d) in enumerate(zip(rows, offsets))]
+    return torch.cat([o.reshape(-1) for o in outs])
+
+
+@pytest.mark.parametrize("n_seg", [1, 2])
+@pytest.mark.parametrize("blk", [8, 16, 24])
+def test_prefix_kernel_model(n_seg, blk):
+    """The kernel's tree row totals, register lane scan, row-offset scan
+    and carry equal concat_prefix_twin bit for bit on real-valued
+    weights."""
+    r = np.random.default_rng(11)
+    n = 48 * fusedmap.LANE      # 48 rows: blocks of 8, 16 and 24
+    w = _t((r.random(n) * 3).astype(np.float32))
+    codes = None if n_seg == 1 else _t(r.integers(0, n_seg, n)
+                                       .astype(np.int32))
+    assert fusedmap._largest_block(48, blk, 8) == blk
+    got = _prefix_model(w, codes, n_seg, blk)
+    want = fusedmap.concat_prefix_twin(w, codes, n_seg, max_block_rows=blk)
+    np.testing.assert_array_equal(got.view(torch.int32).numpy(),
+                                  want.view(torch.int32).numpy())
 
 
 @pytest.mark.parametrize("force", FORCES)
