@@ -638,8 +638,8 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
           * arrays.sigma_max[:, None, :])                          # (V, A, B)
 
     VTS = V * C.IOT_LEN * 2
-    K_age = fused_bihistogram(torch.where(exposer, vts, -1), VTS,
-                              k_s.to(F32), arrays.ages, A)         # (VTS, A)
+    K_age = fused_bihistogram(vts, VTS, k_s, arrays.ages, A,
+                              gate=exposer)                        # (VTS, A)
     K_g = K_age.T.reshape(A, V, C.IOT_LEN, 2)
     ig = (arrays.iot[None, :, :, None]
           * torch.stack([torch.ones_like(arrays.asymp_mult),

@@ -1,5 +1,5 @@
-"""The prefix pair and the ledger of two source trees, timed on one card
-in turns.
+"""The prefix pair, the ledger, the phase-7 counts and the 2-D histogram
+of two source trees, timed on one card in turns.
 
     python -m reina_tpu_torch.kernels.ab --other DIR [--rounds 1]
 
@@ -14,10 +14,13 @@ one line ``AB <tree> {json}`` with:
     the weights (n_seg 2), the pair the day step makes; ``cumsum_ms``:
     ``torch.cumsum`` of the same two, in the same process;
   * ``ledger_ms``: ``clamped_counter_grants`` for both ledgers;
-  * where the tree's ledger still returns streams (``ledger_streams``
-    and ``grants_from_streams``), ``ledger_scan_ms`` and
-    ``ledger_glue_ms`` time its kernel and its grant glue apart;
-  * ``device_us``: device time per call by kernel name, from
+  * ``fn_onehot_ms``: ``fused_fn_onehot_sum`` of the phase-7 fields;
+  * ``bihist_site_ms``: the day step's histogram call as the tree makes
+    it: ``fused_bihistogram(vts, VTS, k_s, ages, A, gate=exposer)``
+    where the wrapper takes a gate, else ``torch.where(exposer, vts,
+    -1)``, ``k_s.to(float32)`` and the kernel (same inputs either way);
+  * ``device_us``: device time per call by kernel name, and
+    ``kernels_per_call``: device kernels per call, both from
     torch.profiler over 20 back-to-back calls of each (warm L2).
 
 The ``_ms`` times are ``checks.time_ms``: cold L2, median of 7. Needs a
@@ -34,13 +37,28 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[2]
 
 _CHILD = r'''
-import json, sys
+import inspect, json, sys
 from collections import defaultdict
 import torch
 sys.path.insert(0, ".")
+from reina_tpu_torch.core import step
 from reina_tpu_torch.kernels import checks
 from reina_tpu_torch.ops import clamped, fusedmap
 s = checks._streams(checks.HUS_N, 0, "cuda")
+if "gate" in s:
+    gate, vts, k_s = s["gate"], s["vts"], s["k_s"]
+else:                   # a tree whose streams hold where(exposer, vts, -1)
+    gate, vts = s["code_a"] >= 0, s["code_a"]
+    k_s = s["k_s"].to(torch.int32)
+VTS, A = checks.VTS, checks.A
+if "gate" in inspect.signature(fusedmap.fused_bihistogram).parameters:
+    def bihist_site():
+        return fusedmap.fused_bihistogram(vts, VTS, k_s, s["ages"], A,
+                                          gate=gate)
+else:
+    def bihist_site():
+        return fusedmap.fused_bihistogram(torch.where(gate, vts, -1), VTS,
+                                          k_s.to(torch.float32), s["ages"], A)
 codes = s["var"].to(torch.int32)
 init = torch.tensor([300, 60], dtype=torch.int32, device="cuda")
 cat = torch.cat([torch.where(codes == v, s["w"], 0.0)
@@ -51,15 +69,12 @@ fns = {
     "cumsum": lambda: (torch.cumsum(s["newly"], 0), torch.cumsum(cat, 0)),
     "ledger": lambda: clamped.clamped_counter_grants(s["rel"], s["req"],
                                                      init, s["offset"]),
+    "fn_onehot": lambda: fusedmap.fused_fn_onehot_sum(
+        s["fields"], step._output_masks_reduced, 10, s["grp"], checks.G + 1),
+    "bihist_site": bihist_site,
 }
-if hasattr(clamped, "ledger_streams"):
-    U, rm = clamped.ledger_streams(s["rel"], s["req"], s["offset"])
-    fns["ledger_scan"] = lambda: clamped.ledger_streams(s["rel"], s["req"],
-                                                        s["offset"])
-    fns["ledger_glue"] = lambda: clamped.grants_from_streams(
-        U, rm, s["rel"], s["req"], init, s["offset"])
 out = {k + "_ms": checks.time_ms(f) for k, f in fns.items()}
-out["device_us"] = {}
+out["device_us"], out["kernels_per_call"] = {}, {}
 for k, f in fns.items():
     f()
     torch.cuda.synchronize()
@@ -69,10 +84,13 @@ for k, f in fns.items():
             f()
         torch.cuda.synchronize()
     by = defaultdict(float)
+    count = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by[e.name[:80]] += e.time_range.elapsed_us() / 20
+            count += 1
     out["device_us"][k] = dict(by)
+    out["kernels_per_call"][k] = count / 20
 print("AB " + sys.argv[1] + " " + json.dumps(out), flush=True)
 '''
 

@@ -13,9 +13,9 @@ The library lands in ``build/reina_tpu_torch/`` at the repository root,
 named by a hash of the sources, and is built at first use. It is loaded
 with ctypes: every pointer and the stream are ``c_void_p``, and each C
 entry point returns ``cudaGetLastError()`` after its launches, on which
-:func:`check` raises. The prefix and ledger entry points also take an
-optional array of two CUDA events that they record around their
-launch.
+:func:`check` raises. The entry points of the prefix, ledger,
+phase-7 count and 2-D histogram kernels also take an optional array of
+CUDA events that they record around each launch.
 """
 from __future__ import annotations
 
@@ -39,8 +39,8 @@ _SIGNATURES = {
     "reina_ledger_grants": [_P] * 9 + [_L, _L, _I, _P, _P],
     "reina_concat_prefix": [_P, _P, _P, _P, _L, _I, _I, _P, _P],
     "reina_onehot_sum": [_P, _P, _P, _P, _L, _I, _I, _P],
-    "reina_fn_onehot_output_masks": [_P] * 12 + [_L] + [_I] * 5 + [_P],
-    "reina_bihistogram": [_P] * 5 + [_L, _I, _I, _P],
+    "reina_fn_onehot_output_masks": [_P] * 12 + [_L] + [_I] * 5 + [_P, _P],
+    "reina_bihistogram": [_P] * 3 + [_I] + [_P] * 3 + [_L, _I, _I, _P, _P],
 }
 
 _lib = None

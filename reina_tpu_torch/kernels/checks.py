@@ -17,12 +17,14 @@ Timing (:func:`time_ms`): the median of 7 single launches, each with a
 cold L2 (a 64 MiB buffer is written just before it) and each behind a
 device-side sleep long enough for the host to enqueue the launch, so
 that the CUDA events bracket device time only. :func:`launch_times`
-times each launch of the prefix and ledger kernels the same way,
+times each launch of the prefix, ledger, phase-7 count and 2-D
+histogram kernels the same way,
 through the CUDA events their entry points record around it.
 
 Bound (:func:`bound_ms`): the larger of the bytes the function must
 move (each input read once, each output written once; for the
-2-D histogram, ``w`` and ``code_b`` only where ``code_a`` is in range)
+2-D histogram, the gate for every agent and ``code_a``, ``w`` and
+``code_b`` only where it is true)
 over the H100 SXM's 3.35 TB/s, and its operations over the 67 TFLOP/s
 of the CUDA cores (``OPS_PER_AGENT``, counted from the twin's
 arithmetic: a compare, select, add or multiply is one, a transcendental
@@ -125,10 +127,11 @@ def _streams(n, seed, dev):
 
 
 def _histogram_streams(r, n, t):
-    """Phase-7 fields and the dart aggregation's inputs, with the value
-    ranges the day step gives them: agents laid out by age
+    """Phase-7 fields and the dart aggregation's inputs as the day step
+    passes them, with its value ranges: agents laid out by age
     (``np.repeat(arange(101), counts)``, padding last with group code
-    G), sparse exposers, integer contact counts <= 128."""
+    G), a gate of ~3% exposers, a vts code for every agent, int32
+    contact counts <= 128 (0 off the gate)."""
     n_real = HUS_AGENTS if n == HUS_N else n - n // 300
     ages = np.sort(r.integers(0, A, n)).astype(np.int32)
     grp = np.minimum(ages // 10, G - 1).astype(np.int32)
@@ -145,10 +148,9 @@ def _histogram_streams(r, n, t):
                   .astype(np.int16)),
                 t(r.random(n) < 0.002), t(st), t(r.random(n) < 0.001),
                 t(r.random(n) < 0.005), t(r.random(n) < 0.002)],
-        code_a=t(np.where(exposer, r.integers(0, VTS, n), -1)
-                 .astype(np.int32)),
-        k_s=t(np.where(exposer, r.integers(0, 129, n), 0)
-              .astype(np.float32)),
+        gate=t(exposer),
+        vts=t(r.integers(0, VTS, n).astype(np.int32)),
+        k_s=t(np.where(exposer, r.integers(0, 129, n), 0).astype(np.int32)),
     )
 
 
@@ -204,10 +206,11 @@ def checks(n: int, seed: int, dev) -> List[Check]:
     fields, grp = s["fields"], s["grp"]
     out_masks = step._output_masks_reduced(*fields)
     out_masks_f = [m.to(torch.float32) for m in out_masks]
-    ca, ks, ages = s["code_a"], s["k_s"], s["ages"]
+    gate, vts, ks, ages = s["gate"], s["vts"], s["k_s"], s["ages"]
     elig = fields[0] & (ages >= 16) & (ages <= 79) & b[13]
-    exposers = int((ca >= 0).sum())
-    flat = torch.where(ca >= 0, ca * A + ages, VTS * A).long()
+    exposers = int(gate.sum())
+    flat = torch.where(gate, vts * A + ages, VTS * A).long()
+    ks_f = ks.to(torch.float32)
     code_l, grp_l = s["code"].long(), grp.long()
     cat = torch.cat([torch.where(codes == v, s["w"], 0.0) for v in range(V)])
 
@@ -291,19 +294,22 @@ def checks(n: int, seed: int, dev) -> List[Check]:
                           s["grp_random"], G + 1),))]),
         Check("fused_bihistogram", "cuda",
               "reina_tpu_torch/kernels/csrc/bihist.cu", f"{_FM}:641",
-              lambda: (fusedmap.fused_bihistogram(ca, VTS, ks, ages, A),),
-              lambda: (fusedmap.bihistogram_twin(ca, VTS, ks, ages, A),),
-              inputs=[ca, ks, ages],
-              read_bytes=4 * ca.numel() + 8 * exposers,
-              library=lambda: torch.bincount(flat, weights=ks,
+              lambda: (fusedmap.fused_bihistogram(vts, VTS, ks, ages, A,
+                                                  gate=gate),),
+              lambda: (fusedmap.bihistogram_twin(vts, VTS, ks, ages, A,
+                                                 gate),),
+              inputs=[gate, vts, ks, ages],
+              # the gate for all; vts, k_s and age for the exposers only
+              read_bytes=gate.numel() + 12 * exposers,
+              library=lambda: torch.bincount(flat, weights=ks_f,
                                              minlength=VTS * A + 1),
               library_note="one torch.bincount(code_a * n_b + code_b, w) "
-                           "(flat index made beforehand, out-of-range to "
-                           "one extra bin)",
+                           "(flat index and float weights made "
+                           "beforehand, off-gate to one extra bin)",
               extra=[(lambda: (fusedmap.fused_bihistogram(
-                          ca, VTS, ks, s["ages_random"], A),),
+                          vts, VTS, ks, s["ages_random"], A, gate=gate),),
                       lambda: (fusedmap.bihistogram_twin(
-                          ca, VTS, ks, s["ages_random"], A),))]),
+                          vts, VTS, ks, s["ages_random"], A, gate),))]),
     ]
 
 
@@ -370,9 +376,11 @@ def time_ms(fn, repeats: int = 7) -> float:
 def launch_times(n: int, seed: int, dev, repeats: int = 7) -> dict:
     """{call: [ms of each launch]}: the median device time of each launch
     of the prefix kernel (one; the day step's n_seg 1 and n_seg 2 calls
-    apart) and of the ledger kernel (three), on :func:`checks`' inputs,
-    between the CUDA events their entry points record around each
-    launch, cold L2 before each call as in :func:`time_ms`."""
+    apart), of the ledger kernel (three) and of the phase-7 count and
+    2-D histogram kernels (one each, at the day step's call), on
+    :func:`checks`' inputs, between the CUDA events their entry points
+    record around each launch, cold L2 before each call as in
+    :func:`time_ms`."""
     s = _streams(n, seed, dev)
     codes = s["var"].to(torch.int32)
     init = torch.tensor([300, 60], dtype=torch.int32, device=dev)
@@ -385,6 +393,12 @@ def launch_times(n: int, seed: int, dev, repeats: int = 7) -> dict:
                                             s["w"], codes, V, events=ev)),
         "ledger_scan": (3, lambda ev: clamped.ledger_grants(
             s["rel"], s["req"], init, s["offset"], events=ev)),
+        "fused_fn_onehot_sum": (1, lambda ev: fusedmap.fused_fn_onehot_sum(
+            s["fields"], step._output_masks_reduced, 10, s["grp"], G + 1,
+            events=ev)),
+        "fused_bihistogram": (1, lambda ev: fusedmap.fused_bihistogram(
+            s["vts"], VTS, s["k_s"], s["ages"], A, gate=s["gate"],
+            events=ev)),
     }
     out = {}
     for name, (k, fn) in calls.items():

@@ -1,81 +1,175 @@
 // Weighted 2-D histogram: out[a, b] = sum_i w_i * [code_a_i == a] *
-// [code_b_i == b]; codes outside [0, na) or [0, nb) count nowhere.
+// [code_b_i == b], where code_a_i is taken as -1 where a gate is given and
+// gate_i is false; codes outside [0, na) or [0, nb) count nowhere.
 //
 // Replaces reina_tpu/ops/fusedmap.py:fused_bihistogram (the Pallas kernel,
 // which built a weighted (na, block) one-hot and ran it through the TPU's
 // matrix unit against the (block, nb) one-hot). On the day step's path it
-// bins the exposers' contact counts by (variant, infectious day,
-// asymptomatic) = na (84 at two variants) and source age = nb (101).
+// bins the exposers' contact counts (gate = exposer, int32 weights) by
+// (variant, infectious day, asymptomatic) = na (84 at two variants) and
+// source age = nb (101).
 //
-// What bounds it on the card: bytes. code_a is read for every agent; w
-// and code_b only where code_a is in range, and most agents are not
-// exposers (code_a = -1), so they are skipped before any other load or
-// atomic. Each block keeps na * nb int32 bins in shared memory (33,936 B
-// at two variants) and adds the weights as integers: the weights are
-// integer contact counts <= 128 (the reference's stated contract), so the
-// int32 sums are exact in any order and equal the twin's float sums.
-// Blocks fold their bins into a global int32 buffer with atomics, and a
-// finish pass writes float32. The bins grow with the number of variants;
-// the C entry point raises the block's dynamic shared-memory limit to
-// their size and refuses sizes beyond the 227 KB a block can hold.
+// What bounds it on the card: bytes, and only ~3% of the agents count.
+// The design, in one launch:
+//
+//   * a persistent grid sized to the card (one wave at HUS size: 103
+//     CTAs of 1,024 threads);
+//   * a thread takes 16 consecutive agents a step: one 16-byte load of the
+//     gate (four of code_a without one), and a word that is all zero ends
+//     the step. code_a, w and code_b are read only for gated agents, as
+//     predicated loads that do not wait on each other;
+//   * the weights are integer contact counts <= 128 (the reference's
+//     stated contract), int32 or float32, added as int32: exact in any
+//     order, so the result equals the twin's float sums;
+//   * the bins: each count goes straight into a persistent int32 buffer
+//     in L2 with a global atomic (~50 k atomics over 8,484 addresses a
+//     day, little contention), so a CTA neither zeroes nor scans bins of
+//     its own. BIHIST_SHARED_BINS=1 builds the other design, per-CTA bins
+//     in shared memory folded at the end, which was ~0.0008 ms slower on
+//     the card (PERF.md; kernels/hist_parts.py times both);
+//   * the last CTA to finish writes the float32 output and zeroes the
+//     buffer (hist_finish.cuh): no memset and no finish launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hist_finish.cuh"
+
+#ifndef BIHIST_SHARED_BINS
+#define BIHIST_SHARED_BINS 0
+#endif
+
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 1024;  // the last CTA reads all bins at once
+constexpr int VEC = 16;  // consecutive agents a thread takes a step
+constexpr bool SHARED_BINS = BIHIST_SHARED_BINS != 0;
 constexpr size_t MAX_SMEM = 232448;  // 227 KB, the sm_90 per-block limit
 
-__global__ void bihist_kernel(const int* code_a, const float* w,
-                              const int* code_b, int* acc, long long n,
-                              int na, int nb) {
-  extern __shared__ int h[];
-  const int total = na * nb;
-  for (int i = threadIdx.x; i < total; i += THREADS) h[i] = 0;
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * THREADS;
-  for (long long i = (long long)blockIdx.x * THREADS + threadIdx.x; i < n;
-       i += stride) {
-    const int a = code_a[i];
-    if (a < 0 || a >= na) continue;
-    const int b = code_b[i];
-    if (b < 0 || b >= nb) continue;
-    const int wi = __float2int_rn(w[i]);
-    if (wi != 0) atomicAdd(&h[a * nb + b], wi);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < total; i += THREADS)
-    if (h[i] != 0) atomicAdd(&acc[i], h[i]);
+__device__ __forceinline__ int weight(float w) { return __float2int_rn(w); }
+__device__ __forceinline__ int weight(int w) { return w; }
+
+__device__ __forceinline__ unsigned word_of(const uint4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-__global__ void bihist_finish(const int* acc, float* out, int total) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i < total) out[i] = (float)acc[i];
+__device__ __forceinline__ void add(int* bins, int a, int b, int wi, int na,
+                                    int nb) {
+  if (a >= 0 && a < na && b >= 0 && b < nb && wi)
+    atomicAdd(&bins[a * nb + b], wi);
+}
+
+// gate: NULL, or (n,) bytes; acc: na * nb + 1 int32, zero on entry and
+// on exit
+template <typename W, bool GATED>
+__global__ void __launch_bounds__(THREADS)
+    bihist_kernel(const uint8_t* gate, const int* code_a, const W* w,
+                  const int* code_b, int* acc, float* out, long long n,
+                  int na, int nb) {
+  extern __shared__ int h[];
+  const int total = na * nb;
+  int* bins = acc;
+  if constexpr (SHARED_BINS) {
+    for (int j = threadIdx.x; j < total; j += THREADS) h[j] = 0;
+    __syncthreads();
+    bins = h;
+  }
+  const long long nvec = n / VEC;
+  const long long stride = (long long)gridDim.x * THREADS;
+  for (long long v = (long long)blockIdx.x * THREADS + threadIdx.x; v < nvec;
+       v += stride) {
+    const long long i0 = v * VEC;
+    int a[VEC];
+    bool on[VEC];
+    if constexpr (GATED) {
+      const uint4 g = __ldg(reinterpret_cast<const uint4*>(gate + i0));
+      if ((g.x | g.y | g.z | g.w) == 0) continue;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        on[j] = (word_of(g, j >> 2) >> (8 * (j & 3))) & 0xffu;
+        a[j] = on[j] ? __ldg(code_a + i0 + j) : -1;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int4 x = __ldg(reinterpret_cast<const int4*>(code_a + i0) + q);
+        a[4 * q] = x.x, a[4 * q + 1] = x.y, a[4 * q + 2] = x.z,
+        a[4 * q + 3] = x.w;
+      }
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) on[j] = a[j] >= 0 && a[j] < na;
+    }
+    // independent predicated loads: one round trip for the step's agents
+    int b[VEC], wi[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      b[j] = on[j] ? __ldg(code_b + i0 + j) : -1;
+      wi[j] = on[j] ? weight(__ldg(w + i0 + j)) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) add(bins, a[j], b[j], wi[j], na, nb);
+  }
+  // the n % 16 tail, one agent a thread of the first CTA
+  const long long i = nvec * VEC + (long long)blockIdx.x * THREADS +
+                      threadIdx.x;
+  if (i < n && (!GATED || gate[i]))
+    add(bins, code_a[i], code_b[i], weight(w[i]), na, nb);
+  if constexpr (SHARED_BINS) {
+    __syncthreads();
+    for (int j = threadIdx.x; j < total; j += THREADS)
+      if (h[j]) atomicAdd(&acc[j], h[j]);
+  }
+  finish_last_cta(acc, total, out);
+}
+
+template <typename W, bool GATED>
+int launch(const void* gate, const void* code_a, const void* w,
+           const void* code_b, void* scratch, void* out, long long n, int na,
+           int nb, cudaStream_t st) {
+  auto kernel = bihist_kernel<W, GATED>;
+  const size_t smem = SHARED_BINS ? (size_t)na * nb * sizeof(int) : 0;
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long need = (n / VEC + THREADS - 1) / THREADS;
+  const long long ctas = need < 1 ? 1 : min((long long)sms * per_sm, need);
+  kernel<<<(int)ctas, THREADS, smem, st>>>(
+      (const uint8_t*)gate, (const int*)code_a, (const W*)w,
+      (const int*)code_b, (int*)scratch, (float*)out, n, na, nb);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// acc: na * nb int32 scratch; out: (na, nb) float32. Returns
-// cudaErrorInvalidValue, launching nothing, when the bins exceed a
-// block's shared memory.
-extern "C" int reina_bihistogram(const void* code_a, const void* w,
-                                 const void* code_b, void* acc, void* out,
-                                 long long n, int na, int nb, void* stream) {
+// gate: NULL or (n,) bools, 16-byte aligned (without it code_a is);
+// w_float: w is float32, else int32; scratch: na * nb + 1 int32, zeroed,
+// left zeroed; out: (na, nb) float32. events: NULL, or 2 CUDA events
+// recorded before and after the launch. Returns cudaErrorInvalidValue,
+// launching nothing, when shared bins would exceed a block's shared
+// memory.
+extern "C" int reina_bihistogram(const void* gate, const void* code_a,
+                                 const void* w, int w_float,
+                                 const void* code_b, void* scratch,
+                                 void* out, long long n, int na, int nb,
+                                 void* const* events, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int total = na * nb;
-  const size_t smem = (size_t)total * sizeof(int);
-  if (total <= 0 || smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      bihist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaMemsetAsync(acc, 0, smem, st);
-  long long blocks = (n + THREADS - 1) / THREADS;
-  if (blocks > 528) blocks = 528;  // 4 blocks per SM on 132 SMs
-  if (blocks < 1) blocks = 1;
-  bihist_kernel<<<(int)blocks, THREADS, smem, st>>>(
-      (const int*)code_a, (const float*)w, (const int*)code_b, (int*)acc, n,
-      na, nb);
-  bihist_finish<<<(total + THREADS - 1) / THREADS, THREADS, 0, st>>>(
-      (const int*)acc, (float*)out, total);
-  return (int)cudaGetLastError();
+  if (na <= 0 || nb <= 0) return (int)cudaErrorInvalidValue;
+  if (events) cudaEventRecord((cudaEvent_t)events[0], st);
+  const int err =
+      gate ? (w_float ? launch<float, true>(gate, code_a, w, code_b, scratch,
+                                            out, n, na, nb, st)
+                      : launch<int, true>(gate, code_a, w, code_b, scratch,
+                                          out, n, na, nb, st))
+           : (w_float ? launch<float, false>(gate, code_a, w, code_b,
+                                             scratch, out, n, na, nb, st)
+                      : launch<int, false>(gate, code_a, w, code_b, scratch,
+                                           out, n, na, nb, st));
+  if (events) cudaEventRecord((cudaEvent_t)events[1], st);
+  return err;
 }

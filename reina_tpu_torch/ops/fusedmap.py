@@ -11,7 +11,11 @@ on what the kernel does not take:
   * ``fused_onehot_sum``: exact integer histograms of masks by code;
   * ``fused_fn_onehot_sum``: the same, with the masks computed inside
     the kernel from raw field streams (one kernel per mask function);
-  * ``fused_bihistogram``: an exact weighted 2-D histogram.
+  * ``fused_bihistogram``: an exact weighted 2-D histogram, with an
+    optional gate on the first code.
+
+The last two run in one launch each on a cached scratch buffer that the
+kernel leaves zeroed.
 
 ``fused_map`` runs one of the day step's four fused bodies: the body
 function itself (the twin) on the CPU, its Triton kernel on CUDA.
@@ -25,6 +29,8 @@ import torch
 from .. import kernels
 
 LANE = 128
+# shared memory a block can hold on sm_90
+MAX_BLOCK_SMEM = 232448
 
 
 def _largest_block(n: int, want: int, mult: int) -> int:
@@ -39,6 +45,21 @@ def _same_device(ts):
     if len(devs) != 1:
         raise ValueError(f"tensors on several devices: {devs}")
     return devs.pop()
+
+
+_SCRATCH = {}
+
+
+def _scratch(dev, name: str, size: int) -> torch.Tensor:
+    """The zeroed int32 scratch of one histogram kernel on ``dev``,
+    allocated at its first call and cached: the kernel leaves it zeroed
+    after every launch (hist_finish.cuh). Calls that share it must not
+    run at once: two histograms of one kind on two streams are not
+    supported."""
+    key = (dev, name, size)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = torch.zeros(size, dtype=torch.int32, device=dev)
+    return _SCRATCH[key]
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +131,7 @@ def fn_onehot_sum_twin(fields, mask_fn, n_masks: int, code_b,
     return onehot_sum_twin(masks, code_b, n_b)
 
 
-def _launch_output_masks(fields, code_b, n_b: int) -> torch.Tensor:
+def _launch_output_masks(fields, code_b, n_b: int, events=None):
     """kernels/csrc/fn_onehot.cu for core.step._output_masks_reduced."""
     from ..core import constants as C
     from ..kernels import build
@@ -123,14 +144,18 @@ def _launch_output_masks(fields, code_b, n_b: int) -> torch.Tensor:
         if f.dtype != dt or f.shape != (n,) or not f.is_contiguous():
             raise TypeError("fused_fn_onehot_sum kernel takes contiguous "
                             f"(N,) fields of types {want}")
+    if any(t.data_ptr() % 16 for t in list(fields) + [code_b]):
+        raise TypeError("fused_fn_onehot_sum kernel takes 16-byte aligned "
+                        "fields and codes")
     dev = code_b.device
-    acc = torch.empty(10 * n_b, dtype=torch.int32, device=dev)
+    acc = _scratch(dev, "fused_fn_onehot_sum", 10 * n_b + 1)
     out = torch.empty((10, n_b), dtype=torch.float32, device=dev)
-    kernels.LAUNCHES["fused_fn_onehot_sum"] += 1
     build.check(build.lib().reina_fn_onehot_output_masks(
         *(f.data_ptr() for f in fields), code_b.data_ptr(), acc.data_ptr(),
         out.data_ptr(), n, n_b, C.HOSPITALIZED, C.IN_ICU, C.RECOVERED,
-        C.DEAD, build.stream_of(code_b)), "fused_fn_onehot_sum")
+        C.DEAD, build.event_handles(events), build.stream_of(code_b)),
+        "fused_fn_onehot_sum")
+    kernels.LAUNCHES["fused_fn_onehot_sum"] += 1
     return out
 
 
@@ -139,10 +164,12 @@ _FN_KERNELS = {"_output_masks_reduced": (10, _launch_output_masks)}
 
 
 def fused_fn_onehot_sum(fields, mask_fn, n_masks: int, code_b,
-                        n_b: int) -> torch.Tensor:
+                        n_b: int, events=None) -> torch.Tensor:
     """(n_masks, n_b) float32 one-hot sums of ``mask_fn(*fields)``: the
     twin on the CPU; on CUDA the kernel written for ``mask_fn`` (looked
-    up by name), which computes the masks itself."""
+    up by name), which computes the masks itself in one launch, on
+    16-byte aligned streams. ``events``: as for fused_concat_prefix. Its
+    scratch is shared by the calls on a device (see :func:`_scratch`)."""
     dev = _same_device(list(fields) + [code_b])
     if dev.type == "cpu":
         return fn_onehot_sum_twin(fields, mask_fn, n_masks, code_b, n_b)
@@ -156,20 +183,19 @@ def fused_fn_onehot_sum(fields, mask_fn, n_masks: int, code_b,
             or not code_b.is_contiguous():
         raise TypeError("fused_fn_onehot_sum kernel takes contiguous "
                         "int32 codes")
-    return entry[1](fields, code_b, n_b)
+    return entry[1](fields, code_b, n_b, events)
 
 
 # ---------------------------------------------------------------------------
 # fused_bihistogram
 
-# shared memory a block can hold on sm_90 (the kernel's bins live there)
-MAX_BLOCK_SMEM = 232448
-
-
-def bihistogram_twin(code_a, n_a: int, weights, code_b,
-                     n_b: int) -> torch.Tensor:
-    """out[a, b] = sum w·[code_a == a]·[code_b == b]; out-of-range codes
-    count nowhere. Exact for integer weights (plain PyTorch)."""
+def bihistogram_twin(code_a, n_a: int, weights, code_b, n_b: int,
+                     gate=None) -> torch.Tensor:
+    """out[a, b] = sum w·[code_a == a]·[code_b == b], with code_a taken as
+    -1 where ``gate`` is given and false; out-of-range codes count
+    nowhere. Exact for integer weights (plain PyTorch)."""
+    if gate is not None:
+        code_a = torch.where(gate, code_a, -1)
     ca, cb = code_a.to(torch.int64), code_b.to(torch.int64)
     ok = (ca >= 0) & (ca < n_a) & (cb >= 0) & (cb < n_b)
     flat = torch.where(ok, ca * n_b + cb, 0)
@@ -178,32 +204,46 @@ def bihistogram_twin(code_a, n_a: int, weights, code_b,
     return out.reshape(n_a, n_b)
 
 
-def fused_bihistogram(code_a, n_a: int, weights, code_b,
-                      n_b: int) -> torch.Tensor:
-    """(n_a, n_b) float32 weighted 2-D histogram (kernel on CUDA:
-    kernels/csrc/bihist.cu). The weights must be integers, as the JAX
-    package's contract states (contact counts <= 128): the kernel sums
-    them as int32."""
-    dev = _same_device([code_a, weights, code_b])
+def fused_bihistogram(code_a, n_a: int, weights, code_b, n_b: int, *,
+                      gate=None, events=None) -> torch.Tensor:
+    """(n_a, n_b) float32 weighted 2-D histogram, the JAX package's
+    function, plus ``gate``: None, or a bool (N,) that means
+    ``where(gate, code_a, -1)`` without a pass of its own (kernel on
+    CUDA: kernels/csrc/bihist.cu, one launch). The weights must be
+    integers, int32 or float32, as the JAX package's contract states
+    (contact counts <= 128): the kernel sums them as int32. The gate,
+    or without one code_a, must be 16-byte aligned. ``events``: as for
+    fused_concat_prefix. Its scratch is shared by the calls on a device
+    (see :func:`_scratch`)."""
+    dev = _same_device([code_a, weights, code_b]
+                       + ([] if gate is None else [gate]))
     if dev.type == "cpu":
-        return bihistogram_twin(code_a, n_a, weights, code_b, n_b)
+        return bihistogram_twin(code_a, n_a, weights, code_b, n_b, gate)
     n = code_a.shape[0]
-    for t, dt in ((code_a, torch.int32), (weights, torch.float32),
-                  (code_b, torch.int32)):
-        if t.dtype != dt or t.shape != (n,) or not t.is_contiguous():
+    for t, dts in ((code_a, (torch.int32,)),
+                   (weights, (torch.int32, torch.float32)),
+                   (code_b, (torch.int32,))):
+        if t.dtype not in dts or t.shape != (n,) or not t.is_contiguous():
             raise TypeError("fused_bihistogram kernel takes contiguous (N,) "
-                            "int32 code_a, float32 weights, int32 code_b")
-    if n_a * n_b * 4 > MAX_BLOCK_SMEM:
-        raise ValueError(f"fused_bihistogram: {n_a}x{n_b} int32 bins exceed "
-                         f"the {MAX_BLOCK_SMEM} B of a block's shared memory")
+                            "int32 code_a, int32 or float32 weights, int32 "
+                            "code_b")
+    if gate is not None and (gate.dtype != torch.bool or gate.shape != (n,)
+                             or not gate.is_contiguous()):
+        raise TypeError("fused_bihistogram kernel takes a contiguous (N,) "
+                        "bool gate")
+    if (code_a if gate is None else gate).data_ptr() % 16:
+        raise TypeError("fused_bihistogram kernel takes a 16-byte aligned "
+                        "gate (or code_a without one)")
     from ..kernels import build
-    acc = torch.empty(n_a * n_b, dtype=torch.int32, device=dev)
+    acc = _scratch(dev, "fused_bihistogram", n_a * n_b + 1)
     out = torch.empty((n_a, n_b), dtype=torch.float32, device=dev)
-    kernels.LAUNCHES["fused_bihistogram"] += 1
     build.check(build.lib().reina_bihistogram(
-        code_a.data_ptr(), weights.data_ptr(), code_b.data_ptr(),
-        acc.data_ptr(), out.data_ptr(), n, n_a, n_b,
-        build.stream_of(code_a)), "fused_bihistogram")
+        None if gate is None else gate.data_ptr(), code_a.data_ptr(),
+        weights.data_ptr(), int(weights.dtype == torch.float32),
+        code_b.data_ptr(), acc.data_ptr(), out.data_ptr(), n, n_a, n_b,
+        build.event_handles(events), build.stream_of(code_a)),
+        "fused_bihistogram")
+    kernels.LAUNCHES["fused_bihistogram"] += 1
     return out
 
 

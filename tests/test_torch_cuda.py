@@ -97,9 +97,10 @@ def test_resume_on_cuda_equals_uninterrupted(tmp_path):
 
 def test_wrappers_raise_and_never_fall_back():
     """On CUDA tensors the wrappers launch their kernel or raise: a
-    mask function without a kernel, a wrong dtype, bins beyond a
-    block's shared memory, an offset outside the ledger or a misaligned
-    stream are refused, never run by the twin."""
+    mask function without a kernel, a wrong dtype (int64 or float64
+    weights among them), an offset outside the ledger or a misaligned
+    stream or gate are refused, never run by the twin, and no launch is
+    counted."""
     _need_cuda()
     from reina_tpu_torch.core import step
     from reina_tpu_torch.kernels import checks
@@ -124,13 +125,24 @@ def test_wrappers_raise_and_never_fall_back():
     with pytest.raises(TypeError):
         fusedmap.fused_fn_onehot_sum(fields, step._output_masks_reduced, 10,
                                      grp.long(), 11)
-    ca, ks, ages = s["code_a"], s["k_s"], s["ages"]
+    with pytest.raises(TypeError, match="aligned"):
+        fusedmap.fused_fn_onehot_sum([f[1:] for f in fields],
+                                     step._output_masks_reduced, 10,
+                                     grp[1:], 11)
+    gate, vts, ks, ages = s["gate"], s["vts"], s["k_s"], s["ages"]
+    for w in (ks.long(), ks.double()):
+        with pytest.raises(TypeError):
+            fusedmap.fused_bihistogram(vts, 84, w, ages, 101, gate=gate)
     with pytest.raises(TypeError):
-        fusedmap.fused_bihistogram(ca, 84, ks.to(torch.int32), ages, 101)
+        fusedmap.fused_bihistogram(vts.long(), 84, ks, ages, 101, gate=gate)
     with pytest.raises(TypeError):
-        fusedmap.fused_bihistogram(ca.long(), 84, ks, ages, 101)
-    with pytest.raises(ValueError, match="shared memory"):
-        fusedmap.fused_bihistogram(ca, 600, ks, ages, 101)
+        fusedmap.fused_bihistogram(vts, 84, ks, ages, 101,
+                                   gate=gate.to(torch.uint8))
+    with pytest.raises(TypeError, match="aligned"):
+        fusedmap.fused_bihistogram(vts[1:], 84, ks[1:], ages[1:], 101,
+                                   gate=gate[1:])
+    with pytest.raises(TypeError, match="aligned"):
+        fusedmap.fused_bihistogram(vts[1:], 84, ks[1:], ages[1:], 101)
     from reina_tpu_torch.ops import clamped
     rel, req = s["rel"], s["req"]
     init = torch.tensor([3, 1], dtype=torch.int32, device="cuda")
@@ -142,6 +154,63 @@ def test_wrappers_raise_and_never_fall_back():
     with pytest.raises(TypeError):
         fusedmap.fused_concat_prefix(s["w"][1:1025], None, 1)
     assert kernels.launches() == before
+
+
+def _histogram_calls(n, gate_p=None):
+    """(kernel, twin) of both histograms on checks' streams cut to n
+    agents, the gate drawn with probability gate_p where given."""
+    from reina_tpu_torch.core import step
+    from reina_tpu_torch.kernels import checks
+    from reina_tpu_torch.ops import fusedmap
+    s = checks._streams(8192, 1, "cuda")
+    fields = [f[:n].clone() for f in s["fields"]]
+    grp, vts, ks, ages = (s[k][:n].clone()
+                          for k in ("grp", "vts", "k_s", "ages"))
+    gate = s["gate"][:n].clone()
+    if gate_p is not None:
+        gate = torch.rand(n, device="cuda") < gate_p
+    masks = step._output_masks_reduced
+    return [
+        (lambda: fusedmap.fused_fn_onehot_sum(fields, masks, 10, grp, 11),
+         lambda: fusedmap.fn_onehot_sum_twin(fields, masks, 10, grp, 11)),
+        (lambda: fusedmap.fused_bihistogram(vts, 84, ks, ages, 101,
+                                            gate=gate),
+         lambda: fusedmap.bihistogram_twin(vts, 84, ks, ages, 101, gate)),
+        (lambda: fusedmap.fused_bihistogram(torch.where(gate, vts, -1), 84,
+                                            ks.float(), ages, 101),
+         lambda: fusedmap.bihistogram_twin(vts, 84, ks, ages, 101, gate)),
+    ]
+
+
+def test_histograms_reset_their_scratch():
+    """Three calls in a row give equal outputs, equal to the twin: each
+    launch leaves its scratch zeroed, and it is one launch a call."""
+    _need_cuda()
+    for kernel, twin in _histogram_calls(8192):
+        before = kernels.launches()
+        outs = [kernel() for _ in range(3)]
+        after = kernels.launches()
+        assert sum(after.values()) - sum(before.values()) == 3
+        for o in outs:
+            assert torch.equal(o, twin())
+
+
+@pytest.mark.parametrize("n", [8192 - 3, 4096 + 1001, 13],
+                         ids=["13-tail", "9-tail", "tail-only"])
+def test_histograms_partial_tail(n):
+    """Lengths with a partial last step of 16 agents: the scalar tail."""
+    _need_cuda()
+    for kernel, twin in _histogram_calls(n):
+        assert torch.equal(kernel(), twin())
+
+
+@pytest.mark.parametrize("p", [0.0, 1.0], ids=["all-false", "all-true"])
+def test_bihistogram_gate_all_false_and_all_true(p):
+    _need_cuda()
+    for kernel, twin in _histogram_calls(8192, gate_p=p)[1:]:
+        got = kernel()
+        assert torch.equal(got, twin())
+        assert (got.sum() == 0) == (p == 0.0)
 
 
 @pytest.mark.parametrize("L", [1, 2])

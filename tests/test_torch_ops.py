@@ -367,6 +367,239 @@ def test_prefix_kernel_model(n_seg, blk):
                                   want.view(torch.int32).numpy())
 
 
+VEC = 16                 # consecutive agents a histogram thread takes
+
+
+def _model_grid(n, threads, ctas):
+    """(thread, its vector steps) of a persistent grid of ``ctas`` CTAs
+    of ``threads`` in each CTA, in CTA order, then the tail agents of
+    each CTA."""
+    nvec, stride = n // VEC, threads * ctas
+    for b in range(ctas):
+        steps = {t: range(b * threads + t, nvec, stride)
+                 for t in range(threads)}
+        tail = [i for i in range(nvec * VEC + b * threads,
+                                 nvec * VEC + (b + 1) * threads) if i < n]
+        yield steps, tail
+
+
+def _finish_model(acc, ctas):
+    """hist_finish.cuh after every CTA has folded: the last ticket
+    writes float32 and zeroes acc and the counter."""
+    out = None
+    for _ in range(ctas):
+        acc[-1] += 1
+        if acc[-1] == ctas:
+            out = torch.tensor(acc[:-1], dtype=torch.float32)
+            acc[:] = [0] * len(acc)
+    return out
+
+
+def _fn_onehot_model(fields, code, nb, threads=64, ctas=3):
+    """fn_onehot.cu step by step: 16 agents a thread a step, run-length
+    counts flushed to the CTA's bins when the code changes, the last
+    runs of a warp summed when all 32 lanes end on one code, the scalar
+    tail, the fold of non-zero bins and the last CTA's finish. Returns
+    (out, the scratch after the launch)."""
+    act, inf, imm, dov, det, st, evi, dout, nw = [f.tolist() for f in fields]
+    code = code.tolist()
+    n, K = len(code), 10
+    C = tstep.C
+
+    def masks(i):
+        dead = st[i] == C.DEAD
+        return [dov[i] >= 0, inf[i] or imm[i], det[i], st[i] == C.IN_ICU,
+                evi[i], st[i] == C.HOSPITALIZED, dead, st[i] == C.RECOVERED,
+                dead and dout[i], nw[i]]
+
+    def flush(h, g, c):
+        for k in range(K):
+            h[k * nb + g] += c[k]
+
+    acc = [0] * (K * nb + 1)
+    for steps, tail in _model_grid(n, threads, ctas):
+        h = [0] * (K * nb)
+        for w0 in range(0, threads, 32):
+            lanes = [list(steps[t]) for t in range(w0, w0 + 32)]
+            for s in range(len(lanes[0])):         # warp-uniform trips
+                ends = []
+                for lane in lanes:
+                    cur, c = -1, [0] * K
+                    if s < len(lane):
+                        for i in range(lane[s] * VEC, lane[s] * VEC + VEC):
+                            if not act[i] or not 0 <= code[i] < nb:
+                                continue
+                            if code[i] != cur:
+                                if cur >= 0:
+                                    flush(h, cur, c)
+                                cur, c = code[i], [0] * K
+                            c = [x + bool(m) for x, m in zip(c, masks(i))]
+                    ends.append((cur, c))
+                if len({cur for cur, _ in ends}) == 1:
+                    if ends[0][0] >= 0:
+                        flush(h, ends[0][0], [sum(c[k] for _, c in ends)
+                                              for k in range(K)])
+                else:
+                    for cur, c in ends:
+                        if cur >= 0:
+                            flush(h, cur, c)
+        for i in tail:
+            if act[i] and 0 <= code[i] < nb:
+                flush(h, code[i], [bool(m) for m in masks(i)])
+        for j, x in enumerate(h):
+            acc[j] += x
+    return _finish_model(acc, ctas).reshape(K, nb), acc
+
+
+def _bihist_model(gate, code_a, w, code_b, na, nb, shared_bins,
+                  threads=64, ctas=3):
+    """bihist.cu step by step: 16 agents a thread a step, a gate word
+    that is all zero skipped, code_a, w and code_b read only for gated
+    agents, the scalar tail, counts added straight into the scratch (or
+    into per-CTA bins folded at the end), the last CTA's finish."""
+    ca, cb = code_a.tolist(), code_b.tolist()
+    wi = [int(round(x)) for x in w.tolist()]
+    g = None if gate is None else gate.tolist()
+    n = len(ca)
+    acc = [0] * (na * nb + 1)
+
+    def add(bins, i):
+        a, b = ca[i], cb[i]
+        if 0 <= a < na and 0 <= b < nb and wi[i]:
+            bins[a * nb + b] += wi[i]
+
+    for steps, tail in _model_grid(n, threads, ctas):
+        bins = [0] * (na * nb) if shared_bins else acc
+        for t in range(threads):
+            for v in steps[t]:
+                agents = range(v * VEC, v * VEC + VEC)
+                if g is not None and not any(g[i] for i in agents):
+                    continue
+                for i in agents:
+                    if g is None or g[i]:
+                        add(bins, i)
+        for i in tail:
+            if g is None or g[i]:
+                add(bins, i)
+        if shared_bins:
+            for j, x in enumerate(bins):
+                acc[j] += x
+    return _finish_model(acc, ctas).reshape(na, nb), acc
+
+
+def _phase7_inputs(case):
+    """Phase-7 fields and group codes: agents sorted by group (as the day
+    step lays them out), shuffled, with codes out of range, or sorted
+    with a partial last step of 16 (N % 16 == 13)."""
+    r = np.random.default_rng(13)
+    n = 4013 if case == "tail" else N
+    st = r.choice(7, n, p=[.4, .05, .05, .05, .05, .3, .1]).astype(np.int8)
+    fields = [r.random(n) < 0.95, r.random(n) < 0.3, r.random(n) < 0.3,
+              np.where(r.random(n) < 0.2, r.integers(0, 365, n), -1)
+              .astype(np.int16), r.random(n) < 0.1, st, r.random(n) < 0.1,
+              r.random(n) < 0.4, r.random(n) < 0.1]
+    code = np.sort(r.integers(0, 11, n)).astype(np.int32)
+    if case == "random":
+        code = r.permutation(code)
+    elif case == "out_of_range":
+        code = np.sort(r.integers(-2, 14, n)).astype(np.int32)
+    return fields, code
+
+
+PHASE7 = [("sorted", "interpret"), ("sorted", "xla"), ("random", "interpret"),
+          ("random", "xla"), ("out_of_range", "interpret"),
+          ("out_of_range", "xla"), ("tail", "xla")]
+
+
+@pytest.mark.parametrize("case,force", PHASE7,
+                         ids=[f"{c}-{f}" for c, f in PHASE7])
+def test_fn_onehot_kernel_model(case, force):
+    """fn_onehot.cu's vector steps, run-length counts, warp sums, tail,
+    fold and last-CTA finish equal the twin and the JAX package (the
+    Pallas kernel in interpret mode needs N % 1024 == 0, so the partial
+    tail is held to its XLA form), and leave the scratch zeroed."""
+    fields, code = _phase7_inputs(case)
+    tf = [_t(f) for f in fields]
+    got, acc = _fn_onehot_model(tf, _t(code), 11)
+    twin = fusedmap.fn_onehot_sum_twin(tf, tstep._output_masks_reduced, 10,
+                                       _t(code), 11)
+    want = jfm.fused_fn_onehot_sum(
+        [jnp.asarray(f) for f in fields], jstep._output_masks_reduced, 10,
+        jnp.asarray(code), 11, max_block=1024, force=force)
+    np.testing.assert_array_equal(got.numpy(), twin.numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not any(acc)
+    assert got.sum() > 0
+
+
+def _bihist_inputs(case):
+    """Exposer codes, gate, int32 contact counts <= 128 and source ages
+    as the day step gives them (ages sorted), or shuffled, or with codes
+    out of range, or an all-false gate, or N % 16 == 13."""
+    r = np.random.default_rng(14)
+    n = 4013 if case == "tail" else N
+    ages = np.sort(r.integers(0, 101, n)).astype(np.int32)
+    if case == "random":
+        ages = r.permutation(ages)
+    vts = r.integers(0, 84, n).astype(np.int32)
+    if case == "out_of_range":
+        vts = r.integers(-1, 86, n).astype(np.int32)
+        ages = r.integers(-1, 103, n).astype(np.int32)
+    gate = r.random(n) < (0.0 if case == "gate_false" else 0.1)
+    k_s = np.where(gate, r.integers(0, 129, n), 0).astype(np.int32)
+    return gate, vts, k_s, ages
+
+
+BIHIST = [("sorted", "interpret"), ("sorted", "xla"), ("random", "interpret"),
+          ("random", "xla"), ("out_of_range", "interpret"),
+          ("out_of_range", "xla"), ("gate_false", "xla"), ("tail", "xla")]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bihist(case, force):
+    """The JAX package's call before the gate: where(gate, vts, -1) and
+    float32 weights."""
+    gate, vts, k_s, ages = _bihist_inputs(case)
+    return np.asarray(jfm.fused_bihistogram(
+        jnp.where(jnp.asarray(gate), jnp.asarray(vts), -1), 84,
+        jnp.asarray(k_s).astype(jnp.float32), jnp.asarray(ages), 101,
+        max_block=1024, force=force))
+
+
+@pytest.mark.parametrize("shared_bins", [False, True], ids=["l2", "smem"])
+@pytest.mark.parametrize("case,force", BIHIST,
+                         ids=[f"{c}-{f}" for c, f in BIHIST])
+def test_bihist_kernel_model(case, force, shared_bins):
+    """bihist.cu's gated vector steps, tail, bins (global, or per CTA in
+    shared memory) and last-CTA finish equal the twin with the gate and
+    the JAX package on where(gate, vts, -1), and leave the scratch
+    zeroed; without a gate, the same on where(gate, vts, -1)."""
+    gate, vts, k_s, ages = _bihist_inputs(case)
+    want = _jax_bihist(case, force)
+    tg, tv, tk, ta = _t(gate), _t(vts), _t(k_s), _t(ages)
+    got, acc = _bihist_model(tg, tv, tk, ta, 84, 101, shared_bins)
+    twin = fusedmap.bihistogram_twin(tv, 84, tk, ta, 101, gate=tg)
+    ungated = torch.where(tg, tv, -1)
+    got_ng, acc_ng = _bihist_model(None, ungated, tk.float(), ta, 84, 101,
+                                   shared_bins)
+    for x in (got, twin, got_ng):
+        np.testing.assert_array_equal(x.numpy(), want)
+    assert not any(acc) and not any(acc_ng)
+    assert (want.sum() > 0) == (case != "gate_false")
+
+
+@pytest.mark.parametrize("force", FORCES)
+def test_fused_bihistogram_gate(force):
+    """The day step's call, fused_bihistogram(vts, VTS, k_s, ages, A,
+    gate=exposer) with int32 k_s, equals the JAX package's
+    fused_bihistogram(where(exposer, vts, -1), VTS, k_s as float32,
+    ages, A)."""
+    gate, vts, k_s, ages = _bihist_inputs("sorted")
+    got = fusedmap.fused_bihistogram(_t(vts), 84, _t(k_s), _t(ages), 101,
+                                     gate=_t(gate))
+    np.testing.assert_array_equal(got.numpy(), _jax_bihist("sorted", force))
+
+
 @pytest.mark.parametrize("force", FORCES)
 @pytest.mark.parametrize("n_seg,integer", [(1, True), (1, False),
                                            (2, True), (2, False)])
