@@ -30,6 +30,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "reina_tpu_torch"
 
+# nvcc's flags for every object: Hopper only, C++17, position-independent
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-Xcompiler", "-fPIC"]
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -82,8 +86,7 @@ def build() -> Path:
         obj = tmp.with_name(f"{src.stem}.{os.getpid()}.o")
         objs.append(obj)
         procs.append((src, subprocess.Popen(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-             "-O3", "-Xcompiler", "-fPIC", "-c", "-o", str(obj), str(src)],
+            [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     errors = []
     for src, proc in procs:
@@ -116,6 +119,31 @@ def lib():
             fn.restype = ctypes.c_int
         _lib = so
     return _lib
+
+
+def build_variant(file: str, entry: str, name: str, cuts=()):
+    """A timing-only variant of ``csrc/<file>``: each ``(old, new)`` of
+    ``cuts`` replaced in its source (``old`` must be there), compiled
+    alone into ``build/reina_tpu_torch/parts/<name>.so``. Returns its C
+    entry point ``entry``, bound as :func:`lib` binds it."""
+    src = (CSRC / file).read_text()
+    for old, new in cuts:
+        if old not in src:
+            raise RuntimeError(f"{file} no longer has {old!r}")
+        src = src.replace(old, new)
+    out = BUILD_DIR / "parts"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / f"{name}.cu", out / f"{name}.so"
+    cu.write_text(src)
+    r = subprocess.run([nvcc_path(), *_NVCC_FLAGS, "-shared", "-I", str(CSRC),
+                        "-o", str(so), str(cu)], capture_output=True,
+                       text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}:\n{r.stderr}")
+    fn = getattr(ctypes.CDLL(str(so)), entry)
+    fn.argtypes = _SIGNATURES[entry]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def check(err: int, what: str) -> None:

@@ -24,9 +24,8 @@
 //   * the bins: each count goes straight into a persistent int32 buffer
 //     in L2 with a global atomic (~50 k atomics over 8,484 addresses a
 //     day, little contention), so a CTA neither zeroes nor scans bins of
-//     its own. BIHIST_SHARED_BINS=1 builds the other design, per-CTA bins
-//     in shared memory folded at the end, which was ~0.0008 ms slower on
-//     the card (PERF.md; kernels/hist_parts.py times both);
+//     its own. Per-CTA bins in shared memory, folded at the end, were
+//     ~0.0008 ms slower on the card (PERF.md);
 //   * the last CTA to finish writes the float32 output and zeroes the
 //     buffer (hist_finish.cuh): no memset and no finish launch.
 #include <cuda_runtime.h>
@@ -34,16 +33,10 @@
 
 #include "hist_finish.cuh"
 
-#ifndef BIHIST_SHARED_BINS
-#define BIHIST_SHARED_BINS 0
-#endif
-
 namespace {
 
 constexpr int THREADS = 1024;  // the last CTA reads all bins at once
 constexpr int VEC = 16;  // consecutive agents a thread takes a step
-constexpr bool SHARED_BINS = BIHIST_SHARED_BINS != 0;
-constexpr size_t MAX_SMEM = 232448;  // 227 KB, the sm_90 per-block limit
 
 __device__ __forceinline__ int weight(float w) { return __float2int_rn(w); }
 __device__ __forceinline__ int weight(int w) { return w; }
@@ -52,10 +45,10 @@ __device__ __forceinline__ unsigned word_of(const uint4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-__device__ __forceinline__ void add(int* bins, int a, int b, int wi, int na,
+__device__ __forceinline__ void add(int* acc, int a, int b, int wi, int na,
                                     int nb) {
   if (a >= 0 && a < na && b >= 0 && b < nb && wi)
-    atomicAdd(&bins[a * nb + b], wi);
+    atomicAdd(&acc[a * nb + b], wi);
 }
 
 // gate: NULL, or (n,) bytes; acc: na * nb + 1 int32, zero on entry and
@@ -65,14 +58,6 @@ __global__ void __launch_bounds__(THREADS)
     bihist_kernel(const uint8_t* gate, const int* code_a, const W* w,
                   const int* code_b, int* acc, float* out, long long n,
                   int na, int nb) {
-  extern __shared__ int h[];
-  const int total = na * nb;
-  int* bins = acc;
-  if constexpr (SHARED_BINS) {
-    for (int j = threadIdx.x; j < total; j += THREADS) h[j] = 0;
-    __syncthreads();
-    bins = h;
-  }
   const long long nvec = n / VEC;
   const long long stride = (long long)gridDim.x * THREADS;
   for (long long v = (long long)blockIdx.x * THREADS + threadIdx.x; v < nvec;
@@ -106,19 +91,14 @@ __global__ void __launch_bounds__(THREADS)
       wi[j] = on[j] ? weight(__ldg(w + i0 + j)) : 0;
     }
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) add(bins, a[j], b[j], wi[j], na, nb);
+    for (int j = 0; j < VEC; ++j) add(acc, a[j], b[j], wi[j], na, nb);
   }
   // the n % 16 tail, one agent a thread of the first CTA
   const long long i = nvec * VEC + (long long)blockIdx.x * THREADS +
                       threadIdx.x;
   if (i < n && (!GATED || gate[i]))
-    add(bins, code_a[i], code_b[i], weight(w[i]), na, nb);
-  if constexpr (SHARED_BINS) {
-    __syncthreads();
-    for (int j = threadIdx.x; j < total; j += THREADS)
-      if (h[j]) atomicAdd(&acc[j], h[j]);
-  }
-  finish_last_cta(acc, total, out);
+    add(acc, code_a[i], code_b[i], weight(w[i]), na, nb);
+  finish_last_cta(acc, na * nb, out);
 }
 
 template <typename W, bool GATED>
@@ -126,20 +106,15 @@ int launch(const void* gate, const void* code_a, const void* w,
            const void* code_b, void* scratch, void* out, long long n, int na,
            int nb, cudaStream_t st) {
   auto kernel = bihist_kernel<W, GATED>;
-  const size_t smem = SHARED_BINS ? (size_t)na * nb * sizeof(int) : 0;
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      THREADS, smem);
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, THREADS, 0);
   if (err != cudaSuccess) return (int)err;
   const long long need = (n / VEC + THREADS - 1) / THREADS;
   const long long ctas = need < 1 ? 1 : min((long long)sms * per_sm, need);
-  kernel<<<(int)ctas, THREADS, smem, st>>>(
+  kernel<<<(int)ctas, THREADS, 0, st>>>(
       (const uint8_t*)gate, (const int*)code_a, (const W*)w,
       (const int*)code_b, (int*)scratch, (float*)out, n, na, nb);
   return (int)cudaGetLastError();
@@ -150,9 +125,7 @@ int launch(const void* gate, const void* code_a, const void* w,
 // gate: NULL or (n,) bools, 16-byte aligned (without it code_a is);
 // w_float: w is float32, else int32; scratch: na * nb + 1 int32, zeroed,
 // left zeroed; out: (na, nb) float32. events: NULL, or 2 CUDA events
-// recorded before and after the launch. Returns cudaErrorInvalidValue,
-// launching nothing, when shared bins would exceed a block's shared
-// memory.
+// recorded before and after the launch.
 extern "C" int reina_bihistogram(const void* gate, const void* code_a,
                                  const void* w, int w_float,
                                  const void* code_b, void* scratch,

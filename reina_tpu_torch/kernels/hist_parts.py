@@ -10,8 +10,6 @@ and timed with ``checks.time_ms`` (cold L2, median of 7):
 
   bihist l2            the kernel as it is: counts added straight into
                        the scratch in L2 with global atomics
-  bihist smem          -DBIHIST_SHARED_BINS=1: per-CTA bins in shared
-                       memory (zeroed, then folded into the scratch)
   fn_onehot full       the kernel as it is
   fn_onehot no_fold    without the fold of the CTAs' bins into the
                        scratch
@@ -27,43 +25,22 @@ CUDA device.
 """
 from __future__ import annotations
 
-import ctypes
-import subprocess
-
 import torch
 
 from . import build, checks
 
 _FOLD = ("    if (h[j]) atomicAdd(&acc[j], h[j]);\n", "    ;\n")
-_FINISH = ("  finish_last_cta(acc, total, out);\n", "")
+_FINISH = ("  finish_last_cta(acc, ", "  if (0) finish_last_cta(acc, ")
 VARIANTS = {
-    ("bihist", "l2"): ("bihist.cu", [], ()),
-    ("bihist", "smem"): ("bihist.cu", ["-DBIHIST_SHARED_BINS=1"], ()),
-    ("bihist", "no_finish"): ("bihist.cu", [], (_FINISH,)),
-    ("fn_onehot", "full"): ("fn_onehot.cu", [], ()),
-    ("fn_onehot", "no_fold"): ("fn_onehot.cu", [], (_FOLD,)),
-    ("fn_onehot", "no_finish"): ("fn_onehot.cu", [], (_FINISH,)),
+    ("bihist", "l2"): (),
+    ("bihist", "no_finish"): (_FINISH,),
+    ("fn_onehot", "full"): (),
+    ("fn_onehot", "no_fold"): (_FOLD,),
+    ("fn_onehot", "no_finish"): (_FINISH,),
 }
-_ENTRY = {"bihist": "reina_bihistogram",
-          "fn_onehot": "reina_fn_onehot_output_masks"}
-
-
-def build_variant(kernel: str, name: str, src: str, flags):
-    out = build.BUILD_DIR / "parts"
-    out.mkdir(parents=True, exist_ok=True)
-    cu, so = out / f"{kernel}_{name}.cu", out / f"{kernel}_{name}.so"
-    cu.write_text(src)
-    r = subprocess.run([build.nvcc_path(), "-gencode",
-                        "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                        "-Xcompiler", "-fPIC", "-shared", "-I",
-                        str(build.CSRC), *flags, "-o", str(so), str(cu)],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {kernel} {name}:\n{r.stderr}")
-    fn = getattr(ctypes.CDLL(str(so)), _ENTRY[kernel])
-    fn.argtypes = build._SIGNATURES[_ENTRY[kernel]]
-    fn.restype = ctypes.c_int
-    return fn
+# kernel -> (source, C entry point)
+_KERNELS = {"bihist": ("bihist.cu", "reina_bihistogram"),
+            "fn_onehot": ("fn_onehot.cu", "reina_fn_onehot_output_masks")}
 
 
 def main() -> int:
@@ -80,13 +57,8 @@ def main() -> int:
     want = {"bihist": fusedmap.bihistogram_twin(vts, VTS, ks, ages, A, gate),
             "fn_onehot": fusedmap.fn_onehot_sum_twin(
                 fields, step._output_masks_reduced, 10, grp, G)}
-    for (kernel, name), (file, flags, cuts) in VARIANTS.items():
-        src = (build.CSRC / file).read_text()
-        for old, new in cuts:
-            if old not in src:
-                raise RuntimeError(f"{file} no longer has {old!r}")
-            src = src.replace(old, new)
-        fn = build_variant(kernel, name, src, flags)
+    for (kernel, name), cuts in VARIANTS.items():
+        fn = build.build_variant(*_KERNELS[kernel], f"{kernel}_{name}", cuts)
         if kernel == "bihist":
             out = torch.empty((VTS, A), device="cuda")
             acc = torch.zeros(VTS * A + 1, dtype=torch.int32, device="cuda")

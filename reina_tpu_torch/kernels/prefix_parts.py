@@ -23,9 +23,6 @@ them. Needs a CUDA device.
 """
 from __future__ import annotations
 
-import ctypes
-import subprocess
-
 import torch
 
 from . import build, checks
@@ -51,31 +48,6 @@ VARIANTS = {
 }
 
 
-def variant_source(src: str, cuts) -> str:
-    for old, new in cuts:
-        if old not in src:
-            raise RuntimeError(f"prefix.cu no longer has {old!r}")
-        src = src.replace(old, new)
-    return src
-
-
-def build_variant(name: str, src: str):
-    out = build.BUILD_DIR / "parts"
-    out.mkdir(parents=True, exist_ok=True)
-    cu, so = out / f"{name}.cu", out / f"{name}.so"
-    cu.write_text(src)
-    r = subprocess.run([build.nvcc_path(), "-gencode",
-                        "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-                        "-Xcompiler", "-fPIC", "-shared", "-o", str(so),
-                        str(cu)], capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {name}:\n{r.stderr}")
-    fn = ctypes.CDLL(str(so)).reina_concat_prefix
-    fn.argtypes = build._SIGNATURES["reina_concat_prefix"]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -83,10 +55,10 @@ def main() -> int:
     s = checks._streams(n, 0, "cuda")
     codes = s["var"].to(torch.int32)
     R, blk = n // 128, 1464          # _largest_block(R, 2048, 8) at HUS
-    src = (build.CSRC / "prefix.cu").read_text()
     stream = torch.cuda.current_stream().cuda_stream
     for name, cuts in VARIANTS.items():
-        fn = build_variant(name, variant_source(src, cuts))
+        fn = build.build_variant("prefix.cu", "reina_concat_prefix",
+                                 f"prefix_{name}", cuts)
         ms = []
         for n_seg, w, c in ((1, s["newly"], None), (2, s["w"], codes)):
             out = torch.empty(n_seg * n, device="cuda")

@@ -170,27 +170,42 @@ def _histogram_calls(n, gate_p=None):
     if gate_p is not None:
         gate = torch.rand(n, device="cuda") < gate_p
     masks = step._output_masks_reduced
+    code_a, wf = torch.where(gate, vts, -1), ks.float()
     return [
         (lambda: fusedmap.fused_fn_onehot_sum(fields, masks, 10, grp, 11),
          lambda: fusedmap.fn_onehot_sum_twin(fields, masks, 10, grp, 11)),
         (lambda: fusedmap.fused_bihistogram(vts, 84, ks, ages, 101,
                                             gate=gate),
          lambda: fusedmap.bihistogram_twin(vts, 84, ks, ages, 101, gate)),
-        (lambda: fusedmap.fused_bihistogram(torch.where(gate, vts, -1), 84,
-                                            ks.float(), ages, 101),
+        (lambda: fusedmap.fused_bihistogram(code_a, 84, wf, ages, 101),
          lambda: fusedmap.bihistogram_twin(vts, 84, ks, ages, 101, gate)),
     ]
 
 
+def _device_ops(fn):
+    """fn's result and the device operations (kernels, memsets, copies)
+    it ran, by torch.profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def test_histograms_reset_their_scratch():
     """Three calls in a row give equal outputs, equal to the twin: each
-    launch leaves its scratch zeroed, and it is one launch a call."""
+    launch leaves its scratch zeroed. Each call is one device kernel (no
+    memset, no finish kernel), and counts one launch."""
     _need_cuda()
     for kernel, twin in _histogram_calls(8192):
+        kernel()                        # the first call allocates the scratch
         before = kernels.launches()
-        outs = [kernel() for _ in range(3)]
+        outs, ops = _device_ops(lambda: [kernel() for _ in range(3)])
         after = kernels.launches()
         assert sum(after.values()) - sum(before.values()) == 3
+        assert len(ops) == 3 and len(set(ops)) == 1, ops
         for o in outs:
             assert torch.equal(o, twin())
 

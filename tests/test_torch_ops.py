@@ -451,25 +451,23 @@ def _fn_onehot_model(fields, code, nb, threads=64, ctas=3):
     return _finish_model(acc, ctas).reshape(K, nb), acc
 
 
-def _bihist_model(gate, code_a, w, code_b, na, nb, shared_bins,
-                  threads=64, ctas=3):
+def _bihist_model(gate, code_a, w, code_b, na, nb, threads=64, ctas=3):
     """bihist.cu step by step: 16 agents a thread a step, a gate word
     that is all zero skipped, code_a, w and code_b read only for gated
-    agents, the scalar tail, counts added straight into the scratch (or
-    into per-CTA bins folded at the end), the last CTA's finish."""
+    agents, the scalar tail, counts added straight into the scratch, the
+    last CTA's finish."""
     ca, cb = code_a.tolist(), code_b.tolist()
     wi = [int(round(x)) for x in w.tolist()]
     g = None if gate is None else gate.tolist()
     n = len(ca)
     acc = [0] * (na * nb + 1)
 
-    def add(bins, i):
+    def add(i):
         a, b = ca[i], cb[i]
         if 0 <= a < na and 0 <= b < nb and wi[i]:
-            bins[a * nb + b] += wi[i]
+            acc[a * nb + b] += wi[i]
 
     for steps, tail in _model_grid(n, threads, ctas):
-        bins = [0] * (na * nb) if shared_bins else acc
         for t in range(threads):
             for v in steps[t]:
                 agents = range(v * VEC, v * VEC + VEC)
@@ -477,13 +475,10 @@ def _bihist_model(gate, code_a, w, code_b, na, nb, shared_bins,
                     continue
                 for i in agents:
                     if g is None or g[i]:
-                        add(bins, i)
+                        add(i)
         for i in tail:
             if g is None or g[i]:
-                add(bins, i)
-        if shared_bins:
-            for j, x in enumerate(bins):
-                acc[j] += x
+                add(i)
     return _finish_model(acc, ctas).reshape(na, nb), acc
 
 
@@ -566,22 +561,24 @@ def _jax_bihist(case, force):
         max_block=1024, force=force))
 
 
-@pytest.mark.parametrize("shared_bins", [False, True], ids=["l2", "smem"])
+@pytest.mark.parametrize("w_dtype", [torch.int32, torch.float32],
+                         ids=["int32", "float32"])
 @pytest.mark.parametrize("case,force", BIHIST,
                          ids=[f"{c}-{f}" for c, f in BIHIST])
-def test_bihist_kernel_model(case, force, shared_bins):
-    """bihist.cu's gated vector steps, tail, bins (global, or per CTA in
-    shared memory) and last-CTA finish equal the twin with the gate and
-    the JAX package on where(gate, vts, -1), and leave the scratch
-    zeroed; without a gate, the same on where(gate, vts, -1)."""
+def test_bihist_kernel_model(case, force, w_dtype):
+    """bihist.cu's gated vector steps, tail, bins and last-CTA finish,
+    with int32 or float32 weights (the kernel's four instances: gated or
+    not, by weight type), equal the twin with the gate and the JAX
+    package on where(gate, vts, -1), and leave the scratch zeroed;
+    without a gate, the same on where(gate, vts, -1)."""
     gate, vts, k_s, ages = _bihist_inputs(case)
     want = _jax_bihist(case, force)
-    tg, tv, tk, ta = _t(gate), _t(vts), _t(k_s), _t(ages)
-    got, acc = _bihist_model(tg, tv, tk, ta, 84, 101, shared_bins)
+    tg, tv, ta = _t(gate), _t(vts), _t(ages)
+    tk = _t(k_s).to(w_dtype)
+    got, acc = _bihist_model(tg, tv, tk, ta, 84, 101)
     twin = fusedmap.bihistogram_twin(tv, 84, tk, ta, 101, gate=tg)
     ungated = torch.where(tg, tv, -1)
-    got_ng, acc_ng = _bihist_model(None, ungated, tk.float(), ta, 84, 101,
-                                   shared_bins)
+    got_ng, acc_ng = _bihist_model(None, ungated, tk, ta, 84, 101)
     for x in (got, twin, got_ng):
         np.testing.assert_array_equal(x.numpy(), want)
     assert not any(acc) and not any(acc_ng)
