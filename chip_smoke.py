@@ -13,8 +13,7 @@ Run from the repository root on a machine with a CUDA device. It
      the kernel, the twin and, where there is one, the PyTorch library
      call that computes the same function (CUDA events, cold L2, median
      of 7), beside the least time the card could take (bound), and
-     times each launch of the prefix, ledger, phase-7 count and 2-D
-     histogram kernels;
+     times each launch of the CUDA kernels;
   3. drives the main path: build_run for the default HUS scenario (365
      days, 1,685,983 agents) on "cuda", then run_days, counting every
      kernel's launches in that run;

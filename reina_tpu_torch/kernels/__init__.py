@@ -1,9 +1,10 @@
 """Hand-written Hopper kernels for the port's main path.
 
-Five CUDA kernels (``csrc/*.cu``, built by ``build.py`` with nvcc for
-sm_90a and bound with ctypes) and four Triton kernels (``fused_bodies``,
-one per fused per-agent pass of the day step). The wrappers that launch
-them live beside their plain PyTorch twins in ``reina_tpu_torch.ops``;
+Six CUDA kernels (``csrc/*.cu``, built by ``build.py`` with nvcc for
+sm_90a and bound with ctypes; the post-ledger pass of the day step among
+them) and three Triton kernels (``fused_bodies``, the other fused
+per-agent passes). The wrappers that launch them live beside their plain
+PyTorch twins in ``reina_tpu_torch.ops`` and ``fused_bodies``;
 each wrapper adds one to its entry of ``LAUNCHES`` where it launches its
 kernel, and nowhere else, so a run can show that it went through the
 kernels.

@@ -1,27 +1,37 @@
-"""The prefix pair, the ledger, the phase-7 counts and the 2-D histogram
-of two source trees, timed on one card in turns.
+"""The hand-written kernels of two source trees, timed on one card in
+turns.
 
-    python -m reina_tpu_torch.kernels.ab --other DIR [--rounds 1]
+    python -m reina_tpu_torch.kernels.ab [--other DIR] [--rounds 1]
 
 DIR is another checkout of this repository (for example an earlier
 commit unpacked with ``git archive``). Each tree runs in an interpreter
 of its own, since both packages are named ``reina_tpu_torch``, in the
-order other, this, this, other (``--rounds`` times), on the
-inputs of ``kernels/checks.py`` at the HUS agent count. Each run prints
-one line ``AB <tree> {json}`` with:
+order other, this, this, other (``--rounds`` times); without
+``--other``, this tree runs once. The inputs are those of
+``kernels/checks.py`` at the HUS agent count. Each run prints one line
+``AB <tree> {json}`` with:
 
   * ``prefix_ms``: ``fused_concat_prefix`` of ``newly`` (n_seg 1) and of
     the weights (n_seg 2), the pair the day step makes; ``cumsum_ms``:
     ``torch.cumsum`` of the same two, in the same process;
   * ``ledger_ms``: ``clamped_counter_grants`` for both ledgers;
   * ``fn_onehot_ms``: ``fused_fn_onehot_sum`` of the phase-7 fields;
-  * ``bihist_site_ms``: the day step's histogram call as the tree makes
-    it: ``fused_bihistogram(vts, VTS, k_s, ages, A, gate=exposer)``
-    where the wrapper takes a gate, else ``torch.where(exposer, vts,
-    -1)``, ``k_s.to(float32)`` and the kernel (same inputs either way);
+  * ``bihist_site_ms``: the day step's histogram call,
+    ``fused_bihistogram(vts, VTS, k_s, ages, A, gate=exposer)``;
+  * ``post_ms``: the post-ledger body through ``fused_map``, as the day
+    step calls it;
+  * ``onehot_ms``: ``fused_onehot_sum`` at the snapshot's call: 13
+    masks by the group code (agents sorted by age, padding in the last
+    group); ``onehot_random_ms``: the same masks by random codes;
+    ``onehot_vacc_ms``: at the vaccination call, one mask by age;
   * ``device_us``: device time per call by kernel name, and
-    ``kernels_per_call``: device kernels per call, both from
-    torch.profiler over 20 back-to-back calls of each (warm L2).
+    ``kernels_per_call``: device operations (kernels, memsets, copies)
+    per call, both from torch.profiler over 20 back-to-back calls of
+    each (warm L2);
+  * ``triton_post``, for a tree whose post body is a Triton kernel: for
+    blocks of 1,024 and 2,048 agents (8 and 16 agents a thread at 4
+    warps), its registers and spills, the count of each global load and
+    store instruction in its PTX by width, and its time.
 
 The ``_ms`` times are ``checks.time_ms``: cold L2, median of 7. Needs a
 CUDA device.
@@ -37,32 +47,23 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[2]
 
 _CHILD = r'''
-import inspect, json, sys
-from collections import defaultdict
+import json, re, sys
+from collections import Counter, defaultdict
 import torch
 sys.path.insert(0, ".")
 from reina_tpu_torch.core import step
-from reina_tpu_torch.kernels import checks
+from reina_tpu_torch.kernels import checks, fused_bodies
 from reina_tpu_torch.ops import clamped, fusedmap
 s = checks._streams(checks.HUS_N, 0, "cuda")
-if "gate" in s:
-    gate, vts, k_s = s["gate"], s["vts"], s["k_s"]
-else:                   # a tree whose streams hold where(exposer, vts, -1)
-    gate, vts = s["code_a"] >= 0, s["code_a"]
-    k_s = s["k_s"].to(torch.int32)
-VTS, A = checks.VTS, checks.A
-if "gate" in inspect.signature(fusedmap.fused_bihistogram).parameters:
-    def bihist_site():
-        return fusedmap.fused_bihistogram(vts, VTS, k_s, s["ages"], A,
-                                          gate=gate)
-else:
-    def bihist_site():
-        return fusedmap.fused_bihistogram(torch.where(gate, vts, -1), VTS,
-                                          k_s.to(torch.float32), s["ages"], A)
+VTS, A, G = checks.VTS, checks.A, checks.G
 codes = s["var"].to(torch.int32)
 init = torch.tensor([300, 60], dtype=torch.int32, device="cuda")
 cat = torch.cat([torch.where(codes == v, s["w"], 0.0)
                  for v in range(checks.V)])
+b, f = s["b"], s["f"]
+po = ([s["st"], s["sev"], s["var"], s["o2r"], s["dl"]] + b[:2] + [f[2]]
+      + b[2:14])
+elig = s["fields"][0] & (s["ages"] >= 16) & (s["ages"] <= 79) & b[13]
 fns = {
     "prefix": lambda: (fusedmap.fused_concat_prefix(s["newly"], None, 1),
                        fusedmap.fused_concat_prefix(s["w"], codes, checks.V)),
@@ -70,8 +71,14 @@ fns = {
     "ledger": lambda: clamped.clamped_counter_grants(s["rel"], s["req"],
                                                      init, s["offset"]),
     "fn_onehot": lambda: fusedmap.fused_fn_onehot_sum(
-        s["fields"], step._output_masks_reduced, 10, s["grp"], checks.G + 1),
-    "bihist_site": bihist_site,
+        s["fields"], step._output_masks_reduced, 10, s["grp"], G + 1),
+    "bihist_site": lambda: fusedmap.fused_bihistogram(
+        s["vts"], VTS, s["k_s"], s["ages"], A, gate=s["gate"]),
+    "post": lambda: fusedmap.fused_map(step.post, po, s["tabs"]),
+    "onehot": lambda: fusedmap.fused_onehot_sum(b[:13], s["grp"], G + 1),
+    "onehot_random": lambda: fusedmap.fused_onehot_sum(b[:13], s["code"],
+                                                       G + 1),
+    "onehot_vacc": lambda: fusedmap.fused_onehot_sum([elig], s["ages"], A),
 }
 out = {k + "_ms": checks.time_ms(f) for k, f in fns.items()}
 out["device_us"], out["kernels_per_call"] = {}, {}
@@ -91,6 +98,32 @@ for k, f in fns.items():
             count += 1
     out["device_us"][k] = dict(by)
     out["kernels_per_call"][k] = count / 20
+if hasattr(fused_bodies, "_post_kernel"):
+    out["triton_post"] = {}
+    want = step.post(*po, *s["tabs"])
+    launch = fused_bodies._launch
+    for block in (1024, 2048):
+        got = []
+
+        def _launch(fn, n, *args, **meta):
+            grid = ((n + block - 1) // block,)
+            got.append(fused_bodies._kernel(fn)[grid](
+                *args, n, BLOCK=block, num_warps=4, enable_fp_fusion=False,
+                **meta))
+
+        fused_bodies._launch = _launch
+        res = fused_bodies.post(*po, *s["tabs"])
+        k = got[-1]
+        ptx = k.asm["ptx"] if hasattr(k, "asm") else ""
+        out["triton_post"][block] = {
+            "n_regs": getattr(k, "n_regs", None),
+            "n_spills": getattr(k, "n_spills", None),
+            "ld_st": dict(Counter(re.findall(r"\b(?:ld|st)\.global[\w.]*",
+                                             ptx))),
+            "equal": all(torch.equal(x, y) for x, y in zip(res, want)),
+            "ms": checks.time_ms(lambda: fused_bodies.post(*po, *s["tabs"])),
+        }
+    fused_bodies._launch = launch
 print("AB " + sys.argv[1] + " " + json.dumps(out), flush=True)
 '''
 
@@ -107,16 +140,17 @@ def run_tree(tree: Path, label: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--other", required=True, type=Path)
+    ap.add_argument("--other", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"nvidia-smi: {smi}")
-    runs = {"other": [], "this": []}
+    order = ("other", "this", "this", "other") if args.other else ("this",)
+    runs = {label: [] for label in order}
     for _ in range(args.rounds):
-        for label in ("other", "this", "this", "other"):
+        for label in order:
             tree = args.other.resolve() if label == "other" else HERE
             runs[label].append(run_tree(tree, label))
     for label, rs in runs.items():

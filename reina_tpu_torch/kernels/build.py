@@ -13,9 +13,8 @@ The library lands in ``build/reina_tpu_torch/`` at the repository root,
 named by a hash of the sources, and is built at first use. It is loaded
 with ctypes: every pointer and the stream are ``c_void_p``, and each C
 entry point returns ``cudaGetLastError()`` after its launches, on which
-:func:`check` raises. The entry points of the prefix, ledger,
-phase-7 count and 2-D histogram kernels also take an optional array of
-CUDA events that they record around each launch.
+:func:`check` raises. Every entry point also takes an optional array
+of CUDA events that it records around each launch.
 """
 from __future__ import annotations
 
@@ -42,9 +41,10 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     "reina_ledger_grants": [_P] * 9 + [_L, _L, _I, _P, _P],
     "reina_concat_prefix": [_P, _P, _P, _P, _L, _I, _I, _P, _P],
-    "reina_onehot_sum": [_P, _P, _P, _P, _L, _I, _I, _P],
+    "reina_onehot_sum": [_P, _I, _P, _P, _P, _L, _I, _P, _P],
     "reina_fn_onehot_output_masks": [_P] * 12 + [_L] + [_I] * 5 + [_P, _P],
     "reina_bihistogram": [_P] * 3 + [_I] + [_P] * 3 + [_L, _I, _I, _P, _P],
+    "reina_post": [_P, _P, _I, _P, _L, _P, _P],
 }
 
 _lib = None
@@ -157,6 +157,12 @@ def event_handles(events):
     if events is None:
         return None
     return (_P * len(events))(*(e.cuda_event for e in events))
+
+
+def pointers(tensors):
+    """The data pointers of ``tensors`` as the C array an entry point
+    takes (its ``const void* const*``)."""
+    return (_P * len(tensors))(*(t.data_ptr() for t in tensors))
 
 
 def stream_of(t):

@@ -9,17 +9,17 @@ call computes the same function, that call). Used by
 tests/test_torch_cuda.py and chip_smoke.py.
 
 Tolerances: the prefix sums, histograms and ledger outputs (grants and
-final balances) are exact; the fused bodies' integer and bool outputs
-are exact and their float outputs within 2 ulp (libdevice ``exp`` and
-the twin's ``torch.exp`` may round differently).
+final balances) are exact, and so is the post body (integer and bool
+outputs only); the other fused bodies' integer and bool outputs are
+exact and their float outputs within 2 ulp (libdevice ``exp`` and the
+twin's ``torch.exp`` may round differently).
 
 Timing (:func:`time_ms`): the median of 7 single launches, each with a
 cold L2 (a 64 MiB buffer is written just before it) and each behind a
 device-side sleep long enough for the host to enqueue the launch, so
 that the CUDA events bracket device time only. :func:`launch_times`
-times each launch of the prefix, ledger, phase-7 count and 2-D
-histogram kernels the same way,
-through the CUDA events their entry points record around it.
+times each launch of the CUDA kernels the same way, through the CUDA
+events their entry points record around it.
 
 Bound (:func:`bound_ms`): the larger of the bytes the function must
 move (each input read once, each output written once; for the
@@ -154,6 +154,92 @@ def _histogram_streams(r, n, t):
     )
 
 
+def post_args(s):
+    """The post body's 20 streams and 4 tables, from :func:`_streams`."""
+    b, f = s["b"], s["f"]
+    return ([s["st"], s["sev"], s["var"], s["o2r"], s["dl"]] + b[:2]
+            + [f[2]] + b[2:14] + s["tabs"])
+
+
+# float32 products p = o2r * x in this open interval round to 0.5 - 2^-25,
+# and fl(fl(p) + 0.5) = 1 (a tie, to even), while a fused multiply-add
+# rounds p + 0.5 once, to 1 - 2^-24: floor(o2r * x + 0.5) is 1 without
+# contraction and 0 with it
+ROUND_EDGE = (0.5 - 1.5 * 2.0 ** -25, 0.5 - 2.0 ** -25)
+
+
+def _edge_o2r(x) -> np.ndarray:
+    """The float32 o2r values near 0.5 / x whose exact product with the
+    float32 x lies in ROUND_EDGE."""
+    x = np.float32(x)
+    o = np.float32(np.float64(sum(ROUND_EDGE) / 2) / np.float64(x))
+    near = [o]
+    for _ in range(8):
+        near = ([np.nextafter(near[0], np.float32(0))] + near
+                + [np.nextafter(near[-1], np.float32(np.inf))])
+    p = np.array(near, np.float64) * np.float64(x)
+    return np.array(near, np.float32)[(p > ROUND_EDGE[0])
+                                      & (p < ROUND_EDGE[1])]
+
+
+def post_edge_args(n, seed, dev):
+    """Post-body inputs on the rounding edge of hosp_days and icu_days:
+    tables of V = 2 variants whose three day ratios (1 - rb, rw and
+    1 - rw - rb, in float32) each have o2r values in ROUND_EDGE; half the
+    agents granted a bed, half an ICU unit (a few denied), each with an
+    edge o2r of its ratio or one up to 3 ulps beside it, so that
+    floor(o2r * x + 0.5) takes both values. Where a kernel contracts the
+    product and the sum into an FMA, its days_left differs from the
+    twin's."""
+    r = np.random.default_rng(seed)
+    tabs, edges = [], []
+    for _ in range(V):
+        while True:
+            rb, rw = r.uniform(0.05, 0.45, 2).astype(np.float32)
+            one = np.float32(1)
+            xs = (one - rb, rw, (one - rw) - rb)
+            hits = [_edge_o2r(x) for x in xs]
+            if all(len(h) for h in hits):
+                break
+        tabs.append((rb, rw))
+        edges.append(hits)
+    var = r.integers(0, V, n).astype(np.int8)
+    sev = r.integers(2, 5, n).astype(np.int8)
+    icu = r.random(n) < 0.5
+    kind = np.where(icu, 2, np.where(sev == 2, 0, 1))
+    o2r = np.empty(n, np.float32)
+    for v in range(V):
+        for k in range(3):
+            sel = (var == v) & (kind == k)
+            o = r.choice(edges[v][k], int(sel.sum()))
+            for _ in range(3):   # up to 3 ulps beside the edge
+                step = r.integers(-1, 2, o.size)
+                o = np.where(step < 0, np.nextafter(o, np.float32(0)),
+                             np.where(step > 0,
+                                      np.nextafter(o, np.float32(np.inf)),
+                                      o)).astype(np.float32)
+            o2r[sel] = o
+    granted = r.random(n) < 0.9
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def bools(p):
+        return t(r.random(n) < p)
+
+    no = t(np.zeros(n, bool))
+    rb_t = np.array([a for a, _ in tabs], np.float32)
+    rw_t = np.array([b for _, b in tabs], np.float32)
+    return ([t(r.integers(0, 7, n).astype(np.int8)), t(sev), t(var),
+             t(o2r), t(r.integers(0, 30, n).astype(np.int16)),
+             t(~icu & granted), t(icu & granted),
+             t(r.random(n).astype(np.float32)), t(~icu), t(icu), no,
+             bools(0.01), bools(0.01), no, bools(0.01), bools(0.5),
+             bools(0.9), bools(0.1), bools(0.1), no]
+            + [t(rb_t), t(rw_t), t(r.uniform(0.05, 0.9, V).astype(np.float32)),
+               t(r.uniform(0.05, 0.9, V).astype(np.float32))])
+
+
 _FM = "reina_tpu/ops/fusedmap.py"
 
 
@@ -169,8 +255,7 @@ def checks(n: int, seed: int, dev) -> List[Check]:
           s["doi"], s["dl"], s["o2r"], s["sev"], b[7], b[8], s["doil"],
           f[2], s["var"], s["D"], s["tabs"][0], s["tabs"][1], day, mode,
           dap]
-    po = [s["st"], s["sev"], s["var"], s["o2r"], s["dl"]] + b[:2] + [f[2]] \
-        + b[2:14] + s["tabs"]
+    po = post_args(s)
     fin = [s["st"], s["sev"], s["var"], s["vnew"], s["dl"], s["doil"],
            s["doi"], b[0], b[1], b[2], b[3], b[4], day, 1]
     init = torch.tensor([300, 60], dtype=torch.int32, device=dev)
@@ -211,8 +296,15 @@ def checks(n: int, seed: int, dev) -> List[Check]:
     exposers = int(gate.sum())
     flat = torch.where(gate, vts * A + ages, VTS * A).long()
     ks_f = ks.to(torch.float32)
-    code_l, grp_l = s["code"].long(), grp.long()
+    grp_l = grp.long()
     cat = torch.cat([torch.where(codes == v, s["w"], 0.0) for v in range(V)])
+
+    def post_pair(args):
+        return (lambda: fused_bodies.post(*args), lambda: step.post(*args))
+
+    def onehot_pair(ms, code, nb):
+        return (lambda: (fusedmap.fused_onehot_sum(ms, code, nb),),
+                lambda: (fusedmap.onehot_sum_twin(ms, code, nb),))
 
     def bincounts(ms, code, nb):
         return [torch.bincount(code, weights=m, minlength=nb) for m in ms]
@@ -228,11 +320,14 @@ def checks(n: int, seed: int, dev) -> List[Check]:
               lambda: fused_bodies.recv_front(*rf),
               lambda: step.recv_front(*rf), 2, rf,
               library_note="none: no one call computes a fused body"),
-        Check("fused_map.post", "triton",
-              "reina_tpu_torch/kernels/fused_bodies.py", f"{_FM}:191",
+        Check("fused_map.post", "cuda",
+              "reina_tpu_torch/kernels/csrc/post.cu", f"{_FM}:191",
               lambda: fused_bodies.post(*po),
-              lambda: step.post(*po), 2, po,
-              library_note="none: no one call computes a fused body"),
+              lambda: step.post(*po), 0, po,
+              library_note="none: no one call computes a fused body",
+              # the rounding edge of the day counts, with a tail of 7
+              extra=[post_pair(post_edge_args(n, seed, dev)),
+                     post_pair(post_edge_args(n - 9, seed + 1, dev))]),
         Check("fused_map.finalize", "triton",
               "reina_tpu_torch/kernels/fused_bodies.py", f"{_FM}:191",
               lambda: fused_bodies.finalize(*fin),
@@ -261,21 +356,20 @@ def checks(n: int, seed: int, dev) -> List[Check]:
                      prefix_pair(f[0], codes, V, 16),
                      prefix_pair(w56, None, 1, 64),
                      prefix_pair(w56, codes56, V, 64)]),
+        # the snapshot's call: 13 masks by the group code, sorted by age
         Check("fused_onehot_sum", "cuda",
               "reina_tpu_torch/kernels/csrc/onehot.cu", f"{_FM}:318",
-              lambda: (fusedmap.fused_onehot_sum(masks, s["code"], G + 1),),
-              lambda: (fusedmap.onehot_sum_twin(masks, s["code"], G + 1),),
-              inputs=masks + [s["code"]],
-              library=lambda: bincounts(masks_f, code_l, G + 1),
+              lambda: (fusedmap.fused_onehot_sum(masks, grp, G + 1),),
+              lambda: (fusedmap.onehot_sum_twin(masks, grp, G + 1),),
+              inputs=masks + [grp],
+              library=lambda: bincounts(masks_f, grp_l, G + 1),
               library_note="torch.bincount(code, weights=mask) for each of "
                            "the 13 masks (float masks made beforehand)",
-              # the vaccination call's shape: one eligibility mask by age
-              extra=[(lambda: (fusedmap.fused_onehot_sum([elig], ages, A),),
-                      lambda: (fusedmap.onehot_sum_twin([elig], ages, A),)),
-                     (lambda: (fusedmap.fused_onehot_sum(
-                          [elig], s["ages_random"], A),),
-                      lambda: (fusedmap.onehot_sum_twin(
-                          [elig], s["ages_random"], A),))]),
+              # random codes; the vaccination call's shape, one
+              # eligibility mask by age, sorted and shuffled
+              extra=[onehot_pair(masks, s["code"], G + 1),
+                     onehot_pair([elig], ages, A),
+                     onehot_pair([elig], s["ages_random"], A)]),
         Check("fused_fn_onehot_sum", "cuda",
               "reina_tpu_torch/kernels/csrc/fn_onehot.cu", f"{_FM}:391",
               lambda: (fusedmap.fused_fn_onehot_sum(
@@ -376,8 +470,9 @@ def time_ms(fn, repeats: int = 7) -> float:
 def launch_times(n: int, seed: int, dev, repeats: int = 7) -> dict:
     """{call: [ms of each launch]}: the median device time of each launch
     of the prefix kernel (one; the day step's n_seg 1 and n_seg 2 calls
-    apart), of the ledger kernel (three) and of the phase-7 count and
-    2-D histogram kernels (one each, at the day step's call), on
+    apart), of the ledger kernel (three) and of the phase-7 count, 2-D
+    histogram, post body and one-hot kernels (one each, at the day step's
+    and the snapshot's calls), on
     :func:`checks`' inputs, between the CUDA events their entry points
     record around each launch, cold L2 before each call as in
     :func:`time_ms`."""
@@ -399,6 +494,10 @@ def launch_times(n: int, seed: int, dev, repeats: int = 7) -> dict:
         "fused_bihistogram": (1, lambda ev: fusedmap.fused_bihistogram(
             s["vts"], VTS, s["k_s"], s["ages"], A, gate=s["gate"],
             events=ev)),
+        "fused_map.post": (1, lambda ev: fused_bodies.post(*post_args(s),
+                                                           events=ev)),
+        "fused_onehot_sum": (1, lambda ev: fusedmap.fused_onehot_sum(
+            s["b"][:13], s["grp"], G + 1, events=ev)),
     }
     out = {}
     for name, (k, fn) in calls.items():

@@ -14,10 +14,11 @@
 //
 //   * a persistent grid sized to the card (one wave at HUS size: 103
 //     CTAs of 1,024 threads);
-//   * a thread takes 16 consecutive agents a step: one 16-byte load of the
-//     gate (four of code_a without one), and a word that is all zero ends
-//     the step. code_a, w and code_b are read only for gated agents, as
-//     predicated loads that do not wait on each other;
+//   * a thread takes 16 consecutive agents a step (vec16.cuh): one
+//     16-byte load of the gate (four of code_a without one), and a word
+//     that is all zero ends the step. code_a, w and code_b are read only
+//     for gated agents, as predicated loads that do not wait on each
+//     other;
 //   * the weights are integer contact counts <= 128 (the reference's
 //     stated contract), int32 or float32, added as int32: exact in any
 //     order, so the result equals the twin's float sums;
@@ -32,18 +33,14 @@
 #include <stdint.h>
 
 #include "hist_finish.cuh"
+#include "vec16.cuh"
 
 namespace {
 
 constexpr int THREADS = 1024;  // the last CTA reads all bins at once
-constexpr int VEC = 16;  // consecutive agents a thread takes a step
 
 __device__ __forceinline__ int weight(float w) { return __float2int_rn(w); }
 __device__ __forceinline__ int weight(int w) { return w; }
-
-__device__ __forceinline__ unsigned word_of(const uint4& v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
-}
 
 __device__ __forceinline__ void add(int* acc, int a, int b, int wi, int na,
                                     int nb) {
@@ -66,11 +63,11 @@ __global__ void __launch_bounds__(THREADS)
     int a[VEC];
     bool on[VEC];
     if constexpr (GATED) {
-      const uint4 g = __ldg(reinterpret_cast<const uint4*>(gate + i0));
+      const uint4 g = ld16(gate, i0);
       if ((g.x | g.y | g.z | g.w) == 0) continue;
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
-        on[j] = (word_of(g, j >> 2) >> (8 * (j & 3))) & 0xffu;
+        on[j] = byte_of(g, j);
         a[j] = on[j] ? __ldg(code_a + i0 + j) : -1;
       }
     } else {
@@ -106,15 +103,10 @@ int launch(const void* gate, const void* code_a, const void* w,
            const void* code_b, void* scratch, void* out, long long n, int na,
            int nb, cudaStream_t st) {
   auto kernel = bihist_kernel<W, GATED>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kernel, THREADS, 0);
+  int ctas = 0;
+  const cudaError_t err = persistent_ctas(kernel, THREADS, 0, n, &ctas);
   if (err != cudaSuccess) return (int)err;
-  const long long need = (n / VEC + THREADS - 1) / THREADS;
-  const long long ctas = need < 1 ? 1 : min((long long)sms * per_sm, need);
-  kernel<<<(int)ctas, THREADS, 0, st>>>(
+  kernel<<<ctas, THREADS, 0, st>>>(
       (const uint8_t*)gate, (const int*)code_a, (const W*)w,
       (const int*)code_b, (int*)scratch, (float*)out, n, na, nb);
   return (int)cudaGetLastError();

@@ -1,11 +1,13 @@
-"""The day step's four fused per-agent passes as Triton kernels.
+"""The launchers of the day step's four fused per-agent passes.
 
 Replaces reina_tpu/ops/fusedmap.py:fused_map (the Pallas kernel) for its
 four bodies in reina_tpu/core/step.py: the exposure prologue, the
 receiver plus progression front half, the post-ledger progression pass
 and the end-of-day merge. Their plain PyTorch twins are the functions of
-the same names in reina_tpu_torch/core/step.py; the expressions below
-are those twins written out in ``tl``, operation for operation.
+the same names in reina_tpu_torch/core/step.py. The post-ledger pass is
+a CUDA kernel (kernels/csrc/post.cu, 16 agents a thread); the other
+three are Triton kernels here, whose expressions are their twins written
+out in ``tl``, operation for operation.
 
 What bounds them on the card: bytes. Each body is pure elementwise over
 the agent axis, 30-70 bytes per agent in and out (~120 MB for the
@@ -23,7 +25,8 @@ the twin does not perform.
 
 Triton is imported, and the kernels are compiled, at first launch: the
 module is importable without it. The constants of
-reina_tpu_torch/core/constants.py appear as literals (states
+reina_tpu_torch/core/constants.py appear as literals here and in
+post.cu, and are asserted below (states
 SUSCEPTIBLE..DEAD = 0..6, severities ASYMPTOMATIC..FATAL = 0..4, testing
 modes ALL_WITH_SYMPTOMS_CT = 1, ALL_WITH_SYMPTOMS = 2,
 ONLY_SEVERE_SYMPTOMS = 3).
@@ -249,80 +252,6 @@ def _recv_front_kernel(band, lam, isinf, hasimm, act, u_inf, u_var, st8, doi,
     tl.store(o_icu_recover + offs, icu_recover.to(tl.uint8), mask=m)
 
 
-def _post_kernel(st8, sev8, var8, o2r, dl_a, gbed, gicu, u_day, bed_request,
-                 icu_request, die_home, recover_ill, hosp_recover, icu_die,
-                 icu_recover, wdet, isinf, hasimm, evericu, onset,
-                 rbt, rwt, picut, phospt,
-                 o_st, o_dl, o_isinf, o_hasimm, o_evericu, o_wdet,
-                 o_detect_hosp, n, V: tl.constexpr, BLOCK: tl.constexpr):
-    offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
-    m = offs < n
-    st = tl.load(st8 + offs, mask=m, other=0).to(tl.int32)
-    sev = tl.load(sev8 + offs, mask=m, other=0).to(tl.int32)
-    var = tl.load(var8 + offs, mask=m, other=0).to(tl.int32)
-    o2r_ = tl.load(o2r + offs, mask=m, other=0.0)
-    dl_a_ = tl.load(dl_a + offs, mask=m, other=0).to(tl.int32)
-    u = tl.load(u_day + offs, mask=m, other=0.0)
-    gbed_ = tl.load(gbed + offs, mask=m, other=0) != 0
-    gicu_ = tl.load(gicu + offs, mask=m, other=0) != 0
-    bed_req = tl.load(bed_request + offs, mask=m, other=0) != 0
-    icu_req = tl.load(icu_request + offs, mask=m, other=0) != 0
-    die_home_ = tl.load(die_home + offs, mask=m, other=0) != 0
-    recover_ill_ = tl.load(recover_ill + offs, mask=m, other=0) != 0
-    hosp_recover_ = tl.load(hosp_recover + offs, mask=m, other=0) != 0
-    icu_die_ = tl.load(icu_die + offs, mask=m, other=0) != 0
-    icu_recover_ = tl.load(icu_recover + offs, mask=m, other=0) != 0
-    wdet_ = tl.load(wdet + offs, mask=m, other=0) != 0
-    isinf_ = tl.load(isinf + offs, mask=m, other=0) != 0
-    hasimm_ = tl.load(hasimm + offs, mask=m, other=0) != 0
-    evericu_ = tl.load(evericu + offs, mask=m, other=0) != 0
-    onset_ = tl.load(onset + offs, mask=m, other=0) != 0
-
-    vt = tl.where((var >= 1) & (var < V), var, 0)
-    rb = tl.load(rbt + vt, mask=m, other=0.0)
-    rw = tl.load(rwt + vt, mask=m, other=0.0)
-    p_icu = tl.load(picut + vt, mask=m, other=0.0)
-    p_hosp = tl.load(phospt + vt, mask=m, other=0.0)
-
-    bed_denied = bed_req & (gbed_ == 0)
-    die_chance = tl.where(sev == 4, 1.0, tl.where(sev == 3, p_icu, p_hosp))
-    denied_die = bed_denied & (u < die_chance)
-    denied_recover = bed_denied & (denied_die == 0)
-    hospitalized_now = bed_req & gbed_
-    hosp_days = ld.floor(o2r_ * tl.where(sev == 2, 1.0 - rb, rw) + 0.5).to(
-        tl.int16).to(tl.int32)
-    icu_denied = icu_req & (gicu_ == 0)
-    icu_die_chance = tl.where(sev == 4, 1.0, p_icu)
-    icu_denied_die = icu_denied & (u < icu_die_chance)
-    icu_enter = (icu_req & gicu_) | (icu_denied & (icu_denied_die == 0))
-    icu_days = ld.floor(o2r_ * (1.0 - rw - rb) + 0.5).to(tl.int16).to(
-        tl.int32)
-    detect_hosp = bed_req & (wdet_ == 0)
-    wdet_out = wdet_ | bed_req
-    dies = die_home_ | denied_die | icu_denied_die | icu_die_
-    recovers = recover_ill_ | denied_recover | hosp_recover_ | icu_recover_
-
-    new_st = st
-    new_st = tl.where(onset_, 2, new_st)
-    new_st = tl.where(hospitalized_now, 3, new_st)
-    new_st = tl.where(icu_enter, 4, new_st)
-    new_st = tl.where(recovers, 5, new_st)
-    new_st = tl.where(dies, 6, new_st)
-    days_left = dl_a_
-    days_left = tl.where(hospitalized_now, hosp_days, days_left)
-    days_left = tl.where(icu_enter, icu_days, days_left)
-    gone = dies | recovers
-
-    tl.store(o_st + offs, new_st.to(tl.int8), mask=m)
-    tl.store(o_dl + offs, days_left.to(tl.int16), mask=m)
-    tl.store(o_isinf + offs, (isinf_ & (gone == 0)).to(tl.uint8), mask=m)
-    tl.store(o_hasimm + offs, (hasimm_ | (gone & isinf_)).to(tl.uint8),
-             mask=m)
-    tl.store(o_evericu + offs, (evericu_ | icu_enter).to(tl.uint8), mask=m)
-    tl.store(o_wdet + offs, wdet_out.to(tl.uint8), mask=m)
-    tl.store(o_detect_hosp + offs, detect_hosp.to(tl.uint8), mask=m)
-
-
 def _finalize_kernel(st8, sev8, var8, var_new, dl, doil, doi, newly, isinf,
                      trc, det, det_hosp, day, ct,
                      o_st, o_sev, o_var, o_dl, o_doil, o_doi, o_isinf,
@@ -409,26 +338,39 @@ def recv_front(band, lam, isinf, hasimm, act, u_inf, u_var, st8, doi, dl,
 def post(st8, sev8, var8, o2r, dl_a, gbed, gicu, u_day, bed_request,
          icu_request, die_home, recover_ill, hosp_recover, icu_die,
          icu_recover, wdet, isinf, hasimm, evericu, onset, rbt, rwt, picut,
-         phospt):
+         phospt, events=None):
+    """kernels/csrc/post.cu, one launch: every stream (N,), contiguous
+    and 16-byte aligned, the four tables (V,) float32. ``events``: None,
+    or 2 recorded CUDA events the kernel records again before and after
+    its launch (for timing)."""
     n, dev = st8.shape[0], st8.device
-    bools = dict(gbed=gbed, gicu=gicu, bed_request=bed_request,
-                 icu_request=icu_request, die_home=die_home,
-                 recover_ill=recover_ill, hosp_recover=hosp_recover,
-                 icu_die=icu_die, icu_recover=icu_recover, wdet=wdet,
-                 isinf=isinf, hasimm=hasimm, evericu=evericu, onset=onset)
-    _check(n, dev, st8=(st8, I8), sev8=(sev8, I8), var8=(var8, I8),
-           o2r=(o2r, F32), dl_a=(dl_a, I16), u_day=(u_day, F32),
-           **{k: (v, BOOL) for k, v in bools.items()})
+    streams = dict(
+        st8=(st8, I8), sev8=(sev8, I8), var8=(var8, I8), o2r=(o2r, F32),
+        dl_a=(dl_a, I16), gbed=(gbed, BOOL), gicu=(gicu, BOOL),
+        u_day=(u_day, F32), bed_request=(bed_request, BOOL),
+        icu_request=(icu_request, BOOL), die_home=(die_home, BOOL),
+        recover_ill=(recover_ill, BOOL), hosp_recover=(hosp_recover, BOOL),
+        icu_die=(icu_die, BOOL), icu_recover=(icu_recover, BOOL),
+        wdet=(wdet, BOOL), isinf=(isinf, BOOL), hasimm=(hasimm, BOOL),
+        evericu=(evericu, BOOL), onset=(onset, BOOL))
+    _check(n, dev, **streams)
+    ins = [t for t, _ in streams.values()]
+    tabs = [rbt, rwt, picut, phospt]
+    V = rbt.shape[0]
+    if any(t.dim() != 1 for t in ins) or V < 1 or any(
+            t.device != dev or t.dtype != F32 or t.shape != (V,)
+            or not t.is_contiguous() for t in tabs):
+        raise TypeError("post kernel takes (N,) streams and four contiguous "
+                        "(V,) float32 tables")
     outs = _empty(n, dev, I8, I16, BOOL, BOOL, BOOL, BOOL, BOOL)
+    if any(t.data_ptr() % 16 for t in ins + outs):
+        raise TypeError("post kernel takes 16-byte aligned streams")
+    from . import build
+    build.check(build.lib().reina_post(
+        build.pointers(ins), build.pointers(tabs), V, build.pointers(outs),
+        n, build.event_handles(events), build.stream_of(st8)),
+        "fused_map.post")
     LAUNCHES["fused_map.post"] += 1
-    _launch(_post_kernel, n, st8, sev8, var8, o2r, dl_a, _b(gbed), _b(gicu),
-            u_day, _b(bed_request), _b(icu_request), _b(die_home),
-            _b(recover_ill), _b(hosp_recover), _b(icu_die), _b(icu_recover),
-            _b(wdet), _b(isinf), _b(hasimm), _b(evericu), _b(onset),
-            rbt.contiguous(), rwt.contiguous(), picut.contiguous(),
-            phospt.contiguous(),
-            *[_b(o) if o.dtype == BOOL else o for o in outs],
-            V=rbt.shape[0])
     return tuple(outs)
 
 
@@ -451,4 +393,6 @@ LAUNCHERS = {"prologue": prologue, "recv_front": recv_front, "post": post,
              "finalize": finalize}
 
 assert C.INCUBATION == 1 and C.DEAD == 6 and C.FATAL == 4
+assert (C.ILLNESS, C.HOSPITALIZED, C.IN_ICU, C.RECOVERED) == (2, 3, 4, 5)
+assert (C.SEVERE, C.CRITICAL) == (2, 3)
 assert C.TESTING_ALL_WITH_SYMPTOMS_CT == 1 and C.TESTING_ONLY_SEVERE_SYMPTOMS == 3

@@ -14,11 +14,12 @@ on what the kernel does not take:
   * ``fused_bihistogram``: an exact weighted 2-D histogram, with an
     optional gate on the first code.
 
-The last two run in one launch each on a cached scratch buffer that the
-kernel leaves zeroed.
+The three histograms run in one launch each on a cached scratch buffer
+that the kernel leaves zeroed.
 
 ``fused_map`` runs one of the day step's four fused bodies: the body
-function itself (the twin) on the CPU, its Triton kernel on CUDA.
+function itself (the twin) on the CPU, its kernel on CUDA
+(kernels/fused_bodies.py).
 """
 from __future__ import annotations
 
@@ -31,6 +32,9 @@ from .. import kernels
 LANE = 128
 # shared memory a block can hold on sm_90
 MAX_BLOCK_SMEM = 232448
+# kernels/csrc/onehot.cu: its instances (masks a call) and its bins
+ONEHOT_MAX_K = 16
+ONEHOT_MAX_BINS_BYTES = 48 * 1024
 
 
 def _largest_block(n: int, want: int, mult: int) -> int:
@@ -68,7 +72,7 @@ def _scratch(dev, name: str, size: int) -> torch.Tensor:
 def fused_map(fn: Callable, arrays: Sequence[torch.Tensor],
               smalls: Sequence = ()):
     """Run the fused body ``fn(*arrays, *smalls)``: the function itself
-    for CPU tensors, the Triton kernel of the same name for CUDA ones
+    for CPU tensors, the kernel of the same name for CUDA ones
     (kernels/fused_bodies.py). Returns a tuple of (N,) tensors."""
     dev = _same_device(arrays)
     if dev.type == "cpu":
@@ -97,28 +101,40 @@ def onehot_sum_twin(parts, code_b, n_b: int) -> torch.Tensor:
     return out
 
 
-def fused_onehot_sum(parts, code_b, n_b: int) -> torch.Tensor:
-    """(K, n_b) float32 one-hot sums of K bool masks (kernel on CUDA:
-    kernels/csrc/onehot.cu)."""
+def fused_onehot_sum(parts, code_b, n_b: int, events=None) -> torch.Tensor:
+    """(K, n_b) float32 one-hot sums of K bool masks: the twin on the CPU;
+    on CUDA kernels/csrc/onehot.cu, one launch that reads the masks where
+    they lie. The masks and the codes must be contiguous and 16-byte
+    aligned, 1 <= K <= ONEHOT_MAX_K, and the K * n_b int32 bins must fit
+    48 KB of shared memory. ``events``: as for fused_concat_prefix. Its
+    scratch is shared by the calls of one shape on a device (see
+    :func:`_scratch`)."""
     dev = _same_device(list(parts) + [code_b])
     if dev.type == "cpu":
         return onehot_sum_twin(parts, code_b, n_b)
-    n = code_b.shape[0]
+    n, K = code_b.shape[0], len(parts)
+    if not 1 <= K <= ONEHOT_MAX_K or K * n_b * 4 > ONEHOT_MAX_BINS_BYTES:
+        raise ValueError(f"fused_onehot_sum kernel takes 1 to {ONEHOT_MAX_K} "
+                         f"masks and {ONEHOT_MAX_BINS_BYTES} bytes of bins, "
+                         f"not {K} masks by {n_b}")
     for p in parts:
-        if p.dtype != torch.bool or p.shape != (n,):
-            raise TypeError("fused_onehot_sum kernel takes (N,) bool masks")
-    if code_b.dtype != torch.int32 or not code_b.is_contiguous():
+        if p.dtype != torch.bool or p.shape != (n,) or not p.is_contiguous():
+            raise TypeError("fused_onehot_sum kernel takes contiguous (N,) "
+                            "bool masks")
+    if code_b.dtype != torch.int32 or code_b.dim() != 1 \
+            or not code_b.is_contiguous():
         raise TypeError("fused_onehot_sum kernel takes contiguous int32 codes")
+    if any(t.data_ptr() % 16 for t in list(parts) + [code_b]):
+        raise TypeError("fused_onehot_sum kernel takes 16-byte aligned masks "
+                        "and codes")
     from ..kernels import build
-    stacked = torch.stack(list(parts)).view(torch.uint8)
-    K = len(parts)
-    acc = torch.empty(K * n_b, dtype=torch.int32, device=dev)
+    acc = _scratch(dev, "fused_onehot_sum", K * n_b + 1)
     out = torch.empty((K, n_b), dtype=torch.float32, device=dev)
-    kernels.LAUNCHES["fused_onehot_sum"] += 1
     build.check(build.lib().reina_onehot_sum(
-        stacked.data_ptr(), code_b.data_ptr(), acc.data_ptr(),
-        out.data_ptr(), n, K, n_b, build.stream_of(code_b)),
-        "fused_onehot_sum")
+        build.pointers(parts), K, code_b.data_ptr(), acc.data_ptr(),
+        out.data_ptr(), n, n_b, build.event_handles(events),
+        build.stream_of(code_b)), "fused_onehot_sum")
+    kernels.LAUNCHES["fused_onehot_sum"] += 1
     return out
 
 

@@ -98,8 +98,9 @@ def test_resume_on_cuda_equals_uninterrupted(tmp_path):
 def test_wrappers_raise_and_never_fall_back():
     """On CUDA tensors the wrappers launch their kernel or raise: a
     mask function without a kernel, a wrong dtype (int64 or float64
-    weights among them), an offset outside the ledger or a misaligned
-    stream or gate are refused, never run by the twin, and no launch is
+    weights among them), an offset outside the ledger, a misaligned or
+    non-contiguous stream or gate, or a count of masks outside 1 to
+    ONEHOT_MAX_K are refused, never run by the twin, and no launch is
     counted."""
     _need_cuda()
     from reina_tpu_torch.core import step
@@ -153,12 +154,34 @@ def test_wrappers_raise_and_never_fall_back():
                                        [q[1:] for q in req], init, 0)
     with pytest.raises(TypeError):
         fusedmap.fused_concat_prefix(s["w"][1:1025], None, 1)
+    masks = s["b"][:13]
+    for k in (0, fusedmap.ONEHOT_MAX_K + 1):
+        with pytest.raises(ValueError):
+            fusedmap.fused_onehot_sum(s["b"][:1] * k, grp, 11)
+    with pytest.raises(TypeError, match="aligned"):
+        fusedmap.fused_onehot_sum([m[1:] for m in masks], grp[1:], 11)
+    with pytest.raises(TypeError):
+        fusedmap.fused_onehot_sum([torch.stack(masks[:2], 1)[:, 0]], grp, 11)
+    with pytest.raises(TypeError):
+        fusedmap.fused_onehot_sum(masks, grp.long(), 11)
+    from reina_tpu_torch.kernels import fused_bodies
+    po = checks.post_args(s)
+    with pytest.raises(TypeError, match="aligned"):
+        fused_bodies.post(*[a[1:] for a in po[:20]], *po[20:])
+    strided = list(po)
+    strided[3] = torch.stack([po[3], po[3]], 1)[:, 0]     # o2r
+    with pytest.raises(ValueError):
+        fused_bodies.post(*strided)
+    with pytest.raises(TypeError):
+        fused_bodies.post(*po[:20], po[20].double(), *po[21:])
     assert kernels.launches() == before
 
 
 def _histogram_calls(n, gate_p=None):
-    """(kernel, twin) of both histograms on checks' streams cut to n
-    agents, the gate drawn with probability gate_p where given."""
+    """(kernel, twin) of the three histograms on checks' streams cut to n
+    agents (the 2-D histogram gated and not, the one-hot sums at the
+    snapshot's and the vaccination's shapes), the gate drawn with
+    probability gate_p where given."""
     from reina_tpu_torch.core import step
     from reina_tpu_torch.kernels import checks
     from reina_tpu_torch.ops import fusedmap
@@ -171,6 +194,7 @@ def _histogram_calls(n, gate_p=None):
         gate = torch.rand(n, device="cuda") < gate_p
     masks = step._output_masks_reduced
     code_a, wf = torch.where(gate, vts, -1), ks.float()
+    bools = [b[:n].clone() for b in s["b"][:13]]
     return [
         (lambda: fusedmap.fused_fn_onehot_sum(fields, masks, 10, grp, 11),
          lambda: fusedmap.fn_onehot_sum_twin(fields, masks, 10, grp, 11)),
@@ -179,35 +203,51 @@ def _histogram_calls(n, gate_p=None):
          lambda: fusedmap.bihistogram_twin(vts, 84, ks, ages, 101, gate)),
         (lambda: fusedmap.fused_bihistogram(code_a, 84, wf, ages, 101),
          lambda: fusedmap.bihistogram_twin(vts, 84, ks, ages, 101, gate)),
+        (lambda: fusedmap.fused_onehot_sum(bools, grp, 11),
+         lambda: fusedmap.onehot_sum_twin(bools, grp, 11)),
+        (lambda: fusedmap.fused_onehot_sum(bools[:1], ages, 101),
+         lambda: fusedmap.onehot_sum_twin(bools[:1], ages, 101)),
     ]
 
 
 def _device_ops(fn):
     """fn's result and the device operations (kernels, memsets, copies)
-    it ran, by torch.profiler."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        out = fn()
+    it ran, in the order they started, by torch.profiler. A profiled
+    fill first starts CUPTI, whose first session in a process can miss
+    events."""
+    for warm_up in (True, False):
         torch.cuda.synchronize()
-    return out, [e.name for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            out = torch.zeros(1, device="cuda") if warm_up else fn()
+            torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, [e.name for e in sorted(events,
+                                        key=lambda e: e.time_range.start)]
 
 
 def test_histograms_reset_their_scratch():
-    """Three calls in a row give equal outputs, equal to the twin: each
-    launch leaves its scratch zeroed. Each call is one device kernel (no
-    memset, no finish kernel), and counts one launch."""
+    """Three calls in a row of each histogram give equal outputs, equal
+    to the twin: each launch leaves its scratch zeroed. Each call is one
+    device kernel (no stack of the masks, no memset, no finish kernel),
+    and counts one launch."""
     _need_cuda()
-    for kernel, twin in _histogram_calls(8192):
+    from reina_tpu_torch.ops import fusedmap
+    calls = _histogram_calls(8192)
+    for kernel, _ in calls:
         kernel()                        # the first call allocates the scratch
-        before = kernels.launches()
-        outs, ops = _device_ops(lambda: [kernel() for _ in range(3)])
-        after = kernels.launches()
-        assert sum(after.values()) - sum(before.values()) == 3
-        assert len(ops) == 3 and len(set(ops)) == 1, ops
-        for o in outs:
+    before = kernels.launches()
+    outs, ops = _device_ops(
+        lambda: [[kernel() for _ in range(3)] for kernel, _ in calls])
+    after = kernels.launches()
+    assert sum(after.values()) - sum(before.values()) == 3 * len(calls)
+    assert len(ops) == 3 * len(calls), ops
+    for c, ((_, twin), three) in enumerate(zip(calls, outs)):
+        assert len(set(ops[3 * c:3 * c + 3])) == 1, ops
+        for o in three:
             assert torch.equal(o, twin())
+    assert not any(t.any() for t in fusedmap._SCRATCH.values())
 
 
 @pytest.mark.parametrize("n", [8192 - 3, 4096 + 1001, 13],
@@ -222,10 +262,45 @@ def test_histograms_partial_tail(n):
 @pytest.mark.parametrize("p", [0.0, 1.0], ids=["all-false", "all-true"])
 def test_bihistogram_gate_all_false_and_all_true(p):
     _need_cuda()
-    for kernel, twin in _histogram_calls(8192, gate_p=p)[1:]:
+    for kernel, twin in _histogram_calls(8192, gate_p=p)[1:3]:
         got = kernel()
         assert torch.equal(got, twin())
         assert (got.sum() == 0) == (p == 0.0)
+
+
+@pytest.mark.parametrize("n", [1, 16384, 16384 + 7])
+def test_post_kernel_matches_twin(n):
+    """The post body at one agent (the tail only), 16k agents and 16k + 7
+    (a tail of 7), on checks' streams and on the rounding edge of the day
+    counts: equal to the twin, one launch each."""
+    _need_cuda()
+    from reina_tpu_torch.core import step
+    from reina_tpu_torch.kernels import checks, fused_bodies
+    s = checks._streams(n, 2, "cuda")
+    for args in (checks.post_args(s), checks.post_edge_args(n, 3, "cuda")):
+        before = kernels.launches()["fused_map.post"]
+        got = fused_bodies.post(*args)
+        assert kernels.launches()["fused_map.post"] == before + 1
+        for g, w in zip(got, step.post(*args)):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("K", [1, 13, 16])
+def test_onehot_sum_masks(K):
+    """K masks (up to ONEHOT_MAX_K) by sorted, random and out-of-range
+    codes, with a tail of 5."""
+    _need_cuda()
+    from reina_tpu_torch.ops import fusedmap
+    assert fusedmap.ONEHOT_MAX_K == 16
+    r = np.random.default_rng(K)
+    n = 8192 + 5
+    masks = [torch.from_numpy(r.random(n) < q).cuda()
+             for q in np.linspace(0.05, 0.9, K)]
+    for code in (np.sort(r.integers(0, 11, n)), r.integers(0, 11, n),
+                 np.sort(r.integers(-3, 14, n))):
+        c = torch.from_numpy(code.astype(np.int32)).cuda()
+        assert torch.equal(fusedmap.fused_onehot_sum(masks, c, 11),
+                           fusedmap.onehot_sum_twin(masks, c, 11))
 
 
 @pytest.mark.parametrize("L", [1, 2])

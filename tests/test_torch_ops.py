@@ -25,6 +25,7 @@ from reina_tpu.ops import compact as jcompact
 from reina_tpu.ops import fusedmap as jfm
 from reina_tpu.ops import random as jrandom
 from reina_tpu_torch.core import step as tstep
+from reina_tpu_torch.kernels.checks import post_edge_args
 from reina_tpu_torch.ops import clamped, compact, fusedmap, prng
 from reina_tpu_torch.ops import random as trandom
 
@@ -133,6 +134,46 @@ def test_post(force):
                          [jnp.asarray(t) for t in tabs], force=force)
     got = tstep.post(*[_t(a) for a in args], *[_t(t) for t in tabs])
     _cmp(want, got)
+
+
+@pytest.mark.parametrize("force,n", [("xla", 4013), ("interpret", 4096)])
+def test_post_rounding_edge(force, n):
+    """hosp_days and icu_days on the rounding edge of floor(o2r * x +
+    0.5) (kernels/checks.py:post_edge_args). The twin rounds the product
+    and the sum each on its own; on these inputs a fused multiply-add
+    gives other days_left, so the CUDA kernel, held to the twin on the
+    same inputs on the card, must not contract them. The JAX package's
+    XLA form (run op by op) equals the twin at an N that is not a
+    multiple of 16; its Pallas form in interpret mode, compiled whole by
+    XLA:CPU, contracts them into an FMA (ROADMAP.md, queue 3): there the
+    twin differs from it on the edge agents only."""
+    args = post_edge_args(n, 0, "cpu")
+    got = tstep.post(*args)
+    np_args = [a.numpy() for a in args]
+    want = jfm.fused_map(jstep._phase5_post, 7,
+                         [jnp.asarray(a) for a in np_args[:20]],
+                         [jnp.asarray(t) for t in np_args[20:]], force=force)
+    o2r, sev, var = np_args[3], np_args[1], np_args[2].astype(np.int64)
+    bed, icu, gbed, gicu = np_args[8], np_args[9], np_args[5], np_args[6]
+    rb, rw, one = np_args[20][var], np_args[21][var], np.float32(1)
+    x = np.where(icu, (one - rw) - rb, np.where(sev == 2, one - rb, rw))
+    p = o2r.astype(np.float64) * x.astype(np.float64)      # exact
+    apart = np.floor(p.astype(np.float32) + np.float32(0.5))
+    fused = np.floor((p + 0.5).astype(np.float32))
+    u, p_icu = np_args[7], np_args[22][var]
+    icu_enter = icu & (gicu | (u >= np.where(sev == 4, 1, p_icu)))
+    days = (bed & gbed) | icu_enter        # agents that take a day count
+    np.testing.assert_array_equal(got[1].numpy()[days], apart[days])
+    assert (apart[days] != fused[days]).sum() > n // 10
+    assert set(np.unique(apart[days])) == {0.0, 1.0}
+    if force == "xla":
+        _cmp(want, got)
+    else:
+        jdl = np.asarray(want[1])
+        np.testing.assert_array_equal(jdl[days], fused[days])
+        edge = days & (apart != fused)
+        np.testing.assert_array_equal(jdl[~edge], got[1].numpy()[~edge])
+        _cmp(want[:1] + want[2:], got[:1] + got[2:])
 
 
 @pytest.mark.parametrize("force", FORCES)
@@ -395,28 +436,25 @@ def _finish_model(acc, ctas):
     return out
 
 
-def _fn_onehot_model(fields, code, nb, threads=64, ctas=3):
-    """fn_onehot.cu step by step: 16 agents a thread a step, run-length
-    counts flushed to the CTA's bins when the code changes, the last
-    runs of a warp summed when all 32 lanes end on one code, the scalar
-    tail, the fold of non-zero bins and the last CTA's finish. Returns
-    (out, the scratch after the launch)."""
-    act, inf, imm, dov, det, st, evi, dout, nw = [f.tolist() for f in fields]
+def _runs_model(masks_of, code, nb, K, threads=64, ctas=3):
+    """onehot_runs.cuh step by step, then each CTA's fold of its non-zero
+    bins and the last CTA's finish: 16 agents a thread a step, run-length
+    counts flushed to the CTA's bins when the code changes, the last runs
+    of a warp summed when all 32 lanes end on one code, the scalar tail.
+    ``masks_of(i)``: agent i's K mask bits, or None where it counts
+    nowhere. Returns (out, the scratch after the launch, the number of
+    warp sums)."""
     code = code.tolist()
-    n, K = len(code), 10
-    C = tstep.C
+    n = len(code)
 
     def masks(i):
-        dead = st[i] == C.DEAD
-        return [dov[i] >= 0, inf[i] or imm[i], det[i], st[i] == C.IN_ICU,
-                evi[i], st[i] == C.HOSPITALIZED, dead, st[i] == C.RECOVERED,
-                dead and dout[i], nw[i]]
+        return masks_of(i) if 0 <= code[i] < nb else None
 
     def flush(h, g, c):
         for k in range(K):
             h[k * nb + g] += c[k]
 
-    acc = [0] * (K * nb + 1)
+    acc, warp_sums = [0] * (K * nb + 1), 0
     for steps, tail in _model_grid(n, threads, ctas):
         h = [0] * (K * nb)
         for w0 in range(0, threads, 32):
@@ -427,16 +465,18 @@ def _fn_onehot_model(fields, code, nb, threads=64, ctas=3):
                     cur, c = -1, [0] * K
                     if s < len(lane):
                         for i in range(lane[s] * VEC, lane[s] * VEC + VEC):
-                            if not act[i] or not 0 <= code[i] < nb:
+                            m = masks(i)
+                            if m is None:
                                 continue
                             if code[i] != cur:
                                 if cur >= 0:
                                     flush(h, cur, c)
                                 cur, c = code[i], [0] * K
-                            c = [x + bool(m) for x, m in zip(c, masks(i))]
+                            c = [x + bool(b) for x, b in zip(c, m)]
                     ends.append((cur, c))
                 if len({cur for cur, _ in ends}) == 1:
                     if ends[0][0] >= 0:
+                        warp_sums += 1
                         flush(h, ends[0][0], [sum(c[k] for _, c in ends)
                                               for k in range(K)])
                 else:
@@ -444,11 +484,35 @@ def _fn_onehot_model(fields, code, nb, threads=64, ctas=3):
                         if cur >= 0:
                             flush(h, cur, c)
         for i in tail:
-            if act[i] and 0 <= code[i] < nb:
-                flush(h, code[i], [bool(m) for m in masks(i)])
+            m = masks(i)
+            if m is not None:
+                flush(h, code[i], [bool(b) for b in m])
         for j, x in enumerate(h):
             acc[j] += x
-    return _finish_model(acc, ctas).reshape(K, nb), acc
+    return _finish_model(acc, ctas).reshape(K, nb), acc, warp_sums
+
+
+def _fn_onehot_model(fields, code, nb):
+    """fn_onehot.cu: the runs model over the 10 phase-7 masks of active
+    agents."""
+    act, inf, imm, dov, det, st, evi, dout, nw = [f.tolist() for f in fields]
+    C = tstep.C
+
+    def masks_of(i):
+        if not act[i]:
+            return None
+        dead = st[i] == C.DEAD
+        return [dov[i] >= 0, inf[i] or imm[i], det[i], st[i] == C.IN_ICU,
+                evi[i], st[i] == C.HOSPITALIZED, dead, st[i] == C.RECOVERED,
+                dead and dout[i], nw[i]]
+
+    return _runs_model(masks_of, code, nb, 10)
+
+
+def _onehot_model(parts, code, nb):
+    """onehot.cu: the runs model over K bool masks read where they lie."""
+    ps = [p.tolist() for p in parts]
+    return _runs_model(lambda i: [p[i] for p in ps], code, nb, len(ps))
 
 
 def _bihist_model(gate, code_a, w, code_b, na, nb, threads=64, ctas=3):
@@ -515,7 +579,7 @@ def test_fn_onehot_kernel_model(case, force):
     tail is held to its XLA form), and leave the scratch zeroed."""
     fields, code = _phase7_inputs(case)
     tf = [_t(f) for f in fields]
-    got, acc = _fn_onehot_model(tf, _t(code), 11)
+    got, acc, _ = _fn_onehot_model(tf, _t(code), 11)
     twin = fusedmap.fn_onehot_sum_twin(tf, tstep._output_masks_reduced, 10,
                                        _t(code), 11)
     want = jfm.fused_fn_onehot_sum(
@@ -525,6 +589,56 @@ def test_fn_onehot_kernel_model(case, force):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert not any(acc)
     assert got.sum() > 0
+
+
+def _onehot_inputs(K, case):
+    """K bool masks and codes as the two callers give them: 13 masks by 11
+    groups (the snapshot) or one mask by 101 ages (vaccination), agents
+    sorted by code with one code holding 40% of them (so whole warps lie
+    in one run, as at HUS size); shuffled; with codes out of range; or
+    sorted with N % 16 == 13."""
+    r = np.random.default_rng(15 + K)
+    n = 4013 if case == "tail" else N
+    nb = 11 if K == 13 else 101
+    p = np.full(nb, 0.6 / (nb - 1))
+    p[nb // 2] = 0.4
+    code = np.sort(r.choice(nb, n, p=p)).astype(np.int32)
+    if case == "random":
+        code = r.permutation(code)
+    elif case == "out_of_range":
+        code = np.sort(np.where(r.random(n) < 0.1, r.integers(-2, 0, n),
+                                code + r.integers(0, 3, n) * (code > nb - 3))
+                       ).astype(np.int32)
+    parts = [r.random(n) < q for q in np.linspace(0.05, 0.9, K)]
+    return parts, code, nb
+
+
+ONEHOT = [("sorted", "interpret"), ("random", "xla"),
+          ("out_of_range", "interpret"), ("tail", "xla")]
+
+
+@pytest.mark.parametrize("case,force", ONEHOT,
+                         ids=[f"{c}-{f}" for c, f in ONEHOT])
+@pytest.mark.parametrize("K", [1, 13])
+def test_onehot_kernel_model(K, case, force):
+    """onehot.cu's vector steps, run-length counts, warp sums (sorted
+    codes take them), tail, fold and last-CTA finish equal the twin and
+    the JAX package (the Pallas kernel in interpret mode needs N % 1024
+    == 0, so the partial tail is held to its XLA form), and leave the
+    scratch zeroed."""
+    parts, code, nb = _onehot_inputs(K, case)
+    tp = [_t(p) for p in parts]
+    got, acc, warp_sums = _onehot_model(tp, _t(code), nb)
+    twin = fusedmap.onehot_sum_twin(tp, _t(code), nb)
+    want = jfm.fused_onehot_sum([jnp.asarray(p) for p in parts],
+                                jnp.asarray(code), nb, max_block=1024,
+                                force=force)
+    np.testing.assert_array_equal(got.numpy(), twin.numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not any(acc)
+    assert (warp_sums > 0) == (case != "random")
+    if case == "out_of_range":
+        assert ((code < 0) | (code >= nb)).any()
 
 
 def _bihist_inputs(case):
