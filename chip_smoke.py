@@ -26,14 +26,28 @@ Run from the repository root on a machine with a CUDA device. It
      final agent state must equal step 3's bit for bit;
   6. runs the CLI through the simulation driver in this process, twice
      (30 days, seeds 1 and 2): the second call must be served by the
-     build cache and reseed_run.
+     build cache and reseed_run;
+  7. serves: warmup_serving_program("cuda") must leave the default
+     session's run in the build cache; then the port's GraphQL server
+     (127.0.0.1, any free port, memory cache) takes runs that a client
+     starts and polls over HTTP with the web UI's own documents. Run W,
+     a fresh session's default run, must be served by the warm-up's
+     build; it is timed to its first partial result and cancelled. Two
+     365-day HUS runs follow: run A (seed 0, a build-cache miss) must stream
+     partial results and equal step 3's daily all_infected and
+     susceptible exactly, and export its 365 days as a workbook; run B
+     (seed 1) must be a reseed of A's build and end inside the same
+     outcome band; the explorer's severity counts through the server
+     must equal the port's on the CPU. Last, one 30-day run alone and
+     then two at once from two sessions time the worker threads'
+     sharing of the card.
 
-Each of steps 3, 5 and 6 sets the kernels' launch counts to 0 just
-before it and reads them just after. It prints one JSON line of kernel
-results before the last line, and as the last line {"ok": true,
-"device": {...}}. Any failed phase exits non-zero. Without a CUDA
-device, or outside the repository, it exits non-zero and prints no
-result. Nothing runs on the CPU in its place.
+Each of steps 3, 5, 6 and each served run of 7 sets the kernels' launch
+counts to 0 just before it and reads them just after. It prints one
+JSON line of kernel results before the last line, and as the last line
+{"ok": true, "device": {...}}. Any failed phase exits non-zero.
+Without a CUDA device, or outside the repository, it exits non-zero and
+prints no result. Nothing runs on the CPU in its place.
 """
 from __future__ import annotations
 
@@ -49,6 +63,10 @@ MC_MEAN, MC_STD = 373466.083, 22395.919729319245
 DAYS = 365
 RESUME_AT = 182
 CLI_DAYS = 30
+POLL_S = 0.5
+WEBUI_POLL = ("query($id: ID!){ simulationResults(runId:$id) {\n"
+              "      finished phase predictedMetrics { dates metrics { type "
+              "intValues floatValues } } } }")
 
 
 def fail(msg: str) -> None:
@@ -159,6 +177,274 @@ def cli_phase() -> None:
         fail("cli: seeds 1 and 2 gave the same run")
 
 
+class Client:
+    """One web-UI client of the port's GraphQL server: JSON over HTTP
+    with the session cookie carried from answer to answer."""
+
+    def __init__(self, base: str):
+        self.base, self.cookie = base, None
+
+    def post(self, doc: str, variables=None) -> dict:
+        import urllib.request
+        headers = {"Content-Type": "application/json"}
+        if self.cookie:
+            headers["Cookie"] = self.cookie
+        req = urllib.request.Request(
+            self.base + "/graphql", headers=headers,
+            data=json.dumps({"query": doc, "variables": variables}).encode())
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            self.cookie = resp.headers.get("Set-Cookie", "").split(";")[0]
+            out = json.loads(resp.read())
+        if out.get("errors"):
+            fail(f"serve: {doc.split()[0:3]}: {out['errors']}")
+        return out["data"]
+
+
+def served_run(client: Client, name: str, seed_arg: str, want: str):
+    """Start a run as the web UI does and poll it every POLL_S until it
+    has finished; returns (run id, final results, launches, timings)."""
+    from reina_tpu_torch import kernels
+    from reina_tpu_torch.simulation import BUILD_CACHE
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    run_id = client.post(f"mutation {{ runSimulation{seed_arg} "
+                         "{ runId } }")["runSimulation"]["runId"]
+    t_running = t_partial = None
+    lengths = []
+    deadline = t0 + 900
+    while True:
+        res = client.post(WEBUI_POLL, {"id": run_id})["simulationResults"]
+        now = time.perf_counter() - t0
+        n = len(res["predictedMetrics"]["dates"])
+        lengths.append(n)
+        if t_running is None and res["phase"] in ("running", "finished"):
+            t_running = now
+        if t_partial is None and n > 0:
+            t_partial = now
+        if res["finished"]:
+            break
+        if time.perf_counter() > deadline:
+            fail(f"serve: run {name} did not finish in 900 s")
+        time.sleep(POLL_S)
+    t_done = time.perf_counter() - t0
+    launches = kernels.launches()
+    outcome, build_s = BUILD_CACHE.last
+    print(f"serve run {name}: build {outcome} {build_s:.3f} s; "
+          f"phase running at {t_running:.3f} s, first partial at "
+          f"{t_partial:.3f} s, finished at {t_done:.3f} s (polled every "
+          f"{POLL_S} s), {t_done / (DAYS - 1) * 1000:.2f} ms/day; "
+          f"{len(set(lengths))} distinct date counts over {len(lengths)} "
+          f"polls; launches={launches}")
+    if outcome != want:
+        fail(f"serve run {name}: build {outcome}, want {want}")
+    if lengths != sorted(lengths) or len(set(lengths)) < 3:
+        fail(f"serve run {name}: partial results did not grow: {lengths}")
+    if lengths[-1] != DAYS or res["phase"] != "finished":
+        fail(f"serve run {name}: {lengths[-1]} dates, phase {res['phase']}")
+    steps = DAYS - 1
+    check_launched(launches, {k: steps for k in (
+        "fused_map.prologue", "fused_map.recv_front", "fused_map.post",
+        "fused_map.finalize", "ledger_scan", "fused_fn_onehot_sum",
+        "fused_bihistogram")} | {"fused_concat_prefix": 2 * steps,
+                                 "fused_onehot_sum": 1}, f"serve {name}")
+    metrics = {m["type"]: m for m in res["predictedMetrics"]["metrics"]}
+    return run_id, metrics
+
+
+def poll(client: Client, run_id: str) -> dict:
+    return client.post(WEBUI_POLL, {"id": run_id})["simulationResults"]
+
+
+def warm_hit_run(base: str) -> None:
+    """A fresh session's run of the default variables, which the
+    warm-up's build must serve: timed to its first partial result, then
+    cancelled, as the registry cancels a run its client left (the
+    default session runs 565 days)."""
+    from reina_tpu_torch import kernels
+    from reina_tpu_torch.runtime import runner
+    from reina_tpu_torch.simulation import BUILD_CACHE
+
+    client = Client(base)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    run_id = client.post("mutation { runSimulation { runId } }"
+                         )["runSimulation"]["runId"]
+    t_running = None
+    while True:
+        res = poll(client, run_id)
+        now = time.perf_counter() - t0
+        if t_running is None and res["phase"] in ("running", "finished"):
+            t_running = now
+        if res["predictedMetrics"]["dates"]:
+            break
+        if res["finished"]:
+            fail("serve run W: finished with no partial result")
+        if now > 300:
+            fail("serve run W: no partial result in 300 s")
+        time.sleep(POLL_S)
+    outcome, build_s = BUILD_CACHE.last
+    runner.REGISTRY.reap(run_id)
+    while not res["finished"]:
+        if time.perf_counter() - t0 > 600:
+            fail("serve run W: the cancelled run did not stop")
+        time.sleep(POLL_S)
+        res = poll(client, run_id)
+    launches = kernels.launches()
+    print(f"serve run W (default session, warm-up hit): build {outcome} "
+          f"{build_s:.3f} s; phase running at {t_running:.3f} s, first "
+          f"partial at {now:.3f} s (polled every {POLL_S} s); cancelled "
+          f"after {len(res['predictedMetrics']['dates'])} dates; "
+          f"launches={launches}")
+    if outcome != "cached":
+        fail(f"serve run W: build {outcome}, want cached (the warm-up's)")
+    check_launched(launches, {k: 1 for k in (
+        "fused_map.prologue", "fused_map.recv_front", "fused_map.post",
+        "fused_map.finalize", "ledger_scan", "fused_concat_prefix",
+        "fused_onehot_sum", "fused_fn_onehot_sum", "fused_bihistogram")},
+        "serve W")
+
+
+def concurrent_runs(base: str) -> None:
+    """Time to a result as the worker threads share the card: one
+    CLI_DAYS-day run alone, then two at once from two sessions."""
+    from reina_tpu_torch import kernels
+
+    clients = [Client(base) for _ in range(3)]
+    for c in clients:
+        c.post(f"mutation {{ setSimulationDays(days: {CLI_DAYS}) "
+               "{ ok } }")
+    steps = CLI_DAYS - 1
+    finals = []
+    for group in ((3,), (4, 5)):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        runs = {seed: (clients[seed - 3], clients[seed - 3].post(
+            f"mutation {{ runSimulation(randomSeed: {seed}) {{ runId }} }}"
+        )["runSimulation"]["runId"]) for seed in group}
+        done = {}
+        while len(done) < len(runs):
+            if time.perf_counter() - t0 > 300:
+                fail(f"serve seeds {group}: not finished in 300 s")
+            time.sleep(POLL_S)
+            for seed, (c, run_id) in runs.items():
+                if seed in done:
+                    continue
+                res = poll(c, run_id)
+                if res["finished"]:
+                    done[seed] = (time.perf_counter() - t0, res)
+        launches = kernels.launches()
+        for seed in group:
+            t_done, res = done[seed]
+            m = {x["type"]: x["intValues"]
+                 for x in res["predictedMetrics"]["metrics"]}
+            print(f"serve {CLI_DAYS}-day seed {seed}, {len(group)} at "
+                  f"once: finished at {t_done:.3f} s (polled every "
+                  f"{POLL_S} s), final all_infected {m['all_infected'][-1]}")
+            if len(res["predictedMetrics"]["dates"]) != CLI_DAYS:
+                fail(f"serve seed {seed}: "
+                     f"{len(res['predictedMetrics']['dates'])} dates")
+            if any(s + i != HUS_AGENTS for s, i in
+                   zip(m["susceptible"], m["all_infected"])):
+                fail(f"serve seed {seed}: agents not conserved")
+            finals.append(m["all_infected"])
+        check_launched(launches, {k: len(group) * steps for k in (
+            "fused_map.prologue", "fused_map.recv_front", "fused_map.post",
+            "fused_map.finalize", "ledger_scan", "fused_fn_onehot_sum",
+            "fused_bihistogram")} | {"fused_concat_prefix":
+                                     2 * len(group) * steps},
+            f"serve seeds {group}")
+    if finals[1] == finals[2]:
+        fail("serve: the two concurrent runs gave the same curve")
+
+
+def serving_phase(main_all_infected, main_susceptible) -> None:
+    """The serving path on the card: warm-up through the build cache,
+    two runs through the GraphQL server, the export and the explorer."""
+    import io
+    import urllib.request
+    import zipfile
+
+    import numpy as np
+    from reina_tpu_torch.config.variables import VariableStore
+    from reina_tpu_torch.runtime import cache
+    from reina_tpu_torch.runtime.graphql.server import (
+        serve, warmup_serving_program)
+    from reina_tpu_torch.sampling import sample_distribution
+    from reina_tpu_torch.simulation import BUILD_CACHE, simulate_individuals
+    from reina_tpu_torch.utils.memoize import resolved_variables
+
+    t0 = time.perf_counter()
+    warmup_serving_program("cuda")
+    warm_s = time.perf_counter() - t0
+    BUILD_CACHE.get(resolved_variables(simulate_individuals, {}), "cuda")
+    print(f"serve: warm-up {warm_s:.3f} s; the default session's run is "
+          f"then {BUILD_CACHE.last[0]} in the build cache")
+    if BUILD_CACHE.last[0] != "cached":
+        fail("serve: the warm-up left no default-session run in the "
+             "build cache")
+
+    cache.init_backend("memory")
+    httpd = serve(host="127.0.0.1", port=0, background=True, warmup=False)
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        warm_hit_run(base)
+        client = Client(base)
+        client.post(f"mutation {{ setSimulationDays(days: {DAYS}) {{ ok }} }}")
+
+        run_a, a = served_run(client, "A", "", "built")
+        for name, want in (("all_infected", main_all_infected),
+                           ("susceptible", main_susceptible)):
+            if a[name]["intValues"] != [int(x) for x in want]:
+                fail(f"serve run A: {name} differs from the main path")
+        print("serve run A: all_infected and susceptible equal the main "
+              "path's day by day")
+        with urllib.request.urlopen(f"{base}/export.xlsx?run={run_a}",
+                                    timeout=120) as resp:
+            sheet = zipfile.ZipFile(io.BytesIO(resp.read())).read(
+                "xl/worksheets/sheet1.xml")
+        if sheet.count(b"<row>") != DAYS + 1:
+            fail(f"serve: the export has {sheet.count(b'<row>')} rows")
+
+        _, b = served_run(client, "B", "(randomSeed: 1)", "reseeded")
+        final_b = b["all_infected"]["intValues"][-1]
+        lo, hi = MC_MEAN - 4 * MC_STD, MC_MEAN + 4 * MC_STD
+        print(f"serve run B: final all_infected {final_b}")
+        if not lo <= final_b <= hi:
+            fail(f"serve run B: final all_infected {final_b} outside "
+                 f"[{lo:.0f}, {hi:.0f}]")
+        if b["all_infected"]["intValues"] == a["all_infected"]["intValues"]:
+            fail("serve: runs A and B gave the same curve")
+
+        doc = ('{ sampleDistribution(what: "%s", age: 80) '
+               '{ categories counts } }')
+        variables = VariableStore({"simulation_days": DAYS}).copy_all()
+        variables["sample_limit_mobility"] = 0
+        for what in ("symptom_severity", "incubation_period"):
+            t0 = time.perf_counter()
+            d = client.post(doc % what)["sampleDistribution"]
+            ms = (time.perf_counter() - t0) * 1000
+            print(f"serve explorer {what}: {ms:.1f} ms, "
+                  f"{len(d['categories'])} categories, first "
+                  f"{dict(zip(d['categories'][:5], d['counts'][:5]))}")
+            if sum(d["counts"]) != 10000:
+                fail(f"serve explorer {what}: {sum(d['counts'])} draws")
+        cats, counts = sample_distribution("symptom_severity", 80, None,
+                                           variables, "cpu")
+        sev = client.post(doc % "symptom_severity")["sampleDistribution"]
+        if (sev["categories"] != [str(c) for c in cats]
+                or sev["counts"] != [float(c) for c in counts]):
+            fail("serve explorer: severity counts on the card differ from "
+                 "the CPU's")
+        print("serve explorer: severity counts equal the CPU's")
+        if not np.isfinite(a["r"]["floatValues"][-1]):
+            fail("serve run A: non-finite r")
+        concurrent_runs(base)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -256,8 +542,11 @@ def main() -> None:
 
     with tempfile.TemporaryDirectory(dir=here) as scratch:
         resume_phase(run, out, state, scratch)
+    main_all_infected = out.by_group[:, 3].sum(1)
+    main_susceptible = out.by_group[:, 0].sum(1)
     del run, out, state, carry
     cli_phase()
+    serving_phase(main_all_infected, main_susceptible)
 
     print(json.dumps({"kernels": [
         {"name": c.name, "route": c.route, "source": c.source,

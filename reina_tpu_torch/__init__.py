@@ -2,12 +2,14 @@
 
 The JAX package ``reina_tpu`` is the reference. This package runs its
 main path — ``core.engine.build_run`` → ``run_days`` → ``day_step`` —
-and its driver (checkpoints, the build cache, ``simulate_individuals``,
-the CLI) on tensors of an explicit device. On CUDA the Pallas kernels
+its driver (checkpoints, the build cache, ``simulate_individuals``, the
+CLI), the parameter explorer and the serving runtime (GraphQL server,
+run workers, result cache, web UI) on tensors of an explicit device. On CUDA the Pallas kernels
 of that path are hand-written Hopper kernels (``kernels/``); on the CPU
 their plain PyTorch twins run. The package imports torch and nothing of
-jax or of the JAX package: ``config``, ``data`` and ``utils`` are its
-own copies of the JAX package's modules of those names.
+jax, pandas or the JAX package: ``config``, ``data``, ``utils``, the
+GraphQL engine and the web UI's page are its own copies of the JAX
+package's.
 
 Layout:
 
@@ -22,7 +24,11 @@ Layout:
                and their twins)
   kernels/     csrc/*.cu (nvcc, ctypes), fused_bodies.py (Triton)
   simulation.py  build cache, simulate_individuals, outputs_to_frames
-  cli.py       ``python -m reina_tpu_torch.cli simulate``
+  sampling.py  the parameter explorer's draws
+  runtime/     result cache (memory, shm, redis), worker threads, xlsx,
+               graphql/ (engine, introspection, sdl, schema, server)
+  webui/       app.html, served by the GraphQL server
+  cli.py       ``python -m reina_tpu_torch.cli simulate`` and ``sample``
   convert.py   numpy values → tensors on a device
   testing.py   synthetic runs
 """

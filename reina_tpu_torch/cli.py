@@ -1,13 +1,15 @@
 """Command-line interface of the port (port of reina_tpu/cli.py's
-``simulate``; reference: ``python -m calc.simulation`` main,
-calc/simulation.py:388-469).
+``simulate`` and ``sample``; reference: ``python -m calc.simulation``
+main, calc/simulation.py:388-469).
 
   python -m reina_tpu_torch.cli simulate [--area HUS] [--days N] [--seed S]
       [--scenario ID] [--interval N] [--quiet] [--device cuda|cpu]
+  python -m reina_tpu_torch.cli sample --what symptom_severity [--age 90]
+      [--severity SEVERE] [--device cuda|cpu]
 
-The run goes on the card (``--device cuda``, the default) and fails
-when there is none; ``--device cpu`` is the explicit way to run on the
-CPU. The daily table is printed from numpy columns (no pandas).
+Both run on the card (``--device cuda``, the default) and fail when
+there is none; ``--device cpu`` is the explicit way to run on the CPU.
+Tables are printed from numpy columns (no pandas).
 """
 from __future__ import annotations
 
@@ -79,6 +81,16 @@ def cmd_simulate(args):
     return 0
 
 
+def cmd_sample(args):
+    from .simulation import sample_model_parameters
+    cats, counts = sample_model_parameters(args.what, args.age, args.severity,
+                                           device=args.device)
+    total = counts.sum()
+    for k, v in zip(cats, counts / total):
+        print("    (%s, %.4f)," % (k, v))
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="reina_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -95,6 +107,14 @@ def main(argv=None):
                    help="torch device of the run (default cuda; cpu runs "
                         "the plain twins on the CPU)")
     p.set_defaults(func=cmd_simulate)
+
+    p = sub.add_parser("sample", help="sample model parameter distributions")
+    p.add_argument("--what", required=True)
+    p.add_argument("--age", type=int, default=30)
+    p.add_argument("--severity", default=None)
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the draws (default cuda)")
+    p.set_defaults(func=cmd_sample)
 
     args = ap.parse_args(argv)
     if not args.cmd:

@@ -188,6 +188,20 @@ def vaccine_modifier(dov_i, day: int):
                        1.0 - C.VACCINE_EFFICACY, 1.0).to(F32)
 
 
+def severity_draw_slots(key, arrays, v_i, age_i, dov_i, day: int):
+    """get_symptom_severity (main.pyx:1041-1091) on the infection-slot
+    domain: one uniform per slot from ``key``, then the decision chain
+    on the (variant, age) table entries of ``arrays`` (any object with
+    the p_sympt, p_doh, p_severe_c, p_critical_c and p_fatal_c tables as
+    tensors). The day step and the parameter explorer (``sampling.py``)
+    both draw through it. Returns (severity int8, death_outside bool)."""
+    val = prng.uniform(key, tuple(v_i.shape), v_i.device)
+    return severity_from_uniform(
+        val, arrays.p_sympt[v_i, age_i], arrays.p_doh[v_i, age_i],
+        arrays.p_severe_c[v_i, age_i], arrays.p_critical_c[v_i, age_i],
+        arrays.p_fatal_c[v_i, age_i], vaccine_modifier(dov_i, day))
+
+
 def _binomial_split(key, totals, probs):
     """Independent Binomial(totals, p_b) per trailing category, drawn
     on the flattened domain (bit-equal to the JAX package)."""
@@ -775,12 +789,8 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     tr_slot = ok & state.traceable[src]
     g1 = gamma_fixed(dk.gam1[0], kappa_inc, (end,), dev)
     g2 = gamma_fixed(dk.gam2[0], kappa_o2r, (end,), dev)
-    dov_i = dov[bp]
-    val = prng.uniform(dk.sev[0], (end,), dev)
-    sev_slot, outside_slot = severity_from_uniform(
-        val, arrays.p_sympt[v_i, age_i], arrays.p_doh[v_i, age_i],
-        arrays.p_severe_c[v_i, age_i], arrays.p_critical_c[v_i, age_i],
-        arrays.p_fatal_c[v_i, age_i], vaccine_modifier(dov_i, day))
+    sev_slot, outside_slot = severity_draw_slots(dk.sev[0], arrays, v_i,
+                                                 age_i, dov[bp], day)
     theta_inc = (C.INCUBATION_CV ** 2) * arrays.mu_incub[v_i]
     incub_slot = _round_to_int(g1 * theta_inc)
     mu_o2r = torch.where(sev_slot == C.FATAL, arrays.mu_death[v_i],

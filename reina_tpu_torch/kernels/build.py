@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -48,6 +49,7 @@ _SIGNATURES = {
 }
 
 _lib = None
+_lib_lock = threading.Lock()
 build_seconds = None
 
 
@@ -109,15 +111,17 @@ def build() -> Path:
 
 
 def lib():
-    """The loaded kernel library (built at first call)."""
+    """The loaded kernel library (built at first call; threads that call
+    at once wait for one build)."""
     global _lib
-    if _lib is None:
-        so = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(so, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = so
+    with _lib_lock:
+        if _lib is None:
+            so = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(so, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = so
     return _lib
 
 

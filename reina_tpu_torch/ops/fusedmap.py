@@ -23,6 +23,7 @@ function itself (the twin) on the CPU, its kernel on CUDA
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, Sequence
 
 import torch
@@ -52,18 +53,22 @@ def _same_device(ts):
 
 
 _SCRATCH = {}
+_SCRATCH_LOCK = threading.Lock()
 
 
 def _scratch(dev, name: str, size: int) -> torch.Tensor:
     """The zeroed int32 scratch of one histogram kernel on ``dev``,
     allocated at its first call and cached: the kernel leaves it zeroed
-    after every launch (hist_finish.cuh). Calls that share it must not
-    run at once: two histograms of one kind on two streams are not
-    supported."""
+    after every launch (hist_finish.cuh). Threads that call at once get
+    one scratch. The launches that share it must run one after another
+    in stream order: the serving workers launch on the default stream
+    (runtime/runner.py); two histograms of one kind on two streams are
+    not supported."""
     key = (dev, name, size)
-    if key not in _SCRATCH:
-        _SCRATCH[key] = torch.zeros(size, dtype=torch.int32, device=dev)
-    return _SCRATCH[key]
+    with _SCRATCH_LOCK:
+        if key not in _SCRATCH:
+            _SCRATCH[key] = torch.zeros(size, dtype=torch.int32, device=dev)
+        return _SCRATCH[key]
 
 
 # ---------------------------------------------------------------------------

@@ -24,6 +24,7 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .config.variables import copy_variables
 from .core import constants as C
 from .core.engine import CompiledRun, build_run, reseed_run, run_days
 from .core.params import DISEASE_PARAMS
@@ -237,3 +238,15 @@ def simulate_individuals(step_callback: Optional[Callable] = None,
     return (daily_columns(out, run.variant_names, run.start_date, n_days,
                           us_rows),
             age_group_cube(out, run.group_labels))
+
+
+def sample_model_parameters(what: str, age: int, severity: Optional[str] = None,
+                            variables: Optional[Dict] = None, device="cuda"):
+    """Distribution sampling for the parameter-explorer UI (reference
+    calc/simulation.py:301-346 + main.pyx:2047-2101): ``sampling.
+    sample_distribution`` on the active variables, drawn on ``device``;
+    returns (categories, counts)."""
+    from .sampling import sample_distribution
+    if variables is None:
+        variables = copy_variables()
+    return sample_distribution(what, age, severity, variables, device)

@@ -1,5 +1,6 @@
 """Dependency-aware memoization (reference: calc/utils.py ``@calcfunc``;
-a copy of reina_tpu/utils/memoize.py with one addition, ``key_args``).
+a copy of reina_tpu/utils/memoize.py with two additions, ``key_args``
+and ``resolved_variables``).
 
 A decorated function declares the simulation variables, other calcfuncs
 and files it depends on; the cache key is a hash of the resolved
@@ -76,6 +77,15 @@ def generate_cache_key(func: Callable, var_store: Optional[dict] = None) -> str:
     return f"{func.__name__}-{var_hash}-{h.hexdigest()}"
 
 
+def resolved_variables(func: Callable,
+                       var_store: Optional[dict] = None) -> Dict[str, Any]:
+    """The {name: value} dict a calcfunc receives as ``variables``: its
+    declared variables and those of its dependencies, resolved from
+    ``var_store`` (a plain dict of overrides) or the active store."""
+    return {name: var_mod.get_variable(name, var_store=var_store)
+            for name in sorted(set(_collect(func, "_calcfunc_variables")))}
+
+
 def calcfunc(variables: Optional[List[str]] = None,
              funcs: Optional[List[Callable]] = None,
              filedeps: Optional[List[str]] = None,
@@ -108,10 +118,8 @@ def calcfunc(variables: Optional[List[str]] = None,
             if only_if_in_cache:
                 return None
             if accepts_vars:
-                kwargs["variables"] = {
-                    name: var_mod.get_variable(name, var_store=variable_store)
-                    for name in sorted(set(_collect(wrapper, "_calcfunc_variables")))
-                }
+                kwargs["variables"] = resolved_variables(wrapper,
+                                                         variable_store)
             ret = func(*args, **kwargs)
             _cache[key] = _CacheEntry(ret, CACHE_TTL_S)
             return ret

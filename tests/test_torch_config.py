@@ -1,11 +1,13 @@
-"""The port's copies of the JAX package's configuration and data modules
-(reina_tpu_torch/{config,data,utils/locale}) equal the originals.
+"""The port's copies of the JAX package's configuration, data and
+serving modules (reina_tpu_torch/{config,data,utils/locale}, the GraphQL
+SDL, the web UI's page) equal the originals.
 
 Exact throughout: the variable defaults, the resolved intervention
 lists (as ``[type, date, *params]`` tuples) for the defaults, for every
 scenario the defaults list and for every preset scenario applied to a
-session, the three loaders' outputs for HUS, and the archives byte for
-byte.
+session, the three loaders' outputs for HUS, the archives byte for
+byte, the metric registry field by field, the SDL string, and app.html
+byte for byte.
 """
 import filecmp
 import os
@@ -84,3 +86,28 @@ def test_archives_byte_for_byte(name):
     a = os.path.join(_REPO, "reina_tpu_torch", "data", "files", name)
     b = os.path.join(_REPO, "reina_tpu", "data", "files", name)
     assert filecmp.cmp(a, b, shallow=False)
+
+
+def test_metrics_equal():
+    """METRICS and ALL_METRICS field by field (labels are source-language
+    strings, translated at resolve time)."""
+    import dataclasses
+
+    from reina_tpu.config import metrics as jm
+    from reina_tpu_torch.config import metrics as pm
+    for name in ("METRICS", "ALL_METRICS"):
+        assert ([dataclasses.asdict(m) for m in getattr(pm, name)]
+                == [dataclasses.asdict(m) for m in getattr(jm, name)]), name
+    assert pm.MOBILITY_PLACES == jm.MOBILITY_PLACES
+
+
+def test_sdl_and_webui_equal():
+    """The GraphQL type system and the web UI's page are the JAX
+    package's: the SDL string equal, app.html byte for byte."""
+    from reina_tpu.runtime.graphql.sdl import SDL as JSDL
+    from reina_tpu_torch.runtime.graphql.sdl import SDL
+    assert SDL == JSDL
+    assert filecmp.cmp(os.path.join(_REPO, "reina_tpu_torch", "webui",
+                                    "app.html"),
+                       os.path.join(_REPO, "reina_tpu", "webui", "app.html"),
+                       shallow=False)

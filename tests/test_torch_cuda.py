@@ -337,3 +337,48 @@ def test_prefix_many_blocks(n_seg):
     got = fusedmap.fused_concat_prefix(w, codes, n_seg, max_block_rows=16)
     want = fusedmap.concat_prefix_twin(w, codes, n_seg, max_block_rows=16)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_concurrent_runs_equal_runs_alone():
+    """Two threads run simulate_individuals on the card at once, as the
+    server's workers do (one HUS configuration, 20 days, seeds 11 and
+    12): the build cache builds once and reseeds, the histogram kernels
+    share their cached scratch on the default stream, and each result
+    equals the same seed run alone."""
+    _need_cuda()
+    import threading
+
+    from reina_tpu_torch.simulation import simulate_individuals
+
+    def store(seed):
+        return {"area_name": "HUS", "simulation_days": 20,
+                "random_seed": seed}
+
+    results, errors = {}, []
+
+    def work(seed):
+        try:
+            results[seed] = simulate_individuals(
+                variable_store=store(seed), device="cuda", skip_cache=True,
+                step_callback=lambda cols: True, callback_day_interval=7)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=work, args=(s,)) for s in (11, 12)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        assert not t.is_alive()
+    assert not errors, errors
+    for seed in (11, 12):
+        cols, cube = simulate_individuals(variable_store=store(seed),
+                                          device="cuda", skip_cache=True)
+        got, got_cube = results[seed]
+        for k in cols:
+            if k != "us_per_infected":
+                np.testing.assert_array_equal(got[k], cols[k],
+                                              err_msg=f"seed {seed}: {k}")
+        np.testing.assert_array_equal(got_cube.values, cube.values)
+    assert not np.array_equal(results[11][0]["all_infected"],
+                              results[12][0]["all_infected"])

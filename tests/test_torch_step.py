@@ -24,8 +24,9 @@ Checks and tolerances:
     these days.
   * 24 days in distribution over 8 seeds: each day's mean of
     all_infected and detected agrees within 4 combined standard errors.
-  * the port runs, checkpoints, resumes and serves its CLI with jax and
-    the JAX package made unimportable.
+  * the port runs, checkpoints, resumes, serves its CLI (simulate and
+    sample) and answers GraphQL queries with jax, the JAX package and
+    pandas made unimportable.
 """
 import json
 import os
@@ -196,12 +197,15 @@ def test_24_days_in_distribution(report):
 
 
 def test_runs_without_jax(tmp_path):
-    """With jax and the JAX package both unimportable, the port builds
-    and runs a synthetic run with a checkpoint, resumes from it, and
-    its CLI runs a small area on the CPU."""
+    """With jax, the JAX package and pandas all unimportable, the port
+    builds and runs a synthetic run with a checkpoint, resumes from it,
+    its CLI simulates a small area and samples the explorer on the CPU,
+    and its GraphQL server answers an area and an explorer query."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "sys.modules['reina_tpu'] = None\n"
+        "sys.modules['pandas'] = None\n"
+        "import json, urllib.request\n"
         "import torch\n"
         "from reina_tpu_torch.testing import build_synthetic_run\n"
         "from reina_tpu_torch.core.engine import run_days\n"
@@ -214,8 +218,26 @@ def test_runs_without_jax(tmp_path):
         "assert t == [] and (again.by_group == out.by_group).all()\n"
         "assert cli.main(['simulate', '--area', 'Alavieska', '--days', '4',"
         " '--quiet', '--device', 'cpu']) == 0\n"
+        "assert cli.main(['sample', '--what', 'symptom_severity', '--age',"
+        " '80', '--device', 'cpu']) == 0\n"
+        "from reina_tpu_torch.runtime.graphql.server import serve\n"
+        "httpd = serve(host='127.0.0.1', port=0, background=True,"
+        " device='cpu')\n"
+        "def q(doc):\n"
+        "    req = urllib.request.Request("
+        "'http://127.0.0.1:%d/graphql' % httpd.server_address[1],"
+        " data=json.dumps({'query': doc}).encode(),"
+        " headers={'Content-Type': 'application/json'})\n"
+        "    with urllib.request.urlopen(req, timeout=60) as r:\n"
+        "        return json.loads(r.read())['data']\n"
+        "assert q('{ area { name } }') == {'area': {'name': 'HUS'}}\n"
+        "d = q('{ sampleDistribution(what: \"symptom_severity\", age: 80)"
+        " { categories counts } }')['sampleDistribution']\n"
+        "assert sum(d['counts']) == 10000 and 'FATAL' in d['categories']\n"
+        "httpd.shutdown()\n"
         "assert not any(m == 'jax' or m.startswith('jax.')\n"
         "               or m == 'reina_tpu' or m.startswith('reina_tpu.')\n"
+        "               or m == 'pandas' or m.startswith('pandas.')\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=_REPO,
