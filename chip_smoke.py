@@ -24,10 +24,19 @@ Run from the repository root on a machine with a CUDA device. It
   5. resumes at HUS scale: run_days to day 182 with a checkpoint, then
      a second run_days to day 364 that resumes from it; its outputs and
      final agent state must equal step 3's bit for bit;
-  6. runs the CLI through the simulation driver in this process, twice
+  6. runs ensembles and calibration at HUS width, 60 stepped days each:
+     run_ensemble over seeds 0-2 on step 3's build (member 0 must equal
+     step 3's rows 1-60 bit for bit, members 1 and 2 must differ), then
+     sweep_grid over infectiousness_multiplier 0.35 / 0.55 / 0.7 (the
+     default point 0.55 must equal the same rows; the finals must rise
+     with the multiplier; peak device memory must stay near one run's),
+     scored against HUS's observed confirmed cases, and the CLI's
+     calibrate over two points (30 days); agents conserved, and every
+     per-day kernel launched exactly once a member- or point-day;
+  7. runs the CLI through the simulation driver in this process, twice
      (30 days, seeds 1 and 2): the second call must be served by the
      build cache and reseed_run;
-  7. serves: warmup_serving_program("cuda") must leave the default
+  8. serves: warmup_serving_program("cuda") must leave the default
      session's run in the build cache; then the port's GraphQL server
      (127.0.0.1, any free port, memory cache) takes runs that a client
      starts and polls over HTTP with the web UI's own documents. Run W,
@@ -42,7 +51,8 @@ Run from the repository root on a machine with a CUDA device. It
      then two at once from two sessions time the worker threads'
      sharing of the card.
 
-Each of steps 3, 5, 6 and each served run of 7 sets the kernels' launch
+Each of steps 3, 5, 7, the ensemble, the grid and the CLI run of 6, and
+each served run of 8 sets the kernels' launch
 counts to 0 just before it and reads them just after. It prints one
 JSON line of kernel results before the last line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
@@ -63,10 +73,20 @@ MC_MEAN, MC_STD = 373466.083, 22395.919729319245
 DAYS = 365
 RESUME_AT = 182
 CLI_DAYS = 30
+ENS_DAYS = 61
+GRID = [0.35, 0.55, 0.7]
+CLI_GRID = [0.45, 0.65]
 POLL_S = 0.5
 WEBUI_POLL = ("query($id: ID!){ simulationResults(runId:$id) {\n"
               "      finished phase predictedMetrics { dates metrics { type "
               "intValues floatValues } } } }")
+
+
+# kernels launched once a stepped day (the prefix twice or more a day,
+# the snapshot one-hot sums once a run)
+DAILY = ("fused_map.prologue", "fused_map.recv_front", "fused_map.post",
+         "fused_map.finalize", "ledger_scan", "fused_fn_onehot_sum",
+         "fused_bihistogram")
 
 
 def fail(msg: str) -> None:
@@ -79,6 +99,14 @@ def check_launched(launches: dict, want: dict, phase: str) -> None:
         if launches.get(k, 0) < lo:
             fail(f"{phase}: {k} launched {launches.get(k, 0)} times, "
                  f"want ≥ {lo}")
+
+
+def day_launches(steps: int, snapshots: int) -> dict:
+    """The least launches of ``steps`` stepped days and ``snapshots``
+    day-0 snapshots."""
+    return ({k: steps for k in DAILY}
+            | {"fused_concat_prefix": 2 * steps,
+               "fused_onehot_sum": snapshots})
 
 
 def resume_phase(run, out, state, scratch: str) -> None:
@@ -117,11 +145,7 @@ def resume_phase(run, out, state, scratch: str) -> None:
           f"checkpoint {size} bytes, save {save_s:.3f} s, load "
           f"(with bucket rebuild) {load_s:.3f} s; launches={launches}")
     steps = DAYS - 1
-    check_launched(launches, {k: steps for k in (
-        "fused_map.prologue", "fused_map.recv_front", "fused_map.post",
-        "fused_map.finalize", "ledger_scan", "fused_fn_onehot_sum",
-        "fused_bihistogram")} | {"fused_concat_prefix": 2 * steps,
-                                 "fused_onehot_sum": 2}, "resume")
+    check_launched(launches, day_launches(steps, 2), "resume")
     for name, a, b in zip(out._fields, out, out2):
         if a.shape != b.shape or not np.array_equal(a, b):
             fail(f"resume: outputs.{name} differ from the uninterrupted run")
@@ -130,6 +154,116 @@ def resume_phase(run, out, state, scratch: str) -> None:
             fail(f"resume: state.{name} differs from the uninterrupted run")
     print("resume: outputs and final state equal the uninterrupted run "
           "bit for bit")
+
+
+def check_runs_launched(launches: dict, steps: int, runs: int,
+                        phase: str) -> None:
+    """Exactly one launch of each DAILY kernel a stepped day and one of
+    the snapshot one-hot sums a run; at least two prefix calls a day."""
+    for k, n in ({k: steps for k in DAILY}
+                 | {"fused_onehot_sum": runs}).items():
+        if launches.get(k, 0) != n:
+            fail(f"{phase}: {k} launched {launches.get(k, 0)} times, "
+                 f"want {n}")
+    check_launched(launches, {"fused_concat_prefix": 2 * steps}, phase)
+
+
+def ensemble_phase(run, v, out, one_run_bytes: int, run_bytes: int) -> None:
+    """Seeds and grid points through the single-run path at HUS width:
+    run_ensemble on the main path's build, sweep_grid with the default
+    point in the middle, and the CLI's calibrate."""
+    import numpy as np
+    import torch
+    from reina_tpu_torch import cli, kernels
+    from reina_tpu_torch.calibration import score_against_observed, sweep_grid
+    from reina_tpu_torch.core.step import DayOutputs
+    from reina_tpu_torch.ensemble import run_ensemble
+
+    steps = ENS_DAYS - 1
+    main_rows = DayOutputs(*(x[1:ENS_DAYS] for x in out))
+
+    def same(outs, g, want, what):
+        for name, a, b in zip(DayOutputs._fields, outs, want):
+            if a[g].shape != b.shape or not np.array_equal(a[g], b):
+                fail(f"{what}: {name} differs from the main path's rows "
+                     f"1-{steps}")
+
+    def conserved(outs, what):
+        cons = outs.by_group[:, :, 0].sum(-1) + outs.by_group[:, :, 3].sum(-1)
+        if not (cons == run.n_agents).all():
+            fail(f"{what}: agents not conserved")
+
+    seeds = [0, 1, 2]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ens = run_ensemble(run, seeds=seeds, n_days=ENS_DAYS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    check_runs_launched(launches, len(seeds) * steps, len(seeds), "ensemble")
+    finals = ens.by_group[:, -1, 3].sum(-1)
+    print(f"ensemble: seeds {seeds} x {steps} days in {wall:.3f} s, "
+          f"{wall / len(seeds):.3f} s per member, "
+          f"{wall / (len(seeds) * steps) * 1000:.2f} ms/day; day-{steps} "
+          f"all_infected {finals.tolist()}; launches={launches}")
+    if ens.by_group.shape[:2] != (len(seeds), steps):
+        fail(f"ensemble: by_group shape {ens.by_group.shape}")
+    same(ens, 0, main_rows, "ensemble member 0")
+    for i, j in ((0, 1), (0, 2), (1, 2)):
+        if np.array_equal(ens.by_group[i], ens.by_group[j]):
+            fail(f"ensemble: members {i} and {j} are equal")
+    conserved(ens, "ensemble")
+    print("ensemble: member 0 equals the main path's rows bit for bit; "
+          "members distinct; agents conserved")
+
+    grid = {"infectiousness_multiplier": GRID}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    points, outs, base = sweep_grid(v, grid, n_days=ENS_DAYS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    extra = torch.cuda.max_memory_allocated() - before
+    launches = kernels.launches()
+    check_runs_launched(launches, len(GRID) * steps, len(GRID), "grid")
+    finals = outs.by_group[:, -1, 3].sum(-1)
+    secs = ", ".join(f"{b:.3f} + {d:.3f}"
+                     for b, d in base.meta["sweep_seconds"])
+    print(f"grid: {len(points)} points x {steps} days in {wall:.3f} s, "
+          f"{wall / len(points):.3f} s per point (build + days: {secs} s); "
+          f"peak device memory above the start {extra / 2**30:.3f} GiB "
+          f"(the main path's run: {one_run_bytes / 2**30:.3f} GiB, of it "
+          f"the built run {run_bytes / 2**30:.3f}); day-{steps} "
+          f"all_infected {finals.tolist()}; launches={launches}")
+    same(outs, GRID.index(0.55), main_rows, "grid point 0.55")
+    if not (np.diff(finals) > 0).all():
+        fail(f"grid: finals do not rise with the multiplier: {finals}")
+    conserved(outs, "grid")
+    # one run's memory and the base run held beside it, not G runs'
+    if extra > one_run_bytes + run_bytes + 2**27:
+        fail(f"grid: {extra} bytes at peak, more than one run's "
+             f"{one_run_bytes} and the base run's {run_bytes}")
+    scores = score_against_observed(outs, base)
+    ranked = sorted(zip(points, scores.tolist()), key=lambda x: x[1])
+    print("grid vs HUS observed confirmed: " + "; ".join(
+        f"{pt['infectiousness_multiplier']} {sc:.5f}" for pt, sc in ranked))
+    del base, outs
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["calibrate", "--grid", json.dumps(
+        {"infectiousness_multiplier": CLI_GRID}), "--days",
+        str(CLI_DAYS + 1)])
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    print(f"cli calibrate: exit {rc}, {wall:.3f} s for {len(CLI_GRID)} "
+          f"points x {CLI_DAYS} days; launches={launches}")
+    if rc != 0:
+        fail(f"cli calibrate: exit code {rc}")
+    check_runs_launched(launches, len(CLI_GRID) * CLI_DAYS, len(CLI_GRID),
+                        "cli calibrate")
 
 
 def cli_phase() -> None:
@@ -158,11 +292,7 @@ def cli_phase() -> None:
                                    or BUILD_CACHE.reseeds != reseeds + 1):
             fail("cli: the second call did not hit the cache and reseed")
         steps = CLI_DAYS - 1
-        check_launched(launches, {k: steps for k in (
-            "fused_map.prologue", "fused_map.recv_front", "fused_map.post",
-            "fused_map.finalize", "ledger_scan", "fused_fn_onehot_sum",
-            "fused_bihistogram")} | {"fused_concat_prefix": 2 * steps,
-                                     "fused_onehot_sum": 1}, "cli")
+        check_launched(launches, day_launches(steps, 1), "cli")
         # the memoized result of the run the CLI just made
         cols, cube = simulate_individuals(only_if_in_cache=True,
                                           device="cuda")
@@ -243,11 +373,7 @@ def served_run(client: Client, name: str, seed_arg: str, want: str):
     if lengths[-1] != DAYS or res["phase"] != "finished":
         fail(f"serve run {name}: {lengths[-1]} dates, phase {res['phase']}")
     steps = DAYS - 1
-    check_launched(launches, {k: steps for k in (
-        "fused_map.prologue", "fused_map.recv_front", "fused_map.post",
-        "fused_map.finalize", "ledger_scan", "fused_fn_onehot_sum",
-        "fused_bihistogram")} | {"fused_concat_prefix": 2 * steps,
-                                 "fused_onehot_sum": 1}, f"serve {name}")
+    check_launched(launches, day_launches(steps, 1), f"serve {name}")
     metrics = {m["type"]: m for m in res["predictedMetrics"]["metrics"]}
     return run_id, metrics
 
@@ -348,12 +474,8 @@ def concurrent_runs(base: str) -> None:
                    zip(m["susceptible"], m["all_infected"])):
                 fail(f"serve seed {seed}: agents not conserved")
             finals.append(m["all_infected"])
-        check_launched(launches, {k: len(group) * steps for k in (
-            "fused_map.prologue", "fused_map.recv_front", "fused_map.post",
-            "fused_map.finalize", "ledger_scan", "fused_fn_onehot_sum",
-            "fused_bihistogram")} | {"fused_concat_prefix":
-                                     2 * len(group) * steps},
-            f"serve seeds {group}")
+        check_launched(launches, day_launches(len(group) * steps, 0),
+                       f"serve seeds {group}")
     if finals[1] == finals[2]:
         fail("serve: the two concurrent runs gave the same curve")
 
@@ -446,6 +568,7 @@ def serving_phase(main_all_infected, main_susceptible) -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -492,10 +615,12 @@ def main() -> None:
     from reina_tpu_torch.core.engine import run_days, build_run
     v = dict(VARIABLE_DEFAULTS)
     v["simulation_days"] = DAYS
+    mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     run = build_run(v, "cuda")
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    run_bytes = torch.cuda.memory_allocated() - mem0
     n_pad = run.init_state.age.shape[0]
     print(f"build_run: {build_s:.2f} s, agents={run.n_agents}, "
           f"padded={n_pad}")
@@ -531,23 +656,21 @@ def main() -> None:
     cons = out.by_group[:, 0].sum(1) + out.by_group[:, 3].sum(1)
     if not (cons == run.n_agents).all():
         fail("agents not conserved (susceptible + all_infected)")
-    check_launched(launches, {k: steps for k in (
-        "fused_map.prologue", "fused_map.recv_front", "fused_map.post",
-        "fused_map.finalize", "ledger_scan", "fused_fn_onehot_sum",
-        "fused_bihistogram")} | {"fused_concat_prefix": 2 * steps,
-                                 "fused_onehot_sum": 1}, "main path")
+    check_launched(launches, day_launches(steps, 1), "main path")
     lo, hi = MC_MEAN - 4 * MC_STD, MC_MEAN + 4 * MC_STD
     if not lo <= final <= hi:
         fail(f"final all_infected {final} outside [{lo:.0f}, {hi:.0f}]")
 
     with tempfile.TemporaryDirectory(dir=here) as scratch:
         resume_phase(run, out, state, scratch)
+    ensemble_phase(run, v, out, peak - mem0, run_bytes)
     main_all_infected = out.by_group[:, 3].sum(1)
     main_susceptible = out.by_group[:, 0].sum(1)
     del run, out, state, carry
     cli_phase()
     serving_phase(main_all_infected, main_susceptible)
 
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [
         {"name": c.name, "route": c.route, "source": c.source,
          "replaces": c.replaces, "launches": launches[c.name],

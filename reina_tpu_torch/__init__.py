@@ -3,8 +3,9 @@
 The JAX package ``reina_tpu`` is the reference. This package runs its
 main path — ``core.engine.build_run`` → ``run_days`` → ``day_step`` —
 its driver (checkpoints, the build cache, ``simulate_individuals``, the
-CLI), the parameter explorer and the serving runtime (GraphQL server,
-run workers, result cache, web UI) on tensors of an explicit device. On CUDA the Pallas kernels
+CLI), seed ensembles and calibration sweeps, the parameter explorer and
+the serving runtime (GraphQL server, run workers, result cache, web UI)
+on tensors of an explicit device. On CUDA the Pallas kernels
 of that path are hand-written Hopper kernels (``kernels/``); on the CPU
 their plain PyTorch twins run. The package imports torch and nothing of
 jax, pandas or the JAX package: ``config``, ``data``, ``utils``, the
@@ -18,17 +19,24 @@ Layout:
   utils/       locale, memoize (calcfunc), perf (PerfCounter)
   core/        constants, params, schedule, state (numpy host compile,
                carried over from the JAX package), step, engine,
-               checkpoint (the JAX package's npz v6 layout)
+               checkpoint (the JAX package's npz v6 layout), debug
+               (person_str, dump_state, infection_tree)
   ops/         prng (jax.random's threefry, bit for bit), random
                (samplers), fusedmap, clamped, compact (kernel wrappers
                and their twins)
   kernels/     csrc/*.cu (nvcc, ctypes), fused_bodies.py (Triton)
   simulation.py  build cache, simulate_individuals, outputs_to_frames
+  ensemble.py  run_ensemble, run_monte_carlo (numpy columns, CSV)
+  calibration.py  grid_points, sweep_grid, score_against_observed,
+               calibrate
+  mc_spread.py the final all_infected's spread over HUS seeds (card)
+  models/      sir (the RK4 comparison model)
   sampling.py  the parameter explorer's draws
   runtime/     result cache (memory, shm, redis), worker threads, xlsx,
                graphql/ (engine, introspection, sdl, schema, server)
   webui/       app.html, served by the GraphQL server
-  cli.py       ``python -m reina_tpu_torch.cli simulate`` and ``sample``
+  cli.py       ``python -m reina_tpu_torch.cli simulate``, ``monte-carlo``,
+               ``sample`` and ``calibrate``
   convert.py   numpy values → tensors on a device
   testing.py   synthetic runs
 """

@@ -1,0 +1,142 @@
+"""Parameter-grid calibration sweeps (port of reina_tpu/calibration.py).
+
+The reference has no built-in calibration: its only sweep axis is the
+Monte-Carlo seed pool (calc/simulation.py:349-385), and fitting model
+parameters (e.g. ``infectiousness_multiplier``) against observed case
+data was a manual exercise. ``sweep_grid`` runs every point of a grid
+and ``calibrate`` ranks the points by their fit to the observed
+cumulative detected-case curve of the area, as the reference's
+empirical validation compares them (components/results.py:56-94).
+
+The points run one after another through the single-run path, as the
+seeds of ``ensemble.run_ensemble`` do (see there for why). Each point
+is built when its turn comes and released after it, so the device holds
+one point's run besides the base run at a time.
+"""
+from __future__ import annotations
+
+import itertools
+import time
+from dataclasses import replace
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from .core.engine import CompiledRun, build_run, run_days
+from .core.params import DISEASE_PARAMS
+from .core.step import GROUP_ROW, DayOutputs
+from .data import loaders
+from .ensemble import check_batch_size, stack_members
+
+# Grid variables must only affect the compiled disease/model arrays:
+# the sweep shares one engine config, schedule set and seed across
+# points, so anything else would be silently ignored.
+SWEEPABLE = set(DISEASE_PARAMS)
+
+
+def grid_points(grid: Dict[str, Sequence[Any]]) -> List[Dict[str, Any]]:
+    """Cartesian product of a {variable: [values]} grid."""
+    unknown = set(grid) - SWEEPABLE
+    if unknown:
+        raise ValueError(
+            "grid variables must be disease parameters (they alone feed "
+            "the per-point model arrays); not sweepable: %s"
+            % ", ".join(sorted(unknown)))
+    names = list(grid)
+    return [dict(zip(names, combo))
+            for combo in itertools.product(*(grid[n] for n in names))]
+
+
+def sweep_grid(variables: Dict[str, Any], grid: Dict[str, Sequence[Any]],
+               n_days: Optional[int] = None, batch_size: int = 8,
+               pad_multiple: int = 1024, age_counts_override=None,
+               device="cuda") -> Tuple[List[Dict[str, Any]], DayOutputs,
+                                       CompiledRun]:
+    """Run every grid point on ``device``; returns (points, DayOutputs
+    as numpy with leading (n_points, days-1) axes, base run).
+
+    As in the JAX package's ``_grid_scan``, every point runs with the
+    base run's (the first point's) engine config and schedules, its own
+    model arrays and initial state and carry (seeding draws severities
+    and durations through the point's own disease arrays), and the
+    shared key ``PRNGKey(base.random_seed)``. ``base.meta
+    ["sweep_seconds"]`` holds each point's (build, days) seconds.
+    ``batch_size`` changes no value and no launch (ensemble.py)."""
+    from .simulation import resolve_device
+
+    check_batch_size(batch_size)
+    dev = resolve_device(device)
+    points = grid_points(grid)
+    base = None
+    members, seconds = [], []
+    for pt in points:
+        v = dict(variables)
+        v.update(pt)
+        t0 = time.perf_counter()
+        run = build_run(v, dev, pad_multiple=pad_multiple,
+                        age_counts_override=age_counts_override)
+        t1 = time.perf_counter()
+        if base is None:
+            base = run
+            steps = (n_days if n_days is not None else base.days) - 1
+        run = replace(run, cfg=base.cfg, schedules=base.schedules)
+        out, _, _, _ = run_days(run, n_days=steps + 1,
+                                seed=base.random_seed)
+        del run
+        members.append(DayOutputs(*(x[1:] for x in out)))
+        seconds.append((t1 - t0, time.perf_counter() - t1))
+    base.meta["sweep_seconds"] = seconds
+    return points, stack_members(members), base
+
+
+def score_against_observed(outs: DayOutputs, run: CompiledRun,
+                           observed_rows: Optional[List[dict]] = None,
+                           metric: str = "all_detected") -> np.ndarray:
+    """Least-squares distance in log1p space between each point's
+    simulated cumulative series and the observed series, aligned by
+    date. Lower is better."""
+    from datetime import date
+
+    if observed_rows is None:
+        observed_rows = loaders.get_detected_cases(run.meta["area_name"])
+    # observed casefile column per simulated metric
+    obs_col = {"all_detected": "confirmed", "dead": "dead",
+               "in_icu": "in_icu", "in_ward": "in_ward"}
+    if metric not in obs_col:
+        raise ValueError(f"unsupported calibration metric {metric!r}; "
+                         f"choose from {sorted(obs_col)}")
+    attr_idx = GROUP_ROW[metric]
+    start = date.fromisoformat(run.start_date)
+    sim = outs.by_group[..., attr_idx, :].sum(axis=-1)   # (G, days)
+    n_days = sim.shape[1]
+    obs_by_day = {}
+    for r in observed_rows:
+        # sweep outputs have no leading snapshot row: sim[j] is the
+        # state after day j, i.e. dated start + j + 1 — an observation
+        # dated start + d therefore aligns with sim[d - 1]
+        d = (date.fromisoformat(r["date"]) - start).days
+        if 0 <= d - 1 < n_days:
+            obs_by_day[d - 1] = float(r[obs_col[metric]])
+    if not obs_by_day:
+        raise ValueError("no observed days overlap the simulation window")
+    idx = np.array(sorted(obs_by_day))
+    obs = np.array([obs_by_day[i] for i in idx])
+    diff = np.log1p(sim[:, idx]) - np.log1p(obs)[None, :]
+    return (diff ** 2).mean(axis=1)
+
+
+def calibrate(variables: Dict[str, Any], grid: Dict[str, Sequence[Any]],
+              n_days: Optional[int] = None, metric: str = "all_detected",
+              observed_rows: Optional[List[dict]] = None,
+              batch_size: int = 8, pad_multiple: int = 1024,
+              age_counts_override=None,
+              device="cuda") -> Tuple[Dict[str, Any], list]:
+    """Evaluate the grid and rank points by fit against observed data.
+    Returns (best_point, [(point, score), ...] sorted best-first)."""
+    points, outs, base = sweep_grid(
+        variables, grid, n_days=n_days, batch_size=batch_size,
+        pad_multiple=pad_multiple, age_counts_override=age_counts_override,
+        device=device)
+    scores = score_against_observed(outs, base, observed_rows, metric)
+    ranked = sorted(zip(points, scores.tolist()), key=lambda x: x[1])
+    return ranked[0][0], ranked

@@ -1,15 +1,20 @@
-"""Command-line interface of the port (port of reina_tpu/cli.py's
-``simulate`` and ``sample``; reference: ``python -m calc.simulation``
-main, calc/simulation.py:388-469).
+"""Command-line interface of the port (port of reina_tpu/cli.py;
+reference: ``python -m calc.simulation`` main,
+calc/simulation.py:388-469).
 
   python -m reina_tpu_torch.cli simulate [--area HUS] [--days N] [--seed S]
       [--scenario ID] [--interval N] [--quiet] [--device cuda|cpu]
+  python -m reina_tpu_torch.cli monte-carlo [--scenario default] [--runs 1000]
+      [--batch-size 1] [--device cuda|cpu]
   python -m reina_tpu_torch.cli sample --what symptom_severity [--age 90]
       [--severity SEVERE] [--device cuda|cpu]
+  python -m reina_tpu_torch.cli calibrate --grid '{"infectiousness_multiplier": [0.4, 0.55, 0.7]}'
+      [--area HUS] [--days N] [--metric all_detected|dead] [--batch-size 8]
+      [--device cuda|cpu]
 
-Both run on the card (``--device cuda``, the default) and fail when
-there is none; ``--device cpu`` is the explicit way to run on the CPU.
-Tables are printed from numpy columns (no pandas).
+Every command runs on the card (``--device cuda``, the default) and
+fails when there is none; ``--device cpu`` is the explicit way to run
+on the CPU. Tables are printed from numpy columns (no pandas).
 """
 from __future__ import annotations
 
@@ -81,6 +86,41 @@ def cmd_simulate(args):
     return 0
 
 
+def cmd_monte_carlo(args):
+    from .ensemble import DESCRIBE_STATS, describe, run_monte_carlo
+    cols = run_monte_carlo(args.scenario, n_runs=args.runs,
+                           batch_size=args.batch_size, device=args.device)
+    last = cols["date"] == cols["date"].max()
+    stats = describe({k: v[last] for k, v in cols.items()})
+    # pandas' describe() of the last day's rows, one line per column
+    print(f"last day {cols['date'].max()}:")
+    print("%-34s" % "column" + "".join("%20s" % k for k in DESCRIBE_STATS))
+    for name, row in stats.items():
+        print("%-34s" % name + "".join("%20.12g" % x for x in row))
+    return 0
+
+
+def cmd_calibrate(args):
+    import json
+
+    from .calibration import calibrate
+    from .config.variables import VariableStore
+
+    variables = VariableStore().copy_all()
+    if args.area:
+        variables["area_name"] = args.area
+    if args.days:
+        variables["simulation_days"] = args.days
+    grid = json.loads(args.grid)
+    best, ranked = calibrate(variables, grid, batch_size=args.batch_size,
+                             metric=args.metric, device=args.device)
+    print("rank  score        point")
+    for i, (pt, score) in enumerate(ranked):
+        print("%-5d %-12.5f %s" % (i + 1, score, json.dumps(pt)))
+    print("best:", json.dumps(best))
+    return 0
+
+
 def cmd_sample(args):
     from .simulation import sample_model_parameters
     cats, counts = sample_model_parameters(args.what, args.age, args.severity,
@@ -108,6 +148,16 @@ def main(argv=None):
                         "the plain twins on the CPU)")
     p.set_defaults(func=cmd_simulate)
 
+    p = sub.add_parser("monte-carlo", help="Monte-Carlo ensemble over seeds")
+    p.add_argument("--scenario", default="default")
+    p.add_argument("--runs", type=int, default=1000)
+    p.add_argument("--batch-size", type=int, default=1,
+                   help="kept for the JAX package's CLI: members run one "
+                        "after another whatever it is")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the runs (default cuda)")
+    p.set_defaults(func=cmd_monte_carlo)
+
     p = sub.add_parser("sample", help="sample model parameter distributions")
     p.add_argument("--what", required=True)
     p.add_argument("--age", type=int, default=30)
@@ -115,6 +165,21 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device of the draws (default cuda)")
     p.set_defaults(func=cmd_sample)
+
+    p = sub.add_parser(
+        "calibrate", help="parameter-grid sweep scored against observed data")
+    p.add_argument("--grid", required=True,
+                   help='JSON, e.g. {"infectiousness_multiplier": [0.4, 0.55, 0.7]}')
+    p.add_argument("--area", default=None)
+    p.add_argument("--days", type=int, default=None)
+    p.add_argument("--metric", default="all_detected",
+                   choices=["all_detected", "dead"])
+    p.add_argument("--batch-size", type=int, default=8,
+                   help="kept for the JAX package's CLI: points run one "
+                        "after another whatever it is")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the runs (default cuda)")
+    p.set_defaults(func=cmd_calibrate)
 
     args = ap.parse_args(argv)
     if not args.cmd:

@@ -1,0 +1,113 @@
+"""The spread of the HUS run's final all_infected over seeds, on the card.
+
+    python -m reina_tpu_torch.mc_spread [--seeds 16] [--days 365]
+        [--out build/mc_spread.json]
+
+Builds the default HUS configuration once (``random_seed`` 0) and runs
+``ensemble.run_ensemble`` over seeds 0..S-1, one member at a time, as
+the JAX package's 1,000-seed record did (BENCH_MC.json, from
+tools/bench_monte_carlo.py: one build, only the day keys vary). After
+every member it prints the member's final all_infected and seconds and
+rewrites the JSON record at ``--out``, so a run cut short leaves the
+seeds it finished. The record holds the finals, their mean and std
+(ddof 0, as BENCH_MC.json), seeds per hour on this card under
+BENCH_MC.json's metric name, the card's name and power limit, and the
+record's bands: the mean within BENCH_MC.json's mean ± 3 std/√S and the
+std within the 99% chi-square band for S - 1 degrees of freedom.
+Runs on the card only.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def bands(n: int, ref: dict) -> dict:
+    """BENCH_MC.json's mean ± 3 std/√n, and its std × the 99% chi-square
+    band of a sample std over n seeds."""
+    from scipy.stats import chi2
+    mean, std = ref["final_all_infected_mean"], ref["final_all_infected_std"]
+    half = 3 * std / np.sqrt(n)
+    lo, hi = (np.sqrt(chi2.ppf(q, n - 1) / (n - 1)) for q in (0.005, 0.995))
+    return {"mean": [mean - half, mean + half], "std": [std * lo, std * hi]}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seeds", type=int, default=16)
+    ap.add_argument("--days", type=int, default=365)
+    ap.add_argument("--out", default=os.path.join(_REPO, "build",
+                                                  "mc_spread.json"))
+    args = ap.parse_args(argv)
+
+    from .config.variables import VARIABLE_DEFAULTS
+    from .core.engine import build_run
+    from .ensemble import run_ensemble
+    from .simulation import resolve_device
+
+    dev = resolve_device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    with open(os.path.join(_REPO, "BENCH_MC.json")) as f:
+        ref = json.load(f)
+    v = dict(VARIABLE_DEFAULTS)
+    v["simulation_days"] = args.days
+    v["random_seed"] = 0
+    t0 = time.perf_counter()
+    run = build_run(v, dev)
+    print(f"build_run {time.perf_counter() - t0:.3f} s, {run.n_agents} "
+          f"agents; {torch.cuda.get_device_name(0)}; nvidia-smi: "
+          f"{smi[0] if smi else 'unavailable'}", flush=True)
+
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    finals, seconds = [], []
+    rec = {}
+    for s in range(args.seeds):
+        t0 = time.perf_counter()
+        outs = run_ensemble(run, [s])
+        seconds.append(time.perf_counter() - t0)
+        finals.append(int(outs.by_group[0, -1, 3].sum()))
+        wall = float(sum(seconds))
+        rec = {
+            "metric": "hus_monte_carlo_seeds_per_hour_per_chip",
+            "device": torch.cuda.get_device_name(0),
+            "nvidia_smi": smi[0] if smi else None,
+            "n_seeds": len(finals), "n_seeds_requested": args.seeds,
+            "days": args.days - 1, "wall_s": wall,
+            "seeds_per_hour": len(finals) / wall * 3600,
+            "seconds_per_seed": seconds,
+            "finals": finals,
+            "final_all_infected_mean": float(np.mean(finals)),
+            "final_all_infected_std": float(np.std(finals)),
+            "reference": {k: ref[k] for k in (
+                "n_seeds", "final_all_infected_mean",
+                "final_all_infected_std")},
+        }
+        if len(finals) > 1:
+            b = bands(len(finals), ref)
+            rec["bands"] = b
+            rec["mean_in_band"] = bool(
+                b["mean"][0] <= rec["final_all_infected_mean"] <= b["mean"][1])
+            rec["std_in_band"] = bool(
+                b["std"][0] <= rec["final_all_infected_std"] <= b["std"][1])
+        with open(args.out, "w") as f:
+            json.dump(rec, f, indent=1)
+        print(f"seed {s}: final all_infected {finals[-1]}, "
+              f"{seconds[-1]:.3f} s ({seconds[-1] / (args.days - 1) * 1000:.2f}"
+              f" ms/day)", flush=True)
+    print(json.dumps(rec))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -71,6 +71,43 @@ def test_synthetic_run_on_cuda():
     assert state.state.is_cuda
 
 
+def test_ensemble_and_grid_on_cuda_equal_run_days():
+    """An ensemble member on the card equals run_days with its seed, and
+    a grid point equals run_days of its own build with the base cfg and
+    schedules, bit for bit."""
+    _need_cuda()
+    from dataclasses import replace
+    from reina_tpu_torch.calibration import sweep_grid
+    from reina_tpu_torch.core.engine import build_run, run_days
+    from reina_tpu_torch.ensemble import run_ensemble
+    from reina_tpu_torch.testing import (build_synthetic_run,
+                                         synthetic_age_counts,
+                                         synthetic_variables)
+    run = build_synthetic_run("cuda", n_agents=20000, days=10, seed=3,
+                              interventions=IVS)
+    seeds = [4, 5]
+    outs = run_ensemble(run, seeds)
+    for i, s in enumerate(seeds):
+        out, _, _, _ = run_days(run, seed=s)
+        for name, a, b in zip(out._fields, outs, out):
+            np.testing.assert_array_equal(a[i], b[1:], err_msg=name)
+    assert not np.array_equal(outs.by_group[0], outs.by_group[1])
+
+    v = synthetic_variables(days=10, seed=3, interventions=IVS)
+    ages = synthetic_age_counts(20000)
+    points, outs, base = sweep_grid(
+        v, {"infectiousness_multiplier": [0.4, 0.9]},
+        age_counts_override=ages)
+    assert base.device.type == "cuda"
+    for g, pt in enumerate(points):
+        own = replace(build_run(dict(v, **pt), "cuda",
+                                age_counts_override=ages),
+                      cfg=base.cfg, schedules=base.schedules)
+        out, _, _, _ = run_days(own, seed=base.random_seed)
+        for name, a, b in zip(out._fields, outs, out):
+            np.testing.assert_array_equal(a[g], b[1:], err_msg=name)
+
+
 def test_resume_on_cuda_equals_uninterrupted(tmp_path):
     """9 days with a checkpoint at day 4, resumed: outputs, state and
     carry equal the uninterrupted run bit for bit."""

@@ -24,9 +24,10 @@ Checks and tolerances:
     these days.
   * 24 days in distribution over 8 seeds: each day's mean of
     all_infected and detected agrees within 4 combined standard errors.
-  * the port runs, checkpoints, resumes, serves its CLI (simulate and
-    sample) and answers GraphQL queries with jax, the JAX package and
-    pandas made unimportable.
+  * the port runs, checkpoints, resumes, serves its CLI (simulate,
+    sample and monte-carlo), answers GraphQL queries, and runs its
+    ensembles, calibration, SIR model and debug dumps with jax, the JAX
+    package and pandas made unimportable.
 """
 import json
 import os
@@ -200,13 +201,18 @@ def test_runs_without_jax(tmp_path):
     """With jax, the JAX package and pandas all unimportable, the port
     builds and runs a synthetic run with a checkpoint, resumes from it,
     its CLI simulates a small area and samples the explorer on the CPU,
-    and its GraphQL server answers an area and an explorer query."""
+    its GraphQL server answers an area and an explorer query, and it
+    runs an ensemble, a calibration, the SIR model, the debug dumps and
+    a Monte-Carlo sweep that writes its CSV (also through the CLI)."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "sys.modules['reina_tpu'] = None\n"
         "sys.modules['pandas'] = None\n"
         "import json, urllib.request\n"
         "import torch\n"
+        # tiny shapes: more intra-op threads only contend with the other
+        # test workers on the host
+        "torch.set_num_threads(1)\n"
         "from reina_tpu_torch.testing import build_synthetic_run\n"
         "from reina_tpu_torch.core.engine import run_days\n"
         "from reina_tpu_torch import cli\n"
@@ -235,6 +241,34 @@ def test_runs_without_jax(tmp_path):
         " { categories counts } }')['sampleDistribution']\n"
         "assert sum(d['counts']) == 10000 and 'FATAL' in d['categories']\n"
         "httpd.shutdown()\n"
+        "from reina_tpu_torch.ensemble import run_ensemble, run_monte_carlo\n"
+        "from reina_tpu_torch.calibration import calibrate\n"
+        "from reina_tpu_torch.models.sir import simulate_sir, sweep_r0\n"
+        "from reina_tpu_torch.core.debug import dump_state, infection_tree\n"
+        "from reina_tpu_torch.testing import (synthetic_age_counts,"
+        " synthetic_variables)\n"
+        "e = run_ensemble(run, [1, 2])\n"
+        "assert e.by_group.shape == (2, 2, 13, 9), e.by_group.shape\n"
+        "best, ranked = calibrate(synthetic_variables(days=3),"
+        " {'infectiousness_multiplier': [0.4, 0.7]}, observed_rows=["
+        "{'date': '2020-02-20', 'confirmed': 3}], pad_multiple=256,"
+        " age_counts_override=synthetic_age_counts(3000), device='cpu')\n"
+        "assert len(ranked) == 2 and best in [p for p, _ in ranked]\n"
+        "assert simulate_sir(1e6, 100.0, 2.5, 7.0, 10,"
+        " device='cpu').shape == (10, 3)\n"
+        "assert sweep_r0(1e6, 100.0, [1.5, 2.5], 7.0, 10,"
+        " device='cpu').shape == (2, 10, 3)\n"
+        "assert 'agents' in dump_state(st, today=2)\n"
+        "assert infection_tree(st, 0).startswith('#0: ')\n"
+        "from reina_tpu_torch.config import variables\n"
+        "variables.VARIABLE_DEFAULTS.update(area_name='Alavieska',"
+        " simulation_days=3)\n"
+        f"csv_path = {str(tmp_path / 'mc.csv')!r}\n"
+        "cols = run_monte_carlo(n_runs=2, csv_path=csv_path, device='cpu')\n"
+        "assert len(cols['date']) == 6\n"
+        "assert open(csv_path).read().startswith('date,susceptible,')\n"
+        "assert cli.main(['monte-carlo', '--runs', '1', '--device',"
+        " 'cpu']) == 0\n"
         "assert not any(m == 'jax' or m.startswith('jax.')\n"
         "               or m == 'reina_tpu' or m.startswith('reina_tpu.')\n"
         "               or m == 'pandas' or m.startswith('pandas.')\n"
