@@ -33,10 +33,23 @@ Run from the repository root on a machine with a CUDA device. It
      scored against HUS's observed confirmed cases, and the CLI's
      calibrate over two points (30 days); agents conserved, and every
      per-day kernel launched exactly once a member- or point-day;
-  7. runs the CLI through the simulation driver in this process, twice
+  7. the mesh (reina_tpu_torch/parallel/mesh.py): the sharded forms of
+     the ledger and the prefix at HUS shape for 2, 4 and 8 slabs, slab
+     by slab in this process with the exchange done by stacking, held
+     bit for bit to their twins and to the unsharded kernel and twin,
+     and timed (all slabs in turn, cold L2); then two ranks spawned as
+     interpreters of this script (NCCL with one card each where there
+     are two cards, else gloo with both on this card): (a) an agent
+     axis of two, 31 days of the HUS run, whose rows must equal step
+     3's rows 0-30 and whose gathered final state must equal an
+     unsharded 31-day run, with 30 launches of the sharded ledger and
+     60 of the sharded prefix on each rank; (b) a seed axis of two,
+     run_ensemble over seeds 0-2 for 31 days, equal to step 6's members
+     on their first 30 days;
+  8. runs the CLI through the simulation driver in this process, twice
      (30 days, seeds 1 and 2): the second call must be served by the
      build cache and reseed_run;
-  8. serves: warmup_serving_program("cuda") must leave the default
+  9. serves: warmup_serving_program("cuda") must leave the default
      session's run in the build cache; then the port's GraphQL server
      (127.0.0.1, any free port, memory cache) takes runs that a client
      starts and polls over HTTP with the web UI's own documents. Run W,
@@ -51,9 +64,14 @@ Run from the repository root on a machine with a CUDA device. It
      then two at once from two sessions time the worker threads'
      sharing of the card.
 
-Each of steps 3, 5, 7, the ensemble, the grid and the CLI run of 6, and
-each served run of 8 sets the kernels' launch
-counts to 0 just before it and reads them just after. It prints one
+    python3 chip_smoke.py --mesh K
+
+runs only step 7's ranks, for 2 and K ranks (NCCL with K cards), after
+the 31 days of step 3 and the ensemble of step 6 that they are held to.
+
+Each of steps 3, 5, 8, the ensemble, the grid and the CLI run of 6, the
+agent-sharded run of 7 (in each rank) and each served run of 9 sets the
+kernels' launch counts to 0 just before it and reads them just after. It prints one
 JSON line of kernel results before the last line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 Without a CUDA device, or outside the repository, it exits non-zero and
@@ -63,6 +81,7 @@ from __future__ import annotations
 
 import json
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -75,6 +94,8 @@ RESUME_AT = 182
 CLI_DAYS = 30
 ENS_DAYS = 61
 GRID = [0.35, 0.55, 0.7]
+MESH_DAYS = 31
+MESH_SEEDS = [0, 1, 2]
 CLI_GRID = [0.45, 0.65]
 POLL_S = 0.5
 WEBUI_POLL = ("query($id: ID!){ simulationResults(runId:$id) {\n"
@@ -215,6 +236,7 @@ def ensemble_phase(run, v, out, one_run_bytes: int, run_bytes: int) -> None:
     conserved(ens, "ensemble")
     print("ensemble: member 0 equals the main path's rows bit for bit; "
           "members distinct; agents conserved")
+    ens_ms_day = wall / (len(seeds) * steps) * 1000
 
     grid = {"infectiousness_multiplier": GRID}
     torch.cuda.synchronize()
@@ -264,6 +286,187 @@ def ensemble_phase(run, v, out, one_run_bytes: int, run_bytes: int) -> None:
         fail(f"cli calibrate: exit code {rc}")
     check_runs_launched(launches, len(CLI_GRID) * CLI_DAYS, len(CLI_GRID),
                         "cli calibrate")
+    return ens, ens_ms_day
+
+
+def mesh_kernels(results: dict) -> dict:
+    """The sharded ledger and prefix at HUS shape for 2, 4 and 8 slabs,
+    slab by slab in this process; returns the 2-slab results (the
+    layout of the two-rank run) by name."""
+    from reina_tpu_torch.kernels import checks
+
+    unsharded = {"ledger_sharded": "ledger_scan",
+                 "concat_prefix_sharded": "fused_concat_prefix"}
+    out = {}
+    for k in (2, 4, 8):
+        for c in checks.sharded_checks(checks.HUS_N, 0, "cuda", k):
+            r = checks.run_check(c)
+            one = results[unsharded[c.name]][1]
+            lib = "none" if r.library_ms is None else f"{r.library_ms:.4f} ms"
+            print(f"mesh kernel {c.name} k={k}: ok={r.ok} "
+                  f"mismatches={r.mismatches} (against its twin and the "
+                  f"unsharded kernel and twin; offsets 0, N-1, inside slab "
+                  f"0's last tile) all {k} slabs {r.ms:.4f} ms, unsharded "
+                  f"kernel {one.ms:.4f} ms; twin {r.plain_ms:.4f} ms, "
+                  f"library {lib}, bound {r.bound_ms:.4f} ms ({r.bound_by})")
+            if not r.ok:
+                fail(f"mesh: {c.name} over {k} slabs disagrees")
+            if k == 2:
+                out[c.name] = (c, r)
+    return out
+
+
+def mesh_child(rank: int, world: int, port: int, backend: str,
+               work: str) -> None:
+    """One rank of the mesh phase (run as ``chip_smoke.py --mesh-child``):
+    (a) the agent axis, (b) the seed axis; results into ``work``."""
+    import numpy as np
+    import torch
+    from reina_tpu_torch import convert, kernels
+    from reina_tpu_torch.config.variables import VARIABLE_DEFAULTS
+    from reina_tpu_torch.core.engine import build_run, run_days
+    from reina_tpu_torch.ensemble import run_ensemble
+    from reina_tpu_torch.kernels import build
+    from reina_tpu_torch.parallel import mesh as M
+
+    build.lib()                 # built by the parent: loaded here
+    dev = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+    M.init_distributed(f"tcp://127.0.0.1:{port}", world, rank, backend)
+    v = dict(VARIABLE_DEFAULTS)
+    v["simulation_days"] = DAYS
+    run = build_run(v, dev)
+    rec = {"rank": rank, "device": str(dev)}
+
+    agents = M.make_mesh(1, world, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    M.reset_stats()
+    t0 = time.perf_counter()
+    out, state, _, _ = run_days(run, n_days=MESH_DAYS, chunk_days=MESH_DAYS,
+                                mesh=agents)
+    torch.cuda.synchronize()
+    rec["agent_s"] = time.perf_counter() - t0
+    rec["launches"] = kernels.launches()
+    rec["stats"] = M.stats()
+    np.savez(os.path.join(work, f"agent_{rank}.npz"),
+             **{"out__" + k: np.asarray(x) for k, x in zip(out._fields, out)},
+             **{"st__" + k: x for k, x in convert.to_numpy(state).items()})
+    del out, state
+
+    seeds = M.make_mesh(world, 1, device=dev)
+    M.reset_stats()
+    t0 = time.perf_counter()
+    ens = run_ensemble(run, MESH_SEEDS, n_days=MESH_DAYS, mesh=seeds)
+    torch.cuda.synchronize()
+    rec["seed_s"] = time.perf_counter() - t0
+    rec["seed_members"] = len(M.batch_placement(seeds, MESH_SEEDS))
+    if rank == 0:
+        np.savez(os.path.join(work, "ensemble.npz"),
+                 **{k: x for k, x in zip(ens._fields, ens)})
+    with open(os.path.join(work, f"rank_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    torch.distributed.destroy_process_group()
+
+
+def mesh_phase(run, out, ens, ens_ms_day: float, world: int = 2) -> dict:
+    """``world`` ranks on the card(s): the agent axis against the main
+    path, the seed axis against the ensemble phase. Returns rank 0's
+    launches of the agent-sharded run."""
+    import numpy as np
+    import torch
+    from reina_tpu_torch.core.engine import run_days
+
+    t_phase = time.perf_counter()
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    layout = (f"one rank a card, cuda:0-{world - 1}" if backend == "nccl"
+              else f"all {world} ranks on cuda:0")
+    print(f"mesh: {world} ranks over {backend}, {layout}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, st31, _, _ = run_days(run, n_days=MESH_DAYS, chunk_days=MESH_DAYS)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) / (MESH_DAYS - 1) * 1000
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here) as work:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh-child",
+             str(r), str(world), str(port), backend, work], cwd=here,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                fail(f"mesh: rank {r} exited {p.returncode}:\n{log[-3000:]}")
+        recs = []
+        for r in range(world):
+            with open(os.path.join(work, f"rank_{r}.json")) as f:
+                recs.append(json.load(f))
+        steps = MESH_DAYS - 1
+        slabs = []
+        for r, rec in enumerate(recs):
+            z = np.load(os.path.join(work, f"agent_{r}.npz"))
+            for name in out._fields:
+                if not np.array_equal(z["out__" + name],
+                                      getattr(out, name)[:MESH_DAYS]):
+                    fail(f"mesh (a): rank {r}'s {name} differs from the "
+                         f"main path's rows 0-{steps}")
+            slabs.append(z)
+            la, st = rec["launches"], rec["stats"]
+            want = ({k: steps for k in DAILY if k != "ledger_scan"}
+                    | {"ledger_sharded.fold": steps,
+                       "ledger_sharded.emit": steps,
+                       "concat_prefix_sharded.totals": 2 * steps,
+                       "concat_prefix_sharded.emit": 2 * steps,
+                       "ledger_scan": 0, "fused_concat_prefix": 0,
+                       "fused_onehot_sum": 1})
+            for k, n in want.items():
+                if la.get(k, 0) != n:
+                    fail(f"mesh (a): rank {r} launched {k} {la.get(k, 0)} "
+                         f"times, want {n}")
+            print(f"mesh (a) agent axis, rank {r} on {rec['device']}: "
+                  f"{steps} days in {rec['agent_s']:.3f} s, "
+                  f"{rec['agent_s'] / steps * 1000:.2f} ms/day "
+                  f"({rec['agent_s'] / steps * 1000 / one_ms:.2f}x one rank's "
+                  f"{one_ms:.2f} ms/day on this card); collectives "
+                  f"{st['calls'] / steps:.1f}/day, "
+                  f"{st['bytes'] / steps / 1e6:.3f} MB/day "
+                  f"(staged through the host: {st['staged_calls']} calls); "
+                  f"launches={la}")
+        for name in st31._fields:
+            whole = np.concatenate([z["st__" + name] for z in slabs])
+            if not np.array_equal(whole,
+                                  getattr(st31, name).cpu().numpy()):
+                fail(f"mesh (a): gathered state.{name} differs from the "
+                     f"unsharded {MESH_DAYS}-day run")
+        print(f"mesh (a): rows 0-{steps} equal the main path's and the "
+              f"gathered final state equals the unsharded run's, field by "
+              f"field")
+        z = np.load(os.path.join(work, "ensemble.npz"))
+        for name in ens._fields:
+            if not np.array_equal(z[name], getattr(ens, name)[:, :steps]):
+                fail(f"mesh (b): member {name} differs from the ensemble "
+                     f"phase's rows 1-{steps}")
+        wall = max(rec["seed_s"] for rec in recs)
+        per_rank = ", ".join(f"rank {rec['rank']}: {rec['seed_members']} "
+                             f"members in {rec['seed_s']:.3f} s"
+                             for rec in recs)
+        print(f"mesh (b) seed axis: seeds {MESH_SEEDS} x {steps} days in "
+              f"{wall:.3f} s ({per_rank}), {wall / len(MESH_SEEDS):.3f} s "
+              f"per member, {wall / (len(MESH_SEEDS) * steps) * 1000:.2f} "
+              f"ms per member-day (the ensemble phase, one rank: "
+              f"{ens_ms_day:.2f}); members equal the ensemble phase's rows "
+              f"1-{steps}")
+    print(f"mesh: {world} ranks, {time.perf_counter() - t_phase:.1f} s")
+    return recs[0]["launches"]
 
 
 def cli_phase() -> None:
@@ -663,7 +866,9 @@ def main() -> None:
 
     with tempfile.TemporaryDirectory(dir=here) as scratch:
         resume_phase(run, out, state, scratch)
-    ensemble_phase(run, v, out, peak - mem0, run_bytes)
+    ens, ens_ms_day = ensemble_phase(run, v, out, peak - mem0, run_bytes)
+    sharded = mesh_kernels(results)
+    mesh_launches = mesh_phase(run, out, ens, ens_ms_day)
     main_all_infected = out.by_group[:, 3].sum(1)
     main_susceptible = out.by_group[:, 0].sum(1)
     del run, out, state, carry
@@ -671,17 +876,64 @@ def main() -> None:
     serving_phase(main_all_infected, main_susceptible)
 
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
+    # the sharded forms: launches of rank 0's agent-sharded run, times of
+    # their two slabs in turn
+    rows = ([(c, r, launches[c.name]) for c, r in results.values()]
+            + [(c, r, mesh_launches[c.name + ".emit"])
+               for c, r in sharded.values()])
     print(json.dumps({"kernels": [
         {"name": c.name, "route": c.route, "source": c.source,
-         "replaces": c.replaces, "launches": launches[c.name],
+         "replaces": c.replaces, "launches": n,
          "max_abs_err": r.max_abs_err, "ms": r.ms, "plain_ms": r.plain_ms,
          "bound_ms": r.bound_ms, "bound_by": r.bound_by,
          "library_ms": r.library_ms}
-        for c, r in results.values()]}))
+        for c, r, n in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
 
 
+def mesh_only(k: int) -> None:
+    """Step 7's ranks alone, for 2 and k ranks: the main path's first 31
+    days and seeds 0-2 of the ensemble on one rank, then the phase."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from reina_tpu_torch.config.variables import VARIABLE_DEFAULTS
+    from reina_tpu_torch.core.engine import build_run, run_days
+    from reina_tpu_torch.ensemble import run_ensemble
+    from reina_tpu_torch.kernels import build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print(f"device: {torch.cuda.get_device_name(0)} x "
+          f"{torch.cuda.device_count()}; nvidia-smi: {smi}")
+    build.lib()
+    v = dict(VARIABLE_DEFAULTS)
+    v["simulation_days"] = DAYS
+    run = build_run(v, "cuda")
+    out, _, _, _ = run_days(run, n_days=MESH_DAYS, chunk_days=MESH_DAYS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ens = run_ensemble(run, MESH_SEEDS, n_days=MESH_DAYS)
+    torch.cuda.synchronize()
+    ms = ((time.perf_counter() - t0)
+          / (len(MESH_SEEDS) * (MESH_DAYS - 1)) * 1000)
+    print(f"ensemble on one rank: {ms:.2f} ms per member-day")
+    for world in sorted({2, k}):
+        mesh_phase(run, out, ens, ms, world)
+    print("mesh: ok")
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        a = sys.argv[2:]
+        mesh_child(int(a[0]), int(a[1]), int(a[2]), a[3], a[4])
+    elif sys.argv[1:2] == ["--mesh"]:
+        mesh_only(int(sys.argv[2]))
+    else:
+        main()

@@ -5,7 +5,8 @@ main path — ``core.engine.build_run`` → ``run_days`` → ``day_step`` —
 its driver (checkpoints, the build cache, ``simulate_individuals``, the
 CLI), seed ensembles and calibration sweeps, the parameter explorer and
 the serving runtime (GraphQL server, run workers, result cache, web UI)
-on tensors of an explicit device. On CUDA the Pallas kernels
+on tensors of an explicit device, and across ranks of torch.distributed
+on a (seed × agent) mesh. On CUDA the Pallas kernels
 of that path are hand-written Hopper kernels (``kernels/``); on the CPU
 their plain PyTorch twins run. The package imports torch and nothing of
 jax, pandas or the JAX package: ``config``, ``data``, ``utils``, the
@@ -29,7 +30,10 @@ Layout:
   ensemble.py  run_ensemble, run_monte_carlo (numpy columns, CSV)
   calibration.py  grid_points, sweep_grid, score_against_observed,
                calibrate
-  mc_spread.py the final all_infected's spread over HUS seeds (card)
+  mc_spread.py the final all_infected's spread over HUS seeds (card;
+               across cards under torchrun)
+  parallel/    mesh: init_distributed, make_mesh, the agent shard and
+               its collectives, shard_run, the seed placement
   models/      sir (the RK4 comparison model)
   sampling.py  the parameter explorer's draws
   runtime/     result cache (memory, shm, redis), worker threads, xlsx,

@@ -11,7 +11,9 @@ empirical validation compares them (components/results.py:56-94).
 The points run one after another through the single-run path, as the
 seeds of ``ensemble.run_ensemble`` do (see there for why). Each point
 is built when its turn comes and released after it, so the device holds
-one point's run besides the base run at a time.
+one point's run besides the base run at a time. Across ranks (``mesh``)
+each agent group runs its share of the points and every rank returns
+all of them, as ``ensemble.run_ensemble`` does.
 """
 from __future__ import annotations
 
@@ -50,8 +52,8 @@ def grid_points(grid: Dict[str, Sequence[Any]]) -> List[Dict[str, Any]]:
 def sweep_grid(variables: Dict[str, Any], grid: Dict[str, Sequence[Any]],
                n_days: Optional[int] = None, batch_size: int = 8,
                pad_multiple: int = 1024, age_counts_override=None,
-               device="cuda") -> Tuple[List[Dict[str, Any]], DayOutputs,
-                                       CompiledRun]:
+               device="cuda", mesh=None) -> Tuple[List[Dict[str, Any]],
+                                                  DayOutputs, CompiledRun]:
     """Run every grid point on ``device``; returns (points, DayOutputs
     as numpy with leading (n_points, days-1) axes, base run).
 
@@ -61,32 +63,43 @@ def sweep_grid(variables: Dict[str, Any], grid: Dict[str, Sequence[Any]],
     and durations through the point's own disease arrays), and the
     shared key ``PRNGKey(base.random_seed)``. ``base.meta
     ["sweep_seconds"]`` holds each point's (build, days) seconds.
-    ``batch_size`` changes no value and no launch (ensemble.py)."""
+    ``batch_size`` changes no value and no launch (ensemble.py). With
+    ``mesh`` every rank calls it with the same arguments, builds the
+    base run and its share of the points on its own device, and gets
+    every point (``sweep_seconds`` of each from the rank that ran it)."""
+    from .parallel.mesh import batch_placement, gather_placed
     from .simulation import resolve_device
 
     check_batch_size(batch_size)
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     points = grid_points(grid)
-    base = None
-    members, seconds = [], []
-    for pt in points:
+
+    def build(pt):
         v = dict(variables)
         v.update(pt)
+        return build_run(v, dev, pad_multiple=pad_multiple,
+                         age_counts_override=age_counts_override)
+
+    mine = batch_placement(mesh, points)
+    t0 = time.perf_counter()
+    base = build(points[0])
+    base_s = time.perf_counter() - t0
+    steps = (n_days if n_days is not None else base.days) - 1
+    results = []
+    for i in mine:
         t0 = time.perf_counter()
-        run = build_run(v, dev, pad_multiple=pad_multiple,
-                        age_counts_override=age_counts_override)
+        run = base if i == 0 else build(points[i])
         t1 = time.perf_counter()
-        if base is None:
-            base = run
-            steps = (n_days if n_days is not None else base.days) - 1
         run = replace(run, cfg=base.cfg, schedules=base.schedules)
         out, _, _, _ = run_days(run, n_days=steps + 1,
-                                seed=base.random_seed)
+                                seed=base.random_seed, mesh=mesh)
         del run
-        members.append(DayOutputs(*(x[1:] for x in out)))
-        seconds.append((t1 - t0, time.perf_counter() - t1))
-    base.meta["sweep_seconds"] = seconds
-    return points, stack_members(members), base
+        results.append((DayOutputs(*(x[1:] for x in out)),
+                        (base_s if i == 0 else t1 - t0,
+                         time.perf_counter() - t1)))
+    results = gather_placed(mesh, mine, results, len(points))
+    base.meta["sweep_seconds"] = [sec for _, sec in results]
+    return points, stack_members([out for out, _ in results]), base
 
 
 def score_against_observed(outs: DayOutputs, run: CompiledRun,
@@ -130,13 +143,14 @@ def calibrate(variables: Dict[str, Any], grid: Dict[str, Sequence[Any]],
               observed_rows: Optional[List[dict]] = None,
               batch_size: int = 8, pad_multiple: int = 1024,
               age_counts_override=None,
-              device="cuda") -> Tuple[Dict[str, Any], list]:
+              device="cuda", mesh=None) -> Tuple[Dict[str, Any], list]:
     """Evaluate the grid and rank points by fit against observed data.
-    Returns (best_point, [(point, score), ...] sorted best-first)."""
+    Returns (best_point, [(point, score), ...] sorted best-first). With
+    ``mesh`` the points run across ranks (``sweep_grid``)."""
     points, outs, base = sweep_grid(
         variables, grid, n_days=n_days, batch_size=batch_size,
         pad_multiple=pad_multiple, age_counts_override=age_counts_override,
-        device=device)
+        device=device, mesh=mesh)
     scores = score_against_observed(outs, base, observed_rows, metric)
     ranked = sorted(zip(points, scores.tolist()), key=lambda x: x[1])
     return ranked[0][0], ranked

@@ -77,11 +77,13 @@ def rebuild_buckets(state: AgentState, capb: int):
 
 
 def save_checkpoint(path: str, state: AgentState, carry: DayCarry,
-                    outputs=None) -> None:
+                    outputs=None, bucket_capacity: Optional[int] = None
+                    ) -> None:
     """Write the port's ``state`` and ``carry`` (tensors on any device)
     in the JAX package's v6 layout. ``outputs`` (optional): the stacked
     numpy DayOutputs rows emitted so far, so a resumed run returns the
-    complete output table."""
+    complete output table. ``bucket_capacity``: the bucket table's row
+    width, when ``carry.bkt_dst`` is not the whole table."""
     arrays = {}
     for name, val in zip(AgentState._fields, state):
         arrays["state__" + name] = _np(val)
@@ -93,9 +95,10 @@ def save_checkpoint(path: str, state: AgentState, carry: DayCarry,
     arrays["carry__weekly_leftover"] = np.asarray(carry.weekly_leftover,
                                                   np.float32)
     n_agents = arrays["state__age"].shape[0]
-    # the port's table has one spare slot past N·CAPB
-    arrays["bucket_capacity"] = np.int32(
-        (carry.bkt_dst.shape[0] - 1) // n_agents)
+    if bucket_capacity is None:
+        # the port's table has one spare slot past N·CAPB
+        bucket_capacity = (carry.bkt_dst.shape[0] - 1) // n_agents
+    arrays["bucket_capacity"] = np.int32(bucket_capacity)
     if outputs is not None:
         for name, val in zip(type(outputs)._fields, outputs):
             arrays["out__" + name] = np.asarray(val)
@@ -112,6 +115,19 @@ def save_checkpoint(path: str, state: AgentState, carry: DayCarry,
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+def save_sharded(path: str, shard, state: AgentState, carry: DayCarry,
+                 outputs, bucket_capacity: int) -> None:
+    """save_checkpoint of an agent-sharded run: every rank of the agent
+    group (``shard``, parallel.mesh.AgentShard) hands in its slab, the
+    per-agent fields are gathered, the group's first rank writes the
+    same file as an unsharded run, and the group waits for it."""
+    state = AgentState(*(shard.gather_rows(x) for x in state))
+    carry = carry._replace(nc_ag=shard.gather_rows(carry.nc_ag))
+    if shard.index == 0:
+        save_checkpoint(path, state, carry, outputs, bucket_capacity)
+    shard.barrier()
 
 
 def load_checkpoint(path: str):

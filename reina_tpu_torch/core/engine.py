@@ -7,7 +7,9 @@ by itself. ``reseed_run`` re-seeds a built run in numpy (the build
 cache's hit path). ``run_days`` steps the days eagerly, accumulating
 each chunk's outputs on the device, checks the problem bitmask at the
 end of every chunk, and checkpoints and resumes in the JAX package's
-file layout (``core/checkpoint.py``).
+file layout (``core/checkpoint.py``). Given a mesh whose agent axis has
+several ranks (parallel/mesh.py), ``run_days`` steps this rank's slab of
+the agents, bit-identical to the one-card run.
 """
 from __future__ import annotations
 
@@ -251,7 +253,7 @@ def stack_outputs(outs: List[DayOutputs]) -> DayOutputs:
 
 def run_chunk(cfg: EngineConfig, arrays: ModelArrays, schedules: Schedules,
               host_sched: Schedules, state: AgentState, carry: DayCarry,
-              base_key, chunk_len: int, day0: int):
+              base_key, chunk_len: int, day0: int, shard=None):
     """Step ``chunk_len`` days from ``day0``; returns (state, carry,
     list of DayOutputs on the device)."""
     dkeys = derive_day_keys(cfg, base_key, day0 + np.arange(chunk_len))
@@ -260,7 +262,7 @@ def run_chunk(cfg: EngineConfig, arrays: ModelArrays, schedules: Schedules,
         state, carry, out = day_step(cfg, arrays,
                                      sched_row(schedules, host_sched,
                                                day0 + i),
-                                     state, carry, dkeys.day(i))
+                                     state, carry, dkeys.day(i), shard)
         outs.append(out)
     return state, carry, outs
 
@@ -269,7 +271,7 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
              chunk_days: int = 32, day_callback=None,
              seed: Optional[int] = None,
              checkpoint_dir: Optional[str] = None,
-             checkpoint_every: int = 64, resume: bool = True):
+             checkpoint_every: int = 64, resume: bool = True, mesh=None):
     """Execute the run; returns (stacked DayOutputs as numpy with a
     leading day axis of ``n_days`` rows — row 0 is the initial
     snapshot —, final state, final carry, chunk times).
@@ -281,27 +283,48 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
     first chunk end at least ``checkpoint_every`` days after the last
     save and at the end of the run, and (with ``resume``) a call
     resumes from the newest checkpoint there: bit-identical to an
-    uninterrupted run."""
+    uninterrupted run.
+
+    ``mesh`` (parallel.mesh.Mesh) with an agent axis of k > 1 ranks:
+    every rank of the agent group calls ``run_days`` on the same run,
+    steps its slab of the agents on its own device and returns the same
+    outputs as the unsharded run; the final state and carry are its
+    slab's. A checkpoint holds the whole run (gathered to the group's
+    first rank, which writes it), so a run resumes on any layout. With
+    one rank on the agent axis the mesh changes nothing."""
     from . import checkpoint as ckpt
     from .. import convert
     n_days = n_days if n_days is not None else run.days
     base_key = prng.PRNGKey(run.random_seed if seed is None else seed)
-    arrays, schedules, cfg = run.arrays, run.schedules, run.cfg
+    cfg = run.cfg
+    shard = None
+    if mesh is not None and mesh.n_agent > 1:
+        from ..parallel.mesh import AgentShard, shard_run
+        shard = AgentShard(mesh, run.init_state.age.shape[0])
+        arrays, schedules, state, carry = shard_run(run, mesh)
+        device = mesh.device
+    else:
+        arrays, schedules, device = run.arrays, run.schedules, run.device
+        state = run.init_state
+        # the bucket table is updated in place by the day step: copy the
+        # run's initial table once so the run stays reusable
+        carry = run.init_carry._replace(
+            bkt_dst=run.init_carry.bkt_dst.clone())
     host_sched = Schedules(*(x.cpu().numpy() for x in schedules))
-    state = run.init_state
-    # the bucket table is updated in place by the day step: copy the
-    # run's initial table once so the run stays reusable
-    carry = run.init_carry._replace(bkt_dst=run.init_carry.bkt_dst.clone())
 
     rows = [stack_outputs([snapshot_outputs(cfg, arrays, state, carry,
-                                            np.float32(1.0))])]
+                                            np.float32(1.0), shard)])]
     day = 0
     latest = (ckpt.latest_checkpoint(checkpoint_dir)
               if checkpoint_dir and resume else None)
     if latest:
         st_np, cr_np, saved_out = ckpt.load_checkpoint(latest)
-        state = convert.agent_state(st_np, run.device)
-        carry = convert.day_carry(cr_np, run.device)
+        state = convert.agent_state(st_np, device)
+        carry = convert.day_carry(cr_np, device)
+        if shard is not None:
+            from ..parallel.mesh import place_state_carry
+            state, carry = place_state_carry(mesh, state, carry,
+                                             cfg.max_infectees)
         day = carry.day
         if saved_out is not None:
             rows = [saved_out]
@@ -313,9 +336,14 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
         t0 = time.perf_counter()
         state, carry, outs = run_chunk(cfg, arrays, schedules, host_sched,
                                        state, carry, base_key, this_chunk,
-                                       day)
+                                       day, shard)
         rows.append(stack_outputs(outs))
-        check_problems(carry.problem)
+        problem = carry.problem
+        if shard is not None:
+            # the bits of every rank, so that all raise together
+            problem = np.bitwise_or.reduce(
+                shard.all_gather(problem.reshape(1)).cpu().numpy())
+        check_problems(problem)
         day += this_chunk
         steps_left -= this_chunk
         since_ckpt += this_chunk
@@ -323,8 +351,12 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
         if checkpoint_dir and (since_ckpt >= checkpoint_every
                                or steps_left == 0):
             rows = [_concat(rows)]
-            ckpt.save_checkpoint(ckpt.checkpoint_path(checkpoint_dir, day),
-                                 state, carry, rows[0])
+            path = ckpt.checkpoint_path(checkpoint_dir, day)
+            if shard is None:
+                ckpt.save_checkpoint(path, state, carry, rows[0])
+            else:
+                ckpt.save_sharded(path, shard, state, carry, rows[0],
+                                  cfg.max_infectees)
             since_ckpt = 0
         if day_callback is not None:
             rows = [_concat(rows)]

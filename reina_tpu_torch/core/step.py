@@ -22,6 +22,18 @@ used slots, which the host knows. The four fused per-agent bodies below
 (``prologue``, ``recv_front``, ``post``, ``finalize``) are the plain
 twins of the Triton kernels in reina_tpu_torch/kernels/fused_bodies.py;
 ``fused_map`` picks one or the other by device.
+
+An agent-sharded run (parallel/mesh.py) steps the same function with a
+``shard``: per-agent tensors then hold this rank's slab of the agent
+axis, 1-D draws over the agents take their slab's counters, indices into
+the agent axis stay global, and the points where the day crosses agents
+go through the shard's collectives: sums of counts and histograms, the
+sharded ledger and prefix, lookups of per-agent values at global indices
+and scatters that only the owner applies. The slot domain (new
+infections, imports, tracing buffers) is replicated: every rank draws
+and sorts the same slots. Every host decision reads a global value, so
+the ranks take the same tiers. With ``shard=None`` each of those points
+is the plain op.
 """
 from __future__ import annotations
 
@@ -39,7 +51,7 @@ from ..ops.clamped import clamped_counter_grants
 from ..ops.compact import compact_indices
 from ..ops.fusedmap import (fused_bihistogram, fused_concat_prefix,
                             fused_fn_onehot_sum, fused_map,
-                            fused_onehot_sum)
+                            fused_onehot_sum, sharded_concat_prefix)
 from ..ops.random import binomial_fixed, gamma_fixed, searchsorted
 
 I8, I16, I32, I64 = torch.int8, torch.int16, torch.int32, torch.int64
@@ -210,10 +222,10 @@ def _binomial_split(key, totals, probs):
     return flat.reshape(probs.shape)
 
 
-def _group_counts(cfg: EngineConfig, arrays: ModelArrays, masks):
+def _group_counts(cfg: EngineConfig, arrays: ModelArrays, masks, shard=None):
     counts = fused_onehot_sum(list(masks), arrays.group_of_agent,
                               cfg.nr_groups + 1)
-    return counts[:, :-1].to(I32)
+    return _total(shard, counts[:, :-1].to(I32))
 
 
 # ---------------------------------------------------------------------------
@@ -474,17 +486,74 @@ def _spare(x, fill):
                                     device=x.device)])
 
 
+# the day's points across agents: the plain op unsharded, the shard's
+# collective in an agent-sharded run
+
+def _total(shard, *xs):
+    """Counts and histograms of the slab summed over the agent group."""
+    if shard is None:
+        return xs[0] if len(xs) == 1 else list(xs)
+    return shard.sum(*xs)
+
+
+def _local(shard, idx, scale: int = 1):
+    """Global indices (sentinel N·scale) → indices into this slab's
+    arrays with their spare entry; identity unsharded."""
+    return idx if shard is None else shard.local(idx, scale)
+
+
+def _look(shard, arrays, idx, scale: int = 1):
+    """[a[idx] for a in arrays] at global indices."""
+    if shard is None:
+        return [a[idx] for a in arrays]
+    return shard.lookup(arrays, idx, scale)
+
+
+def _put(shard, x, idx, vals):
+    """x.index_put((idx,), vals) at global indices, by their owner."""
+    if shard is None:
+        return x.index_put((idx,), vals)
+    n = x.shape[0]
+    return _spare(x, 0).index_put_((shard.local(idx).long(),), vals)[:n]
+
+
+def _add(shard, x, idx, vals):
+    """x.index_add(0, idx, vals) at global indices, by their owner."""
+    if shard is None:
+        return x.index_add(0, idx, vals)
+    n = x.shape[0]
+    return _spare(x, 0).index_add_(0, shard.local(idx).long(), vals)[:n]
+
+
+def _compact(shard, mask, capacity: int):
+    """compact_indices over the whole agent axis: the first
+    ``capacity`` set global indices (sentinel N) and the global count;
+    each rank's part of the global prefix, then a search for each slot."""
+    if shard is None:
+        return compact_indices(mask, capacity)
+    cum, ends = sharded_concat_prefix(mask.to(F32), None, 1, shard)
+    count = ends[0].to(I32)
+    slots = torch.arange(capacity, dtype=I32, device=mask.device)
+    buf = shard.first_at_least(cum, (slots + 1).to(F32)).to(I32)
+    used = slots < torch.clamp_max(count, capacity)
+    return torch.where(used, buf, shard.n), count
+
+
 # ---------------------------------------------------------------------------
 # the day
 
 def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
-             state: AgentState, carry: DayCarry, dk: DayKeys):
+             state: AgentState, carry: DayCarry, dk: DayKeys, shard=None):
     """Advance one day. Returns (state, carry, DayOutputs).
 
     ``carry.bkt_dst`` is updated in place (it is N·64 int32; the engine
     copies the run's initial table once per run); every other input is
-    left as it was."""
-    N = state.age.shape[0]
+    left as it was. ``shard`` (parallel.mesh.AgentShard): step this
+    rank's slab of an agent-sharded run; the outputs and the carry's
+    scalars come out replicated."""
+    n = state.age.shape[0]                 # agents here
+    N = n if shard is None else shard.n    # agents in the run
+    lo = 0 if shard is None else shard.lo  # the first one here
     A = arrays.age_start.shape[0] - 1
     V = cfg.nr_variants
     dev = state.age.device
@@ -514,7 +583,7 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
 
     # ---- phase 3: testing drain, tracing, vaccination
     drained = state.queued
-    ct_cases = torch.sum(drained & active, dtype=I32)
+    ct_cases = _total(shard, torch.sum(drained & active, dtype=I32))
     newly_detected = drained & ~state.was_detected
     was_detected = state.was_detected | drained
     detected_today = newly_detected
@@ -529,8 +598,9 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     # yesterday's pending bucket appends; drop sentinels (≥ NC) land in
     # the table's spare last slot
     bd = carry.bkt_dst
-    bd.index_put_((torch.clamp_max(carry.app_pos, NC).long(),),
-                  carry.app_val)
+    app = (torch.clamp_max(carry.app_pos, NC) if shard is None
+           else shard.local(carry.app_pos, CAPB))
+    bd.index_put_((app.long(),), carry.app_val)
     col_ends = [lo + seg for lo, seg in
                 tier_bounds(min(cfg.bucket_head, CAPB), CAPB)]
     mem_sizes = [lo + seg for lo, seg in
@@ -538,7 +608,7 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
 
     def do_tracing(queued):
         eligible = active & ~is_dead & ~was_detected & ~queued
-        u_mem = prng.uniform(dk.k_mem, (N,), dev)
+        u_mem = prng.uniform(dk.k_mem, (n,), dev, start=lo)
         infector = state.infector
         r2_tab = torch.where(eligible & (u_mem < trace_p) & (infector >= 0),
                              infector, N)
@@ -549,51 +619,56 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
             seg_buf = members_buf[:end]
             used = seg_buf < N
             bp = torch.clamp(seg_buf, 0, N - 1).long()
-            ok_m = used if src_ok is None else used & src_ok[bp]
-            fill_m = torch.where(ok_m, torch.clamp_max(bkt_fill[bp], CAPB), 0)
+            srcs = [bkt_fill] if src_ok is None else [bkt_fill, src_ok]
+            fill_b = _look(shard, srcs, bp)
+            ok_m = used if src_ok is None else used & fill_b[1]
+            fill_m = torch.where(ok_m, torch.clamp_max(fill_b[0], CAPB), 0)
             jend = _tier_end(col_ends, int(fill_m.max()))
             cols = torch.arange(jend, dtype=I64, device=dev)
             idx = (bp[:, None] * CAPB + cols[None, :]).reshape(-1)
-            dst = bd[idx].reshape(end, jend)
+            dst = _look(shard, [bd], idx, CAPB)[0].reshape(end, jend)
             live = cols[None, :] < fill_m[:, None]
             u = prng.uniform(ktab[0], (end, jend), dev)
             fire = live & (u < trace_p)
             tgt = torch.where(fire, dst, N).reshape(-1)
-            hit[tgt.long()] = True
+            hit[_local(shard, tgt).long()] = True
             if with_recurse:
-                t2 = torch.where(fire, r2_tab[torch.clamp(dst, 0, N - 1).long()],
-                                 N).reshape(-1)
-                hit_r2[t2.long()] = True
+                r2 = _look(shard, [r2_tab],
+                           torch.clamp(dst, 0, N - 1).long())[0]
+                t2 = torch.where(fire, r2, N).reshape(-1)
+                hit_r2[_local(shard, t2).long()] = True
             return hit, hit_r2
 
         def blank():
-            return torch.zeros(N + 1, dtype=torch.bool, device=dev)
+            return torch.zeros(n + 1, dtype=torch.bool, device=dev)
 
         # level 1: the drained queue
-        dbuf, n_d = compact_indices(drained & active, Tcap)
+        dbuf, n_d = _compact(shard, drained & active, Tcap)
         n_d = int(n_d)
         end = _tier_end(mem_sizes, min(n_d, Tcap))
         seg_buf = dbuf[:end]
         used = seg_buf < N
-        inf_s = infector[torch.clamp(seg_buf, 0, N - 1).long()]
+        inf_s = _look(shard, [infector],
+                      torch.clamp(seg_buf, 0, N - 1).long())[0]
         u1 = prng.uniform(dk.l1[0], (end,), dev)
         succ = used & (inf_s >= 0) & (u1 < trace_p)
         tgt = torch.where(succ, inf_s, N)
         hit1, hit_r2a = blank(), blank()
-        hit1[tgt.long()] = True
-        t2a = torch.where(succ, r2_tab[torch.clamp(tgt, 0, N - 1).long()], N)
-        hit_r2a[t2a.long()] = True
+        hit1[_local(shard, tgt).long()] = True
+        r2 = _look(shard, [r2_tab], torch.clamp(tgt, 0, N - 1).long())[0]
+        t2a = torch.where(succ, r2, N)
+        hit_r2a[_local(shard, t2a).long()] = True
         hit12, hit_r2ab = bucket_passes(dbuf, state.is_infected, dk.e1, True,
                                         hit1, hit_r2a, n_d)
-        newq1 = eligible & hit12[:N]
+        newq1 = eligible & hit12[:n]
         # level 2: infectee buckets of the compacted frontier
         frontier = newq1 & state.is_infected & (bkt_fill > 0)
-        fbuf, n_f = compact_indices(frontier, Tcap)
+        fbuf, n_f = _compact(shard, frontier, Tcap)
         n_f = int(n_f)
         hit2_l2, _ = bucket_passes(fbuf, None, dk.e2, False, blank(),
                                    blank(), n_f)
-        return (queued | (eligible & (hit12[:N] | hit_r2ab[:N]
-                                      | hit2_l2[:N])),
+        return (queued | (eligible & (hit12[:n] | hit_r2ab[:n]
+                                      | hit2_l2[:n])),
                 (n_d > Tcap) or (n_f > Tcap))
 
     if ct_active and int(ct_cases) > 0:
@@ -608,7 +683,8 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
             eligible = (active & ~is_dead & ~was_detected & (dov < 0)
                         & (age >= arrays.vacc_min_age[s])
                         & (age <= arrays.vacc_max_age[s]))
-            counts = fused_onehot_sum([eligible], arrays.ages, A)[0]  # (A,)
+            counts = _total(shard, fused_onehot_sum(
+                [eligible], arrays.ages, A)[0])                   # (A,)
             older = torch.cat([torch.cumsum(counts.flip(0), 0)[:-1].flip(0),
                                torch.zeros(1, dtype=F32, device=dev)])
             need_a = nr - older
@@ -617,7 +693,7 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
                 torch.where(counts <= need_a, 1.0,
                             torch.clamp(need_a / torch.clamp_min(counts, 1.0),
                                         0.0, 1.0)))
-            u_vac = prng.uniform(dk.vacc[s], (N,), dev)
+            u_vac = prng.uniform(dk.vacc[s], (n,), dev, start=lo)
             take = eligible & (u_vac < expand_by_age(arrays, frac_eff))
             dov = torch.where(take, day, dov.to(I32)).to(I16)
 
@@ -625,7 +701,7 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     q = arrays.contact_base * sched.mobility[:, :, None]          # (A, P, B)
     nc_a = q.sum(dim=(1, 2))
     q_hat = q / torch.clamp_min(nc_a, 1e-9)[:, None, None]
-    z = prng.normal(k_contact, (N,), dev)
+    z = prng.normal(k_contact, (n,), dev, start=lo)
     # a pure function of mobility: recomputing it every day equals the
     # JAX package's carried copy
     nc_ag = expand_by_age(arrays, nc_a)
@@ -636,9 +712,12 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
          was_detected, state.is_infected, active, z, nc_ag,
          state.included_in_totals, state.n_infected],
         [arrays.iot, arrays.asymp_mult, arrays.inf_mult, day])
-    exposed_per_day = torch.sum(k_s, dtype=I32)
-    total_infectors = torch.sum(count_now, dtype=I32)
-    total_infections = torch.sum(ninf_m, dtype=I32)
+    VTS = V * C.IOT_LEN * 2
+    K_age = fused_bihistogram(vts, VTS, k_s, arrays.ages, A,
+                              gate=exposer)                        # (VTS, A)
+    exposed_per_day, total_infectors, total_infections, K_age = _total(
+        shard, torch.sum(k_s, dtype=I32), torch.sum(count_now, dtype=I32),
+        torch.sum(ninf_m, dtype=I32), K_age)
     r_value = torch.where(
         total_infectors > 5,
         total_infections.to(F32) / torch.clamp_min(total_infectors, 1).to(F32),
@@ -651,9 +730,6 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     Tq = ((q_hat[None] * (1.0 - save)[..., None]).sum(dim=2)
           * arrays.sigma_max[:, None, :])                          # (V, A, B)
 
-    VTS = V * C.IOT_LEN * 2
-    K_age = fused_bihistogram(vts, VTS, k_s, arrays.ages, A,
-                              gate=exposer)                        # (VTS, A)
     K_g = K_age.T.reshape(A, V, C.IOT_LEN, 2)
     ig = (arrays.iot[None, :, :, None]
           * torch.stack([torch.ones_like(arrays.asymp_mult),
@@ -663,10 +739,10 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     darts = _binomial_split(k_bin, K_g, pi)                        # (A,V,T,S,B)
     D = darts.sum(dim=(0, 2, 3))                                   # (V, B)
 
-    u_inf = prng.uniform(k_inf, (N,), dev)
-    u_var = prng.uniform(k_var, (N,), dev)
+    u_inf = prng.uniform(k_inf, (n,), dev, start=lo)
+    u_var = prng.uniform(k_var, (n,), dev, start=lo)
     o2r = state.o2r
-    u_day = prng.uniform(k_anyway, (N,), dev)
+    u_day = prng.uniform(k_anyway, (n,), dev, start=lo)
     (new_contact, new_variant, susceptible,
      dl_a, day_of_illness, onset, queue_new, die_home, bed_request,
      recover_ill, hosp_end, icu_request, hosp_recover, icu_end,
@@ -684,7 +760,7 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     offset = prng.randint_scalar(k_offset, 0, N)
     (granted_bed, granted_icu), after2 = clamped_counter_grants(
         [hosp_end.to(I32), icu_end.to(I32)], [bed_request, icu_request],
-        torch.stack([beds_avail, icu_avail]), offset)
+        torch.stack([beds_avail, icu_avail]), offset, shard)
     beds_after, icu_after = after2[0], after2[1]
 
     (new_st, days_left, is_infected, has_immunity, ever_icu,
@@ -721,30 +797,37 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
         pos = lo + torch.floor(
             u_imp[..., 1] * torch.clamp_min(hi - lo, 1).to(F32)).to(I32)
         cand = torch.clamp(pos, 0, N - 1)
-        cand_ok = susceptible[cand.long()] & (hi > lo)
+        cand_ok = _look(shard, [susceptible], cand.long())[0] & (hi > lo)
         first = torch.argmax(cand_ok.to(I32), dim=1)
         any_ok = cand_ok.any(dim=1)
         import_agent = cand[torch.arange(M, device=dev), first]
         import_tgt = torch.where(slot_valid & any_ok, import_agent, N).long()
         # an agent picked by an import loses any same-day contact
         # infection; the import's variant wins
+        tgt_here = _local(shard, import_tgt)
         newly = _spare(new_contact, False)
-        newly[import_tgt] = True
-        newly = newly[:N]
+        newly[tgt_here] = True
+        newly = newly[:n]
         variant_new = _spare(new_variant, 0)
-        variant_new[import_tgt] = slot_variant
-        variant_new = variant_new[:N]
+        variant_new[tgt_here] = slot_variant
+        variant_new = variant_new[:n]
         nc2 = _spare(new_contact, False)
-        nc2[import_tgt] = False
-        new_contact = nc2[:N]
+        nc2[tgt_here] = False
+        new_contact = nc2[:n]
 
     Kcap = cfg.infection_buffer
     Kh = min(cfg.infection_head, Kcap)
     variant = state.variant.to(I32)
     c_s = torch.where(exposer, k_s.to(F32) * inf_base, 0.0)
-    cum_newly = fused_concat_prefix(newly.to(F32), None, 1)
-    cum_cat = fused_concat_prefix(c_s, variant, V)
-    n_new = int(cum_newly[-1])
+    if shard is None:
+        cum_newly = fused_concat_prefix(newly.to(F32), None, 1)
+        cum_cat = fused_concat_prefix(c_s, variant, V)
+        n_new = int(cum_newly[-1])
+    else:
+        cum_newly, ends = sharded_concat_prefix(newly.to(F32), None, 1,
+                                                shard)
+        cum_cat, _ = sharded_concat_prefix(c_s, variant, V, shard)
+        n_new = int(ends[0])
     if n_new > Kcap:
         problem = problem | C.PROBLEM_INFECTION_BUFFER_OVERFLOW
     n_used = min(n_new, Kcap)
@@ -757,16 +840,21 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
 
     # compaction of today's infections into slots [0, end)
     slots = torch.arange(end, dtype=I32, device=dev)
-    buf = searchsorted(cum_newly, (slots + 1).to(F32))
+    if shard is None:
+        buf = searchsorted(cum_newly, (slots + 1).to(F32))
+    else:
+        buf = shard.first_at_least(cum_newly, (slots + 1).to(F32)).to(I32)
     buf_agent = torch.where(slots < n_used, buf, N)
 
     # slot pipeline: attribution, severity and duration draws
     bp = torch.clamp(buf_agent, 0, N - 1).long()
     slot_used = buf_agent < N
-    contact_p = new_contact[bp] & slot_used
-    age_i = age[bp].long()
+    nc_b, age_b, vn_b, dov_b = _look(
+        shard, [new_contact, age, variant_new, dov], bp)
+    contact_p = nc_b & slot_used
+    age_i = age_b.long()
     b_i = arrays.band_of_age[age_i].long()
-    v_i = variant_new[bp].long()
+    v_i = vn_b.long()
     w = C_av.T[v_i] * Tq.permute(0, 2, 1)[v_i, b_i]               # (m, A)
     gumb = prng.gumbel(dk.attr_age[0], w.shape, dev)
     logw = torch.where(w > 0, torch.log(torch.clamp_min(w, 1e-30)),
@@ -776,21 +864,24 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     off = v_i * N
     lo_i = off + arrays.age_start[a_star]
     hi_i = off + arrays.age_start[a_star + 1]
-    both = cum_cat[torch.cat([torch.clamp_min(lo_i - 1, 0),
-                              torch.clamp_min(hi_i - 1, 0)])]
+    at = torch.cat([torch.clamp_min(lo_i - 1, 0),
+                    torch.clamp_min(hi_i - 1, 0)])
+    both = cum_cat[at] if shard is None else shard.lookup_segments(cum_cat,
+                                                                   at)
     lo_c = torch.where(lo_i > 0, both[:end], 0.0)
     hi_c = both[end:]
     x = lo_c + u_src * (hi_c - lo_c)
-    pos = torch.minimum(torch.maximum(searchsorted(cum_cat, x).long(), lo_i),
-                        hi_i)
+    first = (searchsorted(cum_cat, x).long() if shard is None
+             else shard.first_at_least(cum_cat, x, V))
+    pos = torch.minimum(torch.maximum(first, lo_i), hi_i)
     src = torch.clamp(pos - off, 0, N - 1)
     ok = (hi_c > lo_c) & contact_p
     infector_new = torch.where(ok, src, -1).to(I32)
-    tr_slot = ok & state.traceable[src]
+    tr_slot = ok & _look(shard, [state.traceable], src)[0]
     g1 = gamma_fixed(dk.gam1[0], kappa_inc, (end,), dev)
     g2 = gamma_fixed(dk.gam2[0], kappa_o2r, (end,), dev)
     sev_slot, outside_slot = severity_draw_slots(dk.sev[0], arrays, v_i,
-                                                 age_i, dov[bp], day)
+                                                 age_i, dov_b, day)
     theta_inc = (C.INCUBATION_CV ** 2) * arrays.mu_incub[v_i]
     incub_slot = _round_to_int(g1 * theta_inc)
     mu_o2r = torch.where(sev_slot == C.FATAL, arrays.mu_death[v_i],
@@ -812,7 +903,7 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     rank = idx - run_start
     valid = src_s < SENT
     sp = torch.clamp(src_s, 0, N - 1)
-    j = bkt_fill[sp.long()] + rank
+    j = _look(shard, [bkt_fill], sp.long())[0] + rank
     store = valid & (j < CAPB)
     app_pos = torch.where(store, sp * CAPB + torch.clamp_max(j, CAPB - 1),
                           NC + idx)
@@ -828,18 +919,19 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
 
     # slot-domain scatters: the used slots are the prefix [0, n_used)
     tgt = buf_agent[:n_used].long()
-    infector = state.infector.index_put((tgt,), infector_new[:n_used])
-    sev_out = state.severity.index_put((tgt,), sev_slot[:n_used])
-    death_outside = state.death_outside.index_put((tgt,),
-                                                  outside_slot[:n_used])
-    days_left = days_left.index_put((tgt,), incub_slot[:n_used])
-    o2r = o2r.index_put((tgt,), o2r_slot[:n_used])
+    infector = _put(shard, state.infector, tgt, infector_new[:n_used])
+    sev_out = _put(shard, state.severity, tgt, sev_slot[:n_used])
+    death_outside = _put(shard, state.death_outside, tgt,
+                         outside_slot[:n_used])
+    days_left = _put(shard, days_left, tgt, incub_slot[:n_used])
+    o2r = _put(shard, o2r, tgt, o2r_slot[:n_used])
     src_ok = slot_used & (infector_new >= 0)
-    n_infected = state.n_infected.index_add(
-        0, torch.where(src_ok, infector_new, 0).long(), src_ok.to(I32))
+    n_infected = _add(shard, state.n_infected,
+                      torch.where(src_ok, infector_new, 0).long(),
+                      src_ok.to(I32))
     fill_ok = app_src < N
-    bkt_fill = bkt_fill.index_add(0, torch.where(fill_ok, app_src, 0).long(),
-                                  fill_ok.to(I32))
+    bkt_fill = _add(shard, bkt_fill, torch.where(fill_ok, app_src, 0).long(),
+                    fill_ok.to(I32))
 
     # ---- finalize
     (st8_out, sev8_out, var8_out, dl16_out, doil16_out, doi16_out,
@@ -856,6 +948,9 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     by10 = fused_fn_onehot_sum(fields, _output_masks_reduced, 10,
                                arrays.group_of_agent,
                                cfg.nr_groups + 1)[:, :-1].to(I32)
+    inf_by_variant = torch.stack(
+        [torch.sum(newly & (variant_new == v), dtype=I32) for v in range(V)])
+    by10, inf_by_variant = _total(shard, by10, inf_by_variant)
     (vacc_g, ever_g, det_g, inicu_g, cicu_g, ward_g, dead_g, rec_g,
      nh_g, new_g) = by10
     all_detected = carry.all_detected + det_g
@@ -864,8 +959,6 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
         ever_g, det_g, all_detected, inicu_g, cicu_g, ward_g, dead_g, rec_g,
         nh_g, new_g])
     exposures = _exposures_by_place(k_place, K_g, q_hat)
-    inf_by_variant = torch.stack(
-        [torch.sum(newly & (variant_new == v), dtype=I32) for v in range(V)])
 
     out = DayOutputs(
         by_group=by_group,
@@ -909,8 +1002,9 @@ def _exposures_by_place(key, K_g, q_hat):
 
 def snapshot_outputs(cfg: EngineConfig, arrays: ModelArrays,
                      state: AgentState, carry: DayCarry,
-                     mobility_scalar) -> DayOutputs:
-    """The day-0 snapshot before any events."""
+                     mobility_scalar, shard=None) -> DayOutputs:
+    """The day-0 snapshot before any events (``shard``: of this rank's
+    slab, summed over its agent group)."""
     V = cfg.nr_variants
     dev = state.age.device
     st = state.state
@@ -933,7 +1027,7 @@ def snapshot_outputs(cfg: EngineConfig, arrays: ModelArrays,
         active & dead_m & state.death_outside,
         zero,
     ]
-    by_group = _group_counts(cfg, arrays, masks)
+    by_group = _group_counts(cfg, arrays, masks, shard)
     by_group[5] = carry.all_detected
     zi = torch.zeros((), dtype=I32, device=dev)
     return DayOutputs(

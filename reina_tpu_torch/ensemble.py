@@ -13,6 +13,11 @@ a seed axis in every kernel of the day step (per-seed ledgers, segments
 and bins); ``batch_size`` is kept for the JAX package's signature and
 CLI and changes no value and no launch.
 
+Across ranks (``mesh``, parallel/mesh.py) each agent group runs its
+contiguous share of the seeds in that way (sharding each member over its
+ranks when the agent axis has several), and every rank returns all the
+members in the caller's order: what the one-card call returns.
+
 ``run_monte_carlo`` returns numpy columns (``simulation.daily_columns``
 plus ``run`` and ``scenario``) and writes the CSV that the JAX
 package's ``df.to_csv(csv_path, index=False)`` writes, without pandas.
@@ -40,27 +45,32 @@ def stack_members(members: Sequence[DayOutputs]) -> DayOutputs:
 
 
 def run_ensemble(run: CompiledRun, seeds: List[int], batch_size: int = 1,
-                 n_days: Optional[int] = None) -> DayOutputs:
+                 n_days: Optional[int] = None, mesh=None) -> DayOutputs:
     """Run ``seeds`` on the run's device; returns DayOutputs as numpy
     stacked with a leading (n_seeds, days-1) shape (the day-0 snapshot
     is omitted: it is the same for every seed).
 
     Member s is ``run_days(run, n_days=steps + 1, seed=s)`` without its
     row 0: the same initial state, day keys from ``PRNGKey(s)``.
-    ``run_days`` checks the problem bitmask of every member."""
+    ``run_days`` checks the problem bitmask of every member. With
+    ``mesh`` every rank calls it with the same arguments (``run`` built
+    on its own device) and gets every member."""
+    from .parallel.mesh import batch_placement, gather_placed
     check_batch_size(batch_size)
     steps = (n_days if n_days is not None else run.days) - 1
+    mine = batch_placement(mesh, seeds)
     members = []
-    for s in seeds:
-        out, _, _, _ = run_days(run, n_days=steps + 1, seed=s)
+    for i in mine:
+        out, _, _, _ = run_days(run, n_days=steps + 1, seed=seeds[i],
+                                mesh=mesh)
         members.append(DayOutputs(*(x[1:] for x in out)))
-    return stack_members(members)
+    return stack_members(gather_placed(mesh, mine, members, len(seeds)))
 
 
 def run_monte_carlo(scenario_name: str = "default", n_runs: int = 1000,
                     batch_size: int = 1, variables: Optional[Dict] = None,
                     csv_path: Optional[str] = None,
-                    device="cuda") -> Dict[str, np.ndarray]:
+                    device="cuda", mesh=None) -> Dict[str, np.ndarray]:
     """Seed sweep for a scenario (reference run_monte_carlo,
     calc/simulation.py:362-385); returns the concatenated daily columns:
     ``date``, the daily columns in ``daily_columns`` order, ``run`` and
@@ -69,13 +79,15 @@ def run_monte_carlo(scenario_name: str = "default", n_runs: int = 1000,
     As in the JAX package, the scenario is applied to a fresh
     VariableStore, whose values replace ``variables``, and the seed is 0
     for the build; member s draws its days from ``PRNGKey(s)``. The
-    day-0 row is the snapshot at ``mobility_scalar[0]``."""
+    day-0 row is the snapshot at ``mobility_scalar[0]``. With ``mesh``
+    the members run across its seed axis on each rank's device, every
+    rank returns all the columns, and only rank 0 writes the CSV."""
     from .config import session_store
     from .config.scenarios import get_scenario
     from .config.variables import VariableStore
     from .simulation import daily_columns, resolve_device
 
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     store = VariableStore()
     with session_store(store):
         get_scenario(scenario_name).apply()
@@ -83,7 +95,7 @@ def run_monte_carlo(scenario_name: str = "default", n_runs: int = 1000,
     variables["random_seed"] = 0
 
     run = build_run(variables, dev)
-    outs = run_ensemble(run, list(range(n_runs)), batch_size)
+    outs = run_ensemble(run, list(range(n_runs)), batch_size, mesh=mesh)
     snap = stack_outputs([snapshot_outputs(
         run.cfg, run.arrays, run.init_state, run.init_carry,
         run.schedules.mobility_scalar[0].cpu().numpy())])
@@ -97,7 +109,7 @@ def run_monte_carlo(scenario_name: str = "default", n_runs: int = 1000,
         blocks.append(cols)
     cols = {k: np.concatenate([b[k] for b in blocks]) for k in blocks[0]}
     cols["scenario"] = np.full(len(cols["date"]), scenario_name, object)
-    if csv_path:
+    if csv_path and (mesh is None or mesh.rank == 0):
         write_csv(cols, csv_path)
     return cols
 

@@ -2,12 +2,12 @@
 
 Six CUDA kernels (``csrc/*.cu``, built by ``build.py`` with nvcc for
 sm_90a and bound with ctypes; the post-ledger pass of the day step among
-them) and three Triton kernels (``fused_bodies``, the other fused
-per-agent passes). The wrappers that launch them live beside their plain
-PyTorch twins in ``reina_tpu_torch.ops`` and ``fused_bodies``;
-each wrapper adds one to its entry of ``LAUNCHES`` where it launches its
-kernel, and nowhere else, so a run can show that it went through the
-kernels.
+them, the ledger and the prefix also in a sharded form) and three
+Triton kernels (``fused_bodies``, the other fused per-agent passes).
+The wrappers that launch them live beside their plain PyTorch twins in
+``reina_tpu_torch.ops`` and ``fused_bodies``; each wrapper adds one to
+its entry of ``LAUNCHES`` where it launches its kernel, and nowhere
+else, so a run can show that it went through the kernels.
 """
 from __future__ import annotations
 
@@ -21,6 +21,12 @@ LAUNCHES = {
     "fused_onehot_sum": 0,
     "fused_fn_onehot_sum": 0,
     "fused_bihistogram": 0,
+    # the sharded forms of the ledger and the prefix (an agent-sharded
+    # run, parallel/mesh.py): each of their two entry points
+    "ledger_sharded.fold": 0,
+    "ledger_sharded.emit": 0,
+    "concat_prefix_sharded.totals": 0,
+    "concat_prefix_sharded.emit": 0,
 }
 
 

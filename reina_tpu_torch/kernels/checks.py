@@ -56,6 +56,7 @@ OPS_PER_AGENT = {
     "fused_map.post": 80, "fused_map.finalize": 25, "ledger_scan": 16,
     "fused_concat_prefix": 60, "fused_onehot_sum": 26,
     "fused_fn_onehot_sum": 35, "fused_bihistogram": 4,
+    "ledger_sharded": 16, "concat_prefix_sharded": 60,
 }
 
 
@@ -404,6 +405,135 @@ def checks(n: int, seed: int, dev) -> List[Check]:
                           vts, VTS, ks, s["ages_random"], A, gate=gate),),
                       lambda: (fusedmap.bihistogram_twin(
                           vts, VTS, ks, s["ages_random"], A, gate),))]),
+    ]
+
+
+def _slabs(ts, k: int):
+    """Each of the (n,) tensors ``ts`` cut into k contiguous slabs:
+    [[t[slab j] for t in ts] for j < k]."""
+    n = ts[0].shape[0] // k
+    return [[None if t is None else t[j * n:(j + 1) * n] for t in ts]
+            for j in range(k)]
+
+
+def sharded_ledger(rel, req, init, offset: int, k: int, kernel: bool):
+    """The sharded ledger over k slabs in one process, the slabs' folds
+    exchanged by stacking: (grants of each ledger over all slabs, slab
+    0's finals, every slab's finals (k, L))."""
+    n, L = rel[0].shape[0], len(rel)
+    nl = n // k
+    parts = [(p[:L], p[L:]) for p in _slabs(list(rel) + list(req), k)]
+    if kernel:
+        folded = [clamped.ledger_fold_slab(r, q, offset, j * nl, n)
+                  for j, (r, q) in enumerate(parts)]
+        folds = torch.stack([f for f, _ in folded])
+        outs = [clamped.ledger_emit_slab(r, q, init, offset, j * nl, folds, j,
+                                         sc)
+                for j, ((r, q), (_, sc)) in enumerate(zip(parts, folded))]
+    else:
+        folds = torch.stack([clamped.slab_folds_twin(r, q, offset, j * nl)
+                             for j, (r, q) in enumerate(parts)])
+        outs = [clamped.grants_twin_sharded(r, q, init, offset, j * nl,
+                                            folds, j)
+                for j, (r, q) in enumerate(parts)]
+    return (tuple(torch.cat([g[led] for g, _ in outs]) for led in range(L))
+            + (outs[0][1], torch.stack([f for _, f in outs])))
+
+
+def sharded_prefix(w, codes, n_seg: int, k: int, kernel: bool,
+                   rows: int = 2048):
+    """The sharded prefix over k slabs in one process, the row totals
+    exchanged by stacking: (the (n_seg·N,) prefix in the unsharded
+    order, every slab's segment ends (k, n_seg))."""
+    n = w.shape[0]
+    nl = n // k
+    parts = _slabs([w, codes], k)
+    if kernel:
+        tot = torch.stack([fusedmap.prefix_row_totals(x, c, n_seg)
+                           for x, c in parts])
+        outs = [fusedmap.prefix_emit_slab(x, c, n_seg, j * nl // 128, n, tot,
+                                          rows)
+                for j, (x, c) in enumerate(parts)]
+    else:
+        tot = torch.stack([fusedmap.row_totals_twin(x, c, n_seg)
+                           for x, c in parts])
+        outs = [fusedmap.concat_prefix_twin_sharded(x, c, n_seg,
+                                                    j * nl // 128, n, tot,
+                                                    rows)
+                for j, (x, c) in enumerate(parts)]
+    out = torch.stack([o.reshape(n_seg, nl) for o, _ in outs], 1)
+    return out.reshape(-1), torch.stack([e for _, e in outs])
+
+
+def sharded_checks(n: int, seed: int, dev, k: int) -> List[Check]:
+    """The ledger's and the prefix's sharded forms over k slabs (each
+    slab in turn in one process): held to their sharded twins, and,
+    through the extra pairs, to the unsharded kernels and twins, on
+    :func:`checks`' inputs, at offsets 0, N - 1, inside the tile of slab
+    0's end and random, and on prefix blocks that straddle slabs. The
+    kernel's time is that of all k slabs in turn after one cold L2."""
+    s = _streams(n, seed, dev)
+    codes = s["var"].to(torch.int32)
+    init = torch.tensor([300, 60], dtype=torch.int32, device=dev)
+    rel, req = s["rel"], s["req"]
+    nl = n // k
+
+    def ledger(kernel, offset):
+        return lambda: sharded_ledger(rel, req, init, offset, k, kernel)
+
+    def vs_unsharded(offset, fn):
+        def call():
+            g, fin = fn(rel, req, init, offset)
+            return tuple(g) + (fin, fin.expand(k, -1))
+        return (ledger(True, offset), call)
+
+    def prefix(kernel, w, c, n_seg, rows=2048):
+        return lambda: sharded_prefix(w, c, n_seg, k, kernel, rows)
+
+    def prefix_vs(w, c, n_seg, rows, fn):
+        def call():
+            out = fn(w, c, n_seg, rows)
+            return out, out.reshape(n_seg, -1)[:, -1].expand(k, -1)
+        return (prefix(True, w, c, n_seg, rows), call)
+
+    # 21,504 agents in blocks of 56 rows (max_block_rows 64): the slab
+    # edges at 84, 42 and 21 rows lie inside blocks
+    r56 = np.random.default_rng(seed + 1)
+    w56 = torch.from_numpy(r56.random(21504).astype(np.float32)).to(dev)
+    c56 = torch.from_numpy(r56.integers(0, V, 21504).astype(np.int32)).to(dev)
+    cat = torch.cat([torch.where(codes == v, s["w"], 0.0) for v in range(V)])
+    ledger_extra = [vs_unsharded(s["offset"], clamped.clamped_counter_grants)]
+    for off in (0, n - 1, nl - 7):
+        ledger_extra += [(ledger(True, off), ledger(False, off)),
+                         vs_unsharded(off, clamped.clamped_counter_grants),
+                         vs_unsharded(off, clamped.grants_twin)]
+    prefix_extra = []
+    for w, c, n_seg, rows in ((s["newly"], None, 1, 2048),
+                              (s["w"], codes, V, 2048),
+                              (w56, None, 1, 64), (w56, c56, V, 64)):
+        prefix_extra += [
+            (prefix(True, w, c, n_seg, rows), prefix(False, w, c, n_seg, rows)),
+            prefix_vs(w, c, n_seg, rows, fusedmap.fused_concat_prefix),
+            prefix_vs(w, c, n_seg, rows, fusedmap.concat_prefix_twin)]
+    return [
+        Check("ledger_sharded", "cuda",
+              "reina_tpu_torch/kernels/csrc/ledger.cu",
+              "reina_tpu/ops/clamped.py:159", ledger(True, s["offset"]),
+              ledger(False, s["offset"]), inputs=rel + req + [init],
+              library_note="none: no one call computes the FCFS ledger",
+              extra=ledger_extra),
+        Check("concat_prefix_sharded", "cuda",
+              "reina_tpu_torch/kernels/csrc/prefix.cu", f"{_FM}:553",
+              lambda: (prefix(True, s["newly"], None, 1)()
+                       + prefix(True, s["w"], codes, V)()),
+              lambda: (prefix(False, s["newly"], None, 1)()
+                       + prefix(False, s["w"], codes, V)()),
+              inputs=[s["newly"], s["w"], codes],
+              library=lambda: (torch.cumsum(s["newly"], 0),
+                               torch.cumsum(cat, 0)),
+              library_note="torch.cumsum of newly and of the materialised "
+                           "concatenation over the whole axis",
+              extra=prefix_extra),
     ]
 
 

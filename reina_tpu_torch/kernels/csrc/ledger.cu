@@ -43,6 +43,24 @@
 //                         writes the grants, 16 bytes a lane.
 //
 // Nothing agent-sized but the grants is written.
+//
+// The sharded form (the JAX package's _grants_sharded with the kernel's
+// base and emit_carry, reina_tpu/ops/clamped.py:247-294) splits the same
+// three launches at the tile scan, for one contiguous slab of the agent
+// axis whose first position is ``base``. The cyclic mask is taken at the
+// global position (the kernels get offset - base):
+//
+//   K1 ledger_tile_fold   as above, on the slab;
+//   K2 ledger_slab_scan   the tile scan, and the slab's two folds out:
+//                         all of it, and its positions before offset;
+//   (the caller all-gathers every slab's folds, in slab order)
+//   K3 ledger_emit_slab   each CTA folds the folds of the slabs before
+//                         its own into its carry and computes the
+//                         boundary scalars from all of them, then emits
+//                         as K3 above.
+//
+// The monoid is exact in int64, so the grants and finals equal the
+// unsharded launch's bit for bit for any slab count.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -229,18 +247,13 @@ __global__ void ledger_tile_scan(const Tup* tiles, Tup* excl, const Tup* pre,
   finals[led] = (int)(c_off + max(final_a, at_off.kf));
 }
 
-// K3: the grants of this lane's 16 agents, one 16-byte store.
-__global__ void __launch_bounds__(THREADS, 3)
-ledger_emit(Ledgers lg, long long n, long long offset, const Tup* excl,
-            const long long* scal) {
-  __shared__ Tup buf[33];
-  const long long i = (long long)blockIdx.x * TILE + ITEMS * threadIdx.x;
-  Agents a;
-  Tup ex;
-  scan_tile(lg, n, offset, i, a, ex, buf);
-  const int led = blockIdx.y;
-  Tup cur = combine(excl[(long long)led * gridDim.x + blockIdx.x], ex);
-  const long long base_a = scal[2 * led], final_a = scal[2 * led + 1];
+// The grants of a lane's 16 agents from i, one 16-byte store; cur is
+// the fold of the agents before i.
+__device__ __forceinline__ void emit_grants(const Ledgers& lg, long long n,
+                                            long long offset, long long i,
+                                            const Agents& a, Tup cur,
+                                            long long base_a,
+                                            long long final_a, int led) {
   unsigned out[ITEMS / 4] = {0, 0, 0, 0};
 #pragma unroll
   for (int e = 0; e < ITEMS; ++e) {
@@ -259,6 +272,93 @@ ledger_emit(Ledgers lg, long long n, long long offset, const Tup* excl,
     for (int e = 0; e < ITEMS; ++e)
       if (i + e < n) g[i + e] = (out[e / 4] >> (8 * (e % 4))) & 0xff;
   }
+}
+
+// K3: the grants of this lane's 16 agents.
+__global__ void __launch_bounds__(THREADS, 3)
+ledger_emit(Ledgers lg, long long n, long long offset, const Tup* excl,
+            const long long* scal) {
+  __shared__ Tup buf[33];
+  const long long i = (long long)blockIdx.x * TILE + ITEMS * threadIdx.x;
+  Agents a;
+  Tup ex;
+  scan_tile(lg, n, offset, i, a, ex, buf);
+  const int led = blockIdx.y;
+  const Tup cur = combine(excl[(long long)led * gridDim.x + blockIdx.x], ex);
+  emit_grants(lg, n, offset, i, a, cur, scal[2 * led], scal[2 * led + 1],
+              led);
+}
+
+// The sharded form. A slab's folds, 6 int64 a ledger: (s, ka, kf) of the
+// whole slab, then of its positions before offset.
+__device__ __forceinline__ Tup load_tup(const long long* p) {
+  return Tup{p[0], p[1], p[2]};
+}
+
+// K2 of a slab (one CTA per ledger): excl as K2's, and folds[6 * led ..].
+// offset is local: offset - base, any value.
+__global__ void ledger_slab_scan(const Tup* tiles, Tup* excl, const Tup* pre,
+                                 long long n, long long offset, int ntiles,
+                                 long long* folds) {
+  __shared__ Tup buf[33];
+  const int led = blockIdx.x;
+  const Tup* tl = tiles + (long long)led * ntiles;
+  Tup* el = excl + (long long)led * ntiles;
+  Tup carry = tup_id();
+  for (int base = 0; base < ntiles; base += SCAN_THREADS) {
+    const int j = base + threadIdx.x;
+    Tup ex;
+    const Tup total = block_exclusive<SCAN_THREADS / 32>(
+        j < ntiles ? tl[j] : tup_id(), ex, buf);
+    if (j < ntiles) el[j] = combine(carry, ex);
+    carry = combine(carry, total);
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  const Tup before = offset <= 0  ? tup_id()
+                     : offset >= n ? carry
+                                   : combine(el[offset / TILE], pre[led]);
+  long long* f = folds + 6 * led;
+  f[0] = carry.s, f[1] = carry.ka, f[2] = carry.kf;
+  f[3] = before.s, f[4] = before.ka, f[5] = before.kf;
+}
+
+// K3 of a slab: all_folds holds every slab's folds, (k, L, 6) int64 in
+// slab order; this slab is number index. Thread 0 of each CTA folds the
+// slabs before this one into the carry and all of them into the
+// boundary scalars; the CTAs of tile 0 write the finals.
+__global__ void __launch_bounds__(THREADS, 3)
+ledger_emit_slab(Ledgers lg, long long n, long long offset, const Tup* excl,
+                 const long long* all_folds, int k, int index, int L,
+                 const int* init, int* finals) {
+  __shared__ Tup buf[33];
+  __shared__ Tup carry_in;
+  __shared__ long long scal[2];
+  const int led = blockIdx.y;
+  if (threadIdx.x == 0) {
+    Tup c = tup_id(), total = tup_id(), at_off = tup_id();
+    for (int j = 0; j < k; ++j) {
+      const long long* f = all_folds + 6 * ((long long)j * L + led);
+      if (j == index) c = total;
+      total = combine(total, load_tup(f));
+      at_off = combine(at_off, load_tup(f + 3));
+    }
+    const long long c_off = at_off.s;
+    const long long base_a = init[led] - c_off;
+    const long long final_a = total.s + max(base_a, total.ka);
+    carry_in = c;
+    scal[0] = base_a;
+    scal[1] = final_a;
+    if (blockIdx.x == 0) finals[led] = (int)(c_off + max(final_a, at_off.kf));
+  }
+  __syncthreads();
+  const long long i = (long long)blockIdx.x * TILE + ITEMS * threadIdx.x;
+  Agents a;
+  Tup ex;
+  scan_tile(lg, n, offset, i, a, ex, buf);
+  const Tup cur = combine(
+      combine(carry_in, excl[(long long)led * gridDim.x + blockIdx.x]), ex);
+  emit_grants(lg, n, offset, i, a, cur, scal[0], scal[1], led);
 }
 
 }  // namespace
@@ -297,5 +397,71 @@ extern "C" int reina_ledger_grants(const void* rel0, const void* rel1,
   if (events) cudaEventRecord((cudaEvent_t)events[2], st);
   ledger_emit<<<grid, THREADS, 0, st>>>(lg, n, offset, excl, scal);
   if (events) cudaEventRecord((cudaEvent_t)events[3], st);
+  return (int)cudaGetLastError();
+}
+
+namespace {
+Ledgers ledgers(const void* rel0, const void* rel1, const void* req0,
+                const void* req1, void* granted0, void* granted1) {
+  Ledgers lg;
+  lg.rel[0] = (const int*)rel0;
+  lg.rel[1] = (const int*)rel1;
+  lg.req[0] = (const uint8_t*)req0;
+  lg.req[1] = (const uint8_t*)req1;
+  lg.granted[0] = (uint8_t*)granted0;
+  lg.granted[1] = (uint8_t*)granted1;
+  return lg;
+}
+}  // namespace
+
+// The sharded form, launches 1 and 2, on a slab of n agents whose first
+// global position is base: 0 <= offset < the global length. scratch:
+// int64, 6 * L * ceil(n / 4096) + 3 * L entries, kept for the emit;
+// folds: (L, 6) int64 out. events: NULL, or 3 CUDA events recorded
+// before K1 and after each launch.
+extern "C" int reina_ledger_fold_slab(const void* rel0, const void* rel1,
+                                      const void* req0, const void* req1,
+                                      void* scratch, void* folds, long long n,
+                                      long long base, long long offset, int L,
+                                      void* const* events, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const Ledgers lg = ledgers(rel0, rel1, req0, req1, nullptr, nullptr);
+  const int ntiles = (int)((n + TILE - 1) / TILE);
+  Tup* tiles = (Tup*)scratch;
+  Tup* excl = tiles + (long long)L * ntiles;
+  Tup* pre = excl + (long long)L * ntiles;
+  const long long off = offset - base;
+  if (events) cudaEventRecord((cudaEvent_t)events[0], st);
+  ledger_tile_fold<<<dim3(ntiles, L), THREADS, 0, st>>>(lg, n, off, tiles,
+                                                        pre);
+  if (events) cudaEventRecord((cudaEvent_t)events[1], st);
+  ledger_slab_scan<<<L, SCAN_THREADS, 0, st>>>(tiles, excl, pre, n, off,
+                                               ntiles, (long long*)folds);
+  if (events) cudaEventRecord((cudaEvent_t)events[2], st);
+  return (int)cudaGetLastError();
+}
+
+// The sharded form, launch 3: the slab's grants and the global finals
+// from every slab's folds (all_folds: (k, L, 6) int64 on the device;
+// this slab is number index) and the scratch of its fold launches.
+// events: NULL, or 2 CUDA events recorded before and after the launch.
+extern "C" int reina_ledger_emit_slab(const void* rel0, const void* rel1,
+                                      const void* req0, const void* req1,
+                                      void* granted0, void* granted1,
+                                      const void* init, void* finals,
+                                      const void* scratch,
+                                      const void* all_folds, long long n,
+                                      long long base, long long offset, int L,
+                                      int k, int index, void* const* events,
+                                      void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const Ledgers lg = ledgers(rel0, rel1, req0, req1, granted0, granted1);
+  const int ntiles = (int)((n + TILE - 1) / TILE);
+  const Tup* excl = (const Tup*)scratch + (long long)L * ntiles;
+  if (events) cudaEventRecord((cudaEvent_t)events[0], st);
+  ledger_emit_slab<<<dim3(ntiles, L), THREADS, 0, st>>>(
+      lg, n, offset - base, excl, (const long long*)all_folds, k, index, L,
+      (const int*)init, (int*)finals);
+  if (events) cudaEventRecord((cudaEvent_t)events[1], st);
   return (int)cudaGetLastError();
 }

@@ -43,6 +43,24 @@
 //
 // Values written inside the launch are read back through L2 (__ldcg):
 // another SM's L1 may hold the row totals that the offsets replaced.
+//
+// The sharded form keeps the global layout (rows of the whole agent
+// axis, the same logical blocks, the carry in block order) for one slab
+// of whole rows, [row0, row0 + Rl): a block may straddle two slabs. It
+// is two launches around an all-gather of the row totals:
+//
+//   prefix_row_totals  phase 1 on the slab's rows (one group a CTA);
+//   (the caller all-gathers the slabs' totals, (k, n_seg, Rl) floats)
+//   prefix_emit_slab   one cooperative launch: the gathered totals into
+//                      the global (n_seg, R) order, phase 2 for every
+//                      logical block (each slab needs every block's last
+//                      value for the carry chain), then phase 3 on the
+//                      slab's rows; CTA 0 also writes each segment's
+//                      last prefix value (the carry chain's end).
+//
+// Every value is computed by the same operations on the same operands
+// as in the unsharded launch, so the slab's output equals its part of
+// the unsharded output bit for bit.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -253,6 +271,89 @@ prefix_fused(const float* __restrict__ w, const int* __restrict__ codes,
   }
 }
 
+
+// Phase 1 of a slab: td[s * R + row] = the row total of segment s.
+__global__ void __launch_bounds__(THREADS)
+prefix_row_totals(const float* __restrict__ w, const int* __restrict__ codes,
+                  long long R, int n_seg, float* __restrict__ td) {
+  const int lane = threadIdx.x % 32;
+  const long long g = blockIdx.x;
+  Rows rows;
+  load_rows(w, codes, R, g, rows);
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const long long row = row_of(g, k);
+    if (row >= R) break;
+    for (int s = 0; s < n_seg; ++s) {
+      float v[4];
+      masked(rows, k, codes != nullptr, s, v);
+      const float t = row_total(v);
+      if (lane == 31) td[s * R + row] = t;
+    }
+  }
+}
+
+// Phases 2 and 3 of a slab of Rl rows from global row row0, out of R:
+// gathered holds the (k, n_seg, Rl) row totals of every slab, td takes
+// them in (n_seg, R) order and then the row offsets. out: the slab's
+// (n_seg, Rl * 128) prefix; ends[s]: segment s's last prefix value.
+__global__ void __launch_bounds__(THREADS)
+prefix_emit_slab(const float* __restrict__ w, const int* __restrict__ codes,
+                 const float* __restrict__ gathered, long long Rl,
+                 long long R, long long row0, int n_seg, int blk, float* td,
+                 float* hs_last, float* __restrict__ out,
+                 float* __restrict__ ends) {
+  extern __shared__ float sm[];  // max(3 * blk, n_seg * G) floats
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x % 32;
+  const bool has_codes = codes != nullptr;
+  const int G = (int)(R / blk), nb = n_seg * G;
+  const long long total = (long long)n_seg * R;
+  for (long long x = (long long)blockIdx.x * THREADS + threadIdx.x;
+       x < total; x += (long long)gridDim.x * THREADS) {
+    const long long s = x / R, r = x % R, j = r / Rl;
+    td[x] = __ldg(gathered + (j * n_seg + s) * Rl + r % Rl);
+  }
+  grid.sync();
+  for (int b = blockIdx.x; b < nb; b += gridDim.x)
+    block_offsets(td + (long long)b * blk, blk, hs_last, b, sm);
+  grid.sync();
+  if (threadIdx.x < 32) fold_carries(hs_last, nb, sm);
+  __syncthreads();
+  if (blockIdx.x == 0 && (int)threadIdx.x < n_seg) {
+    const int b = (threadIdx.x + 1) * G - 1;
+    ends[threadIdx.x] = __ldcg(hs_last + b) + sm[b];
+  }
+  const long long groups = (Rl + ROWS_PER_CTA - 1) / ROWS_PER_CTA;
+  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+    Rows rows;
+    load_rows(w, codes, Rl, g, rows);
+    for (int s = 0; s < n_seg; ++s) {
+      float dr[ROWS];
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) {
+        const long long row = row_of(g, k);
+        dr[k] = row < Rl ? __ldcg(td + s * R + row0 + row) : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < ROWS; ++k) {
+        const long long row = row_of(g, k);
+        if (row >= Rl) break;
+        float v[4];
+        masked(rows, k, has_codes, s, v);
+        lane_scan(v, lane);
+        const float cb = sm[s * G + (int)((row0 + row) / blk)];
+        float4 o;
+        o.x = (v[0] + dr[k]) + cb;
+        o.y = (v[1] + dr[k]) + cb;
+        o.z = (v[2] + dr[k]) + cb;
+        o.w = (v[3] + dr[k]) + cb;
+        *reinterpret_cast<float4*>(out + (s * Rl + row) * LANE + 4 * lane) =
+            o;
+      }
+    }
+  }
+}
 }  // namespace
 
 // n % 1024 == 0, (n / 128) % blk == 0, w and codes 16-byte aligned.
@@ -287,6 +388,68 @@ extern "C" int reina_concat_prefix(const void* w, const void* codes,
   if (events) cudaEventRecord((cudaEvent_t)events[0], st);
   err = cudaLaunchCooperativeKernel((const void*)prefix_fused, dim3(ctas),
                                     dim3(THREADS), args, smem, st);
+  if (events) cudaEventRecord((cudaEvent_t)events[1], st);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The sharded form, launch 1, on a slab of n agents (n % 128 == 0):
+// td (floats, n_seg * n / 128) gets the row totals of each segment.
+// events: NULL, or 2 CUDA events recorded before and after the launch.
+extern "C" int reina_prefix_row_totals(const void* w, const void* codes,
+                                       void* td, long long n, int n_seg,
+                                       void* const* events, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const long long R = n / LANE;
+  const long long groups = (R + ROWS_PER_CTA - 1) / ROWS_PER_CTA;
+  if (events) cudaEventRecord((cudaEvent_t)events[0], st);
+  prefix_row_totals<<<(unsigned)groups, THREADS, 0, st>>>(
+      (const float*)w, (const int*)codes, R, n_seg, (float*)td);
+  if (events) cudaEventRecord((cudaEvent_t)events[1], st);
+  return (int)cudaGetLastError();
+}
+
+// The sharded form, launch 2, on a slab of n agents from global agent
+// row0 * 128 of n_global (n_global % 1024 == 0, (n_global / 128) % blk
+// == 0, n % 128 == 0): gathered holds the (k, n_seg, n / 128) row
+// totals of all k = n_global / n slabs in slab order. out: (n_seg, n)
+// floats, ends: (n_seg,) floats. scratch (floats): n_seg * n_global /
+// 128 row totals / offsets, then n_seg * G block values. events: as
+// reina_prefix_row_totals'.
+extern "C" int reina_prefix_emit_slab(const void* w, const void* codes,
+                                      const void* gathered, void* out,
+                                      void* ends, void* scratch, long long n,
+                                      long long n_global, long long row0,
+                                      int n_seg, int blk, void* const* events,
+                                      void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  long long Rl = n / LANE, R = n_global / LANE;
+  const int nb = n_seg * (int)(R / blk);
+  float* td = (float*)scratch;
+  float* hs_last = td + (long long)n_seg * R;
+  size_t smem = (size_t)max(3 * blk, nb) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      prefix_emit_slab, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, prefix_emit_slab, THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long groups = (Rl + ROWS_PER_CTA - 1) / ROWS_PER_CTA;
+  const unsigned ctas =
+      (unsigned)min((long long)sms * per_sm, max(groups, (long long)nb));
+  const float* wp = (const float*)w;
+  const int* cp = (const int*)codes;
+  const float* gp = (const float*)gathered;
+  float* op = (float*)out;
+  float* ep = (float*)ends;
+  void* args[] = {&wp, &cp, &gp, &Rl, &R, &row0, &n_seg, &blk,
+                  &td, &hs_last, &op, &ep};
+  if (events) cudaEventRecord((cudaEvent_t)events[0], st);
+  err = cudaLaunchCooperativeKernel((const void*)prefix_emit_slab,
+                                    dim3(ctas), dim3(THREADS), args, smem, st);
   if (events) cudaEventRecord((cudaEvent_t)events[1], st);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

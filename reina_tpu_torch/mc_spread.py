@@ -2,6 +2,7 @@
 
     python -m reina_tpu_torch.mc_spread [--seeds 16] [--days 365]
         [--out build/mc_spread.json]
+    torchrun --nproc-per-node K -m reina_tpu_torch.mc_spread --n-seed K ...
 
 Builds the default HUS configuration once (``random_seed`` 0) and runs
 ``ensemble.run_ensemble`` over seeds 0..S-1, one member at a time, as
@@ -15,6 +16,11 @@ BENCH_MC.json's metric name, the card's name and power limit, and the
 record's bands: the mean within BENCH_MC.json's mean ± 3 std/√S and the
 std within the 99% chi-square band for S - 1 degrees of freedom.
 Runs on the card only.
+
+With ``--n-seed K`` under torchrun (K ranks, one card each: the seed
+axis of parallel/mesh.py) the seeds go K at a time, one a rank, each
+rank on the card ``LOCAL_RANK``; the record then counts the seeds per
+hour of all K cards, and only rank 0 prints and writes it.
 """
 from __future__ import annotations
 
@@ -46,14 +52,23 @@ def main(argv=None) -> int:
     ap.add_argument("--days", type=int, default=365)
     ap.add_argument("--out", default=os.path.join(_REPO, "build",
                                                   "mc_spread.json"))
+    ap.add_argument("--n-seed", type=int, default=1,
+                    help="ranks on the seed axis (under torchrun)")
     args = ap.parse_args(argv)
 
     from .config.variables import VARIABLE_DEFAULTS
     from .core.engine import build_run
     from .ensemble import run_ensemble
+    from .parallel import mesh as M
     from .simulation import resolve_device
 
     dev = resolve_device("cuda")
+    mesh = None
+    if args.n_seed > 1:
+        M.init_distributed()
+        mesh = M.make_mesh(n_seed=args.n_seed, n_agent=1)
+        dev = mesh.device
+    lead = mesh is None or mesh.rank == 0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -65,27 +80,34 @@ def main(argv=None) -> int:
     v["random_seed"] = 0
     t0 = time.perf_counter()
     run = build_run(v, dev)
-    print(f"build_run {time.perf_counter() - t0:.3f} s, {run.n_agents} "
-          f"agents; {torch.cuda.get_device_name(0)}; nvidia-smi: "
-          f"{smi[0] if smi else 'unavailable'}", flush=True)
+    if lead:
+        print(f"build_run {time.perf_counter() - t0:.3f} s, {run.n_agents} "
+              f"agents; {torch.cuda.get_device_name(dev)}; nvidia-smi: "
+              f"{smi[0] if smi else 'unavailable'}", flush=True)
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     finals, seconds = [], []
     rec = {}
-    for s in range(args.seeds):
+    step = args.n_seed
+    for s0 in range(0, args.seeds, step):
+        seeds = list(range(s0, min(s0 + step, args.seeds)))
         t0 = time.perf_counter()
-        outs = run_ensemble(run, [s])
+        outs = run_ensemble(run, seeds, mesh=mesh)
         seconds.append(time.perf_counter() - t0)
-        finals.append(int(outs.by_group[0, -1, 3].sum()))
+        finals += [int(x) for x in outs.by_group[:, -1, 3].sum(-1)]
         wall = float(sum(seconds))
+        if not lead:
+            continue
         rec = {
             "metric": "hus_monte_carlo_seeds_per_hour_per_chip",
-            "device": torch.cuda.get_device_name(0),
+            "device": torch.cuda.get_device_name(dev),
             "nvidia_smi": smi[0] if smi else None,
+            "cards": step,
             "n_seeds": len(finals), "n_seeds_requested": args.seeds,
             "days": args.days - 1, "wall_s": wall,
             "seeds_per_hour": len(finals) / wall * 3600,
-            "seconds_per_seed": seconds,
+            "seeds_per_hour_per_card": len(finals) / wall * 3600 / step,
+            "seconds_per_round": seconds,
             "finals": finals,
             "final_all_infected_mean": float(np.mean(finals)),
             "final_all_infected_std": float(np.std(finals)),
@@ -102,10 +124,14 @@ def main(argv=None) -> int:
                 b["std"][0] <= rec["final_all_infected_std"] <= b["std"][1])
         with open(args.out, "w") as f:
             json.dump(rec, f, indent=1)
-        print(f"seed {s}: final all_infected {finals[-1]}, "
-              f"{seconds[-1]:.3f} s ({seconds[-1] / (args.days - 1) * 1000:.2f}"
-              f" ms/day)", flush=True)
-    print(json.dumps(rec))
+        print(f"seeds {seeds}: final all_infected "
+              f"{finals[-len(seeds):]}, {seconds[-1]:.3f} s "
+              f"({seconds[-1] / (args.days - 1) * 1000:.2f} ms/day)",
+              flush=True)
+    if lead:
+        print(json.dumps(rec))
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
     return 0
 
 

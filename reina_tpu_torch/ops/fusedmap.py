@@ -15,7 +15,10 @@ on what the kernel does not take:
     optional gate on the first code.
 
 The three histograms run in one launch each on a cached scratch buffer
-that the kernel leaves zeroed.
+that the kernel leaves zeroed. An agent-sharded run (parallel/mesh.py)
+sums their per-slab results over its ranks, and takes the prefix in its
+sharded form (``sharded_concat_prefix``), which keeps the global block
+layout and so the one-card association.
 
 ``fused_map`` runs one of the day step's four fused bodies: the body
 function itself (the twin) on the CPU, its kernel on CUDA
@@ -271,26 +274,26 @@ def fused_bihistogram(code_a, n_a: int, weights, code_b, n_b: int, *,
 # ---------------------------------------------------------------------------
 # fused_concat_prefix
 
+def _hs_scan(x, dim: int):
+    """Inclusive Hillis-Steele scan along ``dim``: step k adds the value
+    k places before, or +0.0 in front."""
+    n = x.shape[dim]
+    k = 1
+    while k < n:
+        sh = torch.zeros_like(x)
+        sh.narrow(dim, k, n - k).copy_(x.narrow(dim, 0, n - k))
+        x = x + sh
+        k *= 2
+    return x
+
+
 def _hs_prefix_blocks(x):
     """Inclusive flat prefix of each (rows, LANE) block of x (..., rows,
     LANE) with the reference's Hillis-Steele association: lane steps,
     then a row-total scan, then x + (r − t)."""
-    rows, lanes = x.shape[-2], x.shape[-1]
-    k = 1
-    while k < lanes:
-        sh = torch.zeros_like(x)
-        sh[..., k:] = x[..., :lanes - k]
-        x = x + sh
-        k *= 2
-    t = x[..., lanes - 1:]
-    r = t
-    k = 1
-    while k < rows:
-        sh = torch.zeros_like(r)
-        sh[..., k:, :] = r[..., :rows - k, :]
-        r = r + sh
-        k *= 2
-    return x + (r - t)
+    x = _hs_scan(x, -1)
+    t = x[..., -1:]
+    return x + (_hs_scan(t, -2) - t)
 
 
 def concat_prefix_twin(weights, codes, n_seg: int,
@@ -322,6 +325,22 @@ def concat_prefix_twin(weights, codes, n_seg: int,
     return torch.stack(outs).reshape(n_seg * N)
 
 
+def _check_prefix_inputs(weights, codes, n_seg: int, what: str):
+    if weights.dtype != torch.float32 or not weights.is_contiguous() \
+            or weights.dim() != 1 or weights.data_ptr() % 16:
+        raise TypeError(f"{what} takes contiguous, 16-byte aligned (n,) f32")
+    if codes is None:
+        if n_seg != 1:
+            raise ValueError("codes=None needs n_seg == 1")
+    elif codes.dtype != torch.int32 or not codes.is_contiguous() \
+            or codes.shape != weights.shape or codes.data_ptr() % 16:
+        raise TypeError(f"{what} takes contiguous, 16-byte aligned int32 "
+                        "codes (n,)")
+    if not weights.is_cuda or (codes is not None
+                               and codes.device != weights.device):
+        raise ValueError(f"{what}: tensors on one CUDA device")
+
+
 def fused_concat_prefix(weights, codes, n_seg: int,
                         max_block_rows: int = 2048, events=None):
     """(n_seg·N,) float32 inclusive prefix (kernel on CUDA:
@@ -334,17 +353,7 @@ def fused_concat_prefix(weights, codes, n_seg: int,
     N = weights.shape[0]
     if N % (8 * LANE) != 0:
         raise ValueError("fused_concat_prefix kernel needs N % 1024 == 0")
-    if weights.dtype != torch.float32 or not weights.is_contiguous() \
-            or weights.data_ptr() % 16:
-        raise TypeError("fused_concat_prefix kernel takes contiguous, "
-                        "16-byte aligned f32")
-    if codes is None:
-        if n_seg != 1:
-            raise ValueError("codes=None needs n_seg == 1")
-    elif codes.dtype != torch.int32 or not codes.is_contiguous() \
-            or codes.shape != weights.shape or codes.data_ptr() % 16:
-        raise TypeError("fused_concat_prefix kernel takes contiguous, "
-                        "16-byte aligned int32 codes (N,)")
+    _check_prefix_inputs(weights, codes, n_seg, "fused_concat_prefix kernel")
     from ..kernels import build
     R = N // LANE
     blk = _largest_block(R, max_block_rows, 8)
@@ -362,3 +371,138 @@ def fused_concat_prefix(weights, codes, n_seg: int,
         build.event_handles(events), build.stream_of(weights)),
         "fused_concat_prefix")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sharded prefix: one slab of whole rows of the global layout a rank
+
+def _lane_scans(weights, codes, n_seg: int):
+    """(n_seg, rows, LANE) Hillis-Steele scans of each row's lanes, the
+    first phase of _hs_prefix_blocks."""
+    zero = torch.zeros((), dtype=weights.dtype, device=weights.device)
+    x = torch.stack([weights if codes is None
+                     else torch.where(codes == s, weights, zero)
+                     for s in range(n_seg)]).reshape(n_seg, -1, LANE)
+    return _hs_scan(x, -1)
+
+
+def row_totals_twin(weights, codes, n_seg: int) -> torch.Tensor:
+    """(n_seg, rows) row totals of a slab of whole rows: the last lane
+    of each row's lane scan."""
+    return _lane_scans(weights, codes, n_seg)[..., LANE - 1].contiguous()
+
+
+def _check_shard_layout(n: int, n_global: int, row0: int):
+    if n_global % (8 * LANE) or n % LANE or not (
+            0 <= row0 * LANE <= n_global - n):
+        raise ValueError(f"sharded prefix: a slab of {n} agents from row "
+                         f"{row0} of {n_global} (needs N % 1024 == 0 and "
+                         "whole rows)")
+
+
+def concat_prefix_twin_sharded(weights, codes, n_seg: int, row0: int,
+                               n_global: int, gathered,
+                               max_block_rows: int = 2048):
+    """The slab's part of ``concat_prefix_twin`` over the whole axis, as
+    (n_seg·n,) (segment s at [s·n, (s+1)·n)), and each segment's last
+    prefix value (n_seg,). The slab is rows [row0, row0 + n / LANE) of
+    the global layout; ``gathered``: (k, n_seg, rows) every slab's
+    ``row_totals_twin`` in slab order. The row-offset scans of every
+    block and the carry chain from block 0 repeat the one-card
+    association."""
+    n = weights.shape[0]
+    _check_shard_layout(n, n_global, row0)
+    R, Rl = n_global // LANE, n // LANE
+    blk = _largest_block(R, max_block_rows, 8)
+    G = R // blk
+    t = gathered.permute(1, 0, 2).reshape(n_seg * G, blk)
+    r = _hs_scan(t, -1)
+    d = (r - t).reshape(n_seg, R)[:, row0:row0 + Rl]
+    last = t[:, -1] + (r[:, -1] - t[:, -1])
+    carries, c = [], torch.zeros((), dtype=weights.dtype,
+                                 device=weights.device)
+    for b in range(n_seg * G):
+        carries.append(c)
+        c = last[b] + c
+    carry = torch.stack(carries).reshape(n_seg, G)
+    row_block = (row0 + torch.arange(Rl, device=weights.device)) // blk
+    out = ((_lane_scans(weights, codes, n_seg) + d[..., None])
+           + carry[:, row_block][..., None])
+    ends = last.reshape(n_seg, G)[:, -1] + carry[:, -1]
+    return out.reshape(n_seg * n), ends
+
+
+def prefix_row_totals(weights, codes, n_seg: int, events=None):
+    """The sharded prefix's first entry (kernels/csrc/prefix.cu, one
+    launch): ``row_totals_twin`` of a slab of whole rows on CUDA.
+    ``events``: None, or 2 recorded CUDA events."""
+    _check_prefix_inputs(weights, codes, n_seg, "prefix row totals")
+    n = weights.shape[0]
+    if n % LANE:
+        raise ValueError(f"prefix row totals: {n} agents are not whole "
+                         "rows of 128")
+    from ..kernels import build
+    td = torch.empty((n_seg, n // LANE), dtype=torch.float32,
+                     device=weights.device)
+    kernels.LAUNCHES["concat_prefix_sharded.totals"] += 1
+    build.check(build.lib().reina_prefix_row_totals(
+        weights.data_ptr(), None if codes is None else codes.data_ptr(),
+        td.data_ptr(), n, n_seg, build.event_handles(events),
+        build.stream_of(weights)), "concat_prefix_sharded.totals")
+    return td
+
+
+def prefix_emit_slab(weights, codes, n_seg: int, row0: int, n_global: int,
+                     gathered, max_block_rows: int = 2048, events=None):
+    """The sharded prefix's second entry (one cooperative launch):
+    ``concat_prefix_twin_sharded`` on CUDA, from the slabs' gathered row
+    totals ((k, n_seg, rows) float32 on the weights' device)."""
+    _check_prefix_inputs(weights, codes, n_seg, "prefix emit entry")
+    n = weights.shape[0]
+    _check_shard_layout(n, n_global, row0)
+    Rl, R = n // LANE, n_global // LANE
+    k = n_global // n
+    if n * k != n_global or gathered.shape != (k, n_seg, Rl) \
+            or gathered.dtype != torch.float32 \
+            or gathered.device != weights.device \
+            or not gathered.is_contiguous():
+        raise TypeError(f"prefix emit entry takes ({k}, {n_seg}, {Rl}) "
+                        "contiguous f32 row totals on the weights' device")
+    blk = _largest_block(R, max_block_rows, 8)
+    nb = n_seg * (R // blk)
+    if 4 * max(3 * blk, nb) > MAX_BLOCK_SMEM:
+        raise ValueError(f"prefix emit entry: {nb} blocks of {blk} rows "
+                         "exceed a block's shared memory")
+    from ..kernels import build
+    dev = weights.device
+    out = torch.empty(n_seg * n, dtype=torch.float32, device=dev)
+    ends = torch.empty(n_seg, dtype=torch.float32, device=dev)
+    scratch = torch.empty(n_seg * R + nb, dtype=torch.float32, device=dev)
+    kernels.LAUNCHES["concat_prefix_sharded.emit"] += 1
+    build.check(build.lib().reina_prefix_emit_slab(
+        weights.data_ptr(), None if codes is None else codes.data_ptr(),
+        gathered.data_ptr(), out.data_ptr(), ends.data_ptr(),
+        scratch.data_ptr(), n, n_global, int(row0), n_seg, blk,
+        build.event_handles(events), build.stream_of(weights)),
+        "concat_prefix_sharded.emit")
+    return out, ends
+
+
+def sharded_concat_prefix(weights, codes, n_seg: int, shard,
+                          max_block_rows: int = 2048):
+    """This rank's slab of ``fused_concat_prefix`` over the whole agent
+    axis in an agent-sharded run, (n_seg·n,) with segment s at
+    [s·n, (s+1)·n), and each segment's last value (n_seg,): row totals,
+    their all-gather over the agent group (``shard``,
+    parallel.mesh.AgentShard), then the emit. The twins on the CPU, the
+    kernel's two entries on CUDA."""
+    dev = _same_device([weights] + ([] if codes is None else [codes]))
+    row0 = shard.lo // LANE
+    if dev.type == "cpu":
+        tot = row_totals_twin(weights, codes, n_seg)
+        return concat_prefix_twin_sharded(
+            weights, codes, n_seg, row0, shard.n, shard.all_gather(tot),
+            max_block_rows)
+    tot = prefix_row_totals(weights, codes, n_seg)
+    return prefix_emit_slab(weights, codes, n_seg, row0, shard.n,
+                            shard.all_gather(tot), max_block_rows)

@@ -119,14 +119,23 @@ def _key_words(key):
     return int(key[0]), int(key[1])
 
 
-def random_bits(key, shape: Sequence[int], device) -> torch.Tensor:
-    """32 random bits per element, as int32 with the same bits."""
+def random_bits(key, shape: Sequence[int], device,
+                start: int = 0) -> torch.Tensor:
+    """32 random bits per element, as int32 with the same bits.
+
+    ``start``: the counter of the first element. A 1-D draw of
+    ``(hi - lo,)`` from ``start=lo`` is ``random_bits(key, (N,))[lo:hi]``
+    bit for bit (the counters are the flat positions), which is how an
+    agent shard draws its slab of a global (N,) draw."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
-    if n >= 2 ** 31:
-        raise ValueError(f"draw of {n} elements exceeds the int32 counter")
+    if start and len(shape) != 1:
+        raise ValueError("a draw from a start counter must be 1-D")
+    if start < 0 or start + n >= 2 ** 31:
+        raise ValueError(f"draw of {n} elements from {start} exceeds the "
+                         "int32 counter")
     k1, k2 = _key_words(key)
-    lo = torch.arange(n, dtype=torch.int32, device=device)
+    lo = torch.arange(start, start + n, dtype=torch.int32, device=device)
     b1, b2 = _threefry_t(k1, k2, torch.zeros_like(lo), lo)
     return b1.bitwise_xor_(b2).reshape(shape)
 
@@ -136,9 +145,9 @@ def _f32(x) -> float:
 
 
 def uniform(key, shape, device, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """jax.random.uniform in float32."""
-    bits = random_bits(key, shape, device)
+            maxval: float = 1.0, start: int = 0) -> torch.Tensor:
+    """jax.random.uniform in float32 (``start``: see random_bits)."""
+    bits = random_bits(key, shape, device, start)
     fb = (bits >> 9).bitwise_and_(0x7FFFFF).bitwise_or_(0x3F800000)
     floats = fb.view(torch.float32) - 1.0
     lo, hi = np.float32(minval), np.float32(maxval)
@@ -172,9 +181,9 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = _f32(np.sqrt(2))
 
 
-def normal(key, shape, device) -> torch.Tensor:
-    """jax.random.normal in float32."""
-    u = uniform(key, shape, device, _NORMAL_LO, 1.0)
+def normal(key, shape, device, start: int = 0) -> torch.Tensor:
+    """jax.random.normal in float32 (``start``: see random_bits)."""
+    u = uniform(key, shape, device, _NORMAL_LO, 1.0, start)
     return erf_inv(u) * _SQRT2
 
 

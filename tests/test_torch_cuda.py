@@ -21,6 +21,9 @@ pytestmark = pytest.mark.gpu
 KERNELS = ["fused_map.prologue", "fused_map.recv_front", "fused_map.post",
            "fused_map.finalize", "ledger_scan", "fused_concat_prefix",
            "fused_onehot_sum", "fused_fn_onehot_sum", "fused_bihistogram"]
+# the launch counts of the ledger's and the prefix's sharded forms
+SHARDED = ("ledger_sharded.fold", "ledger_sharded.emit",
+           "concat_prefix_sharded.totals", "concat_prefix_sharded.emit")
 IVS = [["test-with-contact-tracing", "2020-02-20", 60],
        ["import-infections", "2020-02-20", 50],
        ["vaccinate", "2020-02-22", 700, 60, None]]
@@ -62,7 +65,9 @@ def test_synthetic_run_on_cuda():
     kernels.reset_launches()
     out, state, carry, _ = run_days(run, chunk_days=8)
     counts = kernels.launches()
-    assert all(v > 0 for v in counts.values()), counts
+    # every kernel of the one-card path, and none of the sharded forms
+    assert all(v > 0 for k, v in counts.items() if k not in SHARDED), counts
+    assert all(counts[k] == 0 for k in SHARDED), counts
     assert counts["fused_map.prologue"] == 13
     susceptible = out.by_group[:, 0].sum(axis=1)
     all_infected = out.by_group[:, 3].sum(axis=1)
@@ -419,3 +424,84 @@ def test_concurrent_runs_equal_runs_alone():
         np.testing.assert_array_equal(got_cube.values, cube.values)
     assert not np.array_equal(results[11][0]["all_infected"],
                               results[12][0]["all_infected"])
+
+
+@pytest.mark.parametrize("k", [2, 3])
+def test_sharded_forms_match_twins(k):
+    """The sharded ledger and prefix over k slabs (each in turn, the
+    exchange by stacking) equal their sharded twins and the unsharded
+    kernel and twin bit for bit, at offsets 0, N - 1 and inside slab 0's
+    last tile, and on prefix blocks that straddle the slabs."""
+    _need_cuda()
+    from reina_tpu_torch.kernels import checks
+    before = kernels.launches()
+    for c in checks.sharded_checks(24576, 0, "cuda", k):
+        r = checks.run_check(c, timing=False)
+        assert r.ok, (c.name, r.mismatches, r.max_abs_err)
+    after = kernels.launches()
+    for name in SHARDED:
+        assert after[name] > before[name], name
+
+
+def test_sharded_entries_raise():
+    """The sharded entries launch or raise: a slab that is not 16-byte
+    aligned or not whole rows, a wrong dtype, folds or gathered totals
+    of the wrong shape, a scratch from another slab, tensors on the CPU.
+    No launch is counted."""
+    _need_cuda()
+    from reina_tpu_torch.kernels import checks
+    from reina_tpu_torch.ops import clamped, fusedmap
+    n = 8192
+    s = checks._streams(n, 0, "cuda")
+    rel, req = s["rel"], s["req"]
+    init = torch.tensor([3, 1], dtype=torch.int32, device="cuda")
+    half = n // 2
+    slab = ([r[:half] for r in rel], [q[:half] for q in req])
+    before = kernels.launches()
+    with pytest.raises(ValueError, match="aligned"):
+        clamped.ledger_fold_slab([r[1:half + 1] for r in rel],
+                                 [q[1:half + 1] for q in req], 0, 1, n)
+    with pytest.raises(TypeError):
+        clamped.ledger_fold_slab([r.long() for r in slab[0]], slab[1], 0, 0,
+                                 n)
+    with pytest.raises(ValueError):
+        clamped.ledger_fold_slab([r.cpu() for r in slab[0]],
+                                 [q.cpu() for q in slab[1]], 0, 0, n)
+    with pytest.raises(ValueError, match="outside"):
+        clamped.ledger_fold_slab(*slab, n, 0, n)
+    after_check = kernels.launches()
+    assert after_check == before
+    folds, scratch = clamped.ledger_fold_slab(*slab, 5, 0, n)
+    both = torch.stack([folds, folds])
+    for bad in (both[:, :1].contiguous(), both.to(torch.int32),
+                both.reshape(2, 2, 6)):
+        with pytest.raises(TypeError):
+            clamped.ledger_emit_slab(*slab, init, 5, 0, bad, 0, scratch)
+    with pytest.raises(ValueError):
+        clamped.ledger_emit_slab(*slab, init, 5, 0, both, 2, scratch)
+    with pytest.raises(TypeError, match="scratch"):
+        clamped.ledger_emit_slab(*slab, init, 5, 0, both, 0, scratch[:-1])
+    w, codes = s["w"], s["var"].to(torch.int32)
+    with pytest.raises(TypeError, match="aligned"):
+        fusedmap.prefix_row_totals(w[1:half + 1], None, 1)
+    with pytest.raises(ValueError, match="whole rows"):
+        fusedmap.prefix_row_totals(w[:100], None, 1)
+    with pytest.raises(TypeError):
+        fusedmap.prefix_row_totals(w[:half].double(), None, 1)
+    with pytest.raises(TypeError):
+        fusedmap.prefix_row_totals(w[:half], codes[:half].long(), 2)
+    tot = fusedmap.prefix_row_totals(w[:half], codes[:half], 2)
+    gathered = torch.stack([tot, tot])
+    for bad in (gathered[:1].contiguous(), gathered.double(),
+                gathered[:, :1].contiguous()):
+        with pytest.raises(TypeError):
+            fusedmap.prefix_emit_slab(w[:half], codes[:half], 2, 0, n, bad)
+    with pytest.raises(ValueError):
+        fusedmap.prefix_emit_slab(w[:half], codes[:half], 2, 0, n + 512,
+                                  gathered)
+    with pytest.raises(ValueError):
+        fusedmap.prefix_emit_slab(w[:half], codes[:half], 2, 40, n, gathered)
+    after = kernels.launches()
+    assert after["ledger_sharded.emit"] == before["ledger_sharded.emit"]
+    assert (after["concat_prefix_sharded.emit"]
+            == before["concat_prefix_sharded.emit"])

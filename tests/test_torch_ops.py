@@ -408,6 +408,241 @@ def test_prefix_kernel_model(n_seg, blk):
                                   want.view(torch.int32).numpy())
 
 
+# ---- the sharded forms: every slab of an agent-sharded run in turn,
+# the exchange between them done by stacking
+
+def _slab_fold_model(rel, req, offset, base, tile):
+    """ledger.cu's fold entry on a slab from global position ``base``:
+    the tile folds (the cyclic mask at the global position) and their
+    scan; returns the slab's folds (its whole fold and the fold of its
+    positions before offset, per ledger) and, per ledger, the tile
+    scans the emit entry rescans."""
+    n = rel[0].shape[0]
+    ntiles = -(-n // tile)
+    idx = torch.arange(ntiles * tile)
+    valid = idx < n
+    off = offset - base
+    t_off, o = divmod(off, tile) if 0 < off < n else (0, 0)
+    folds, scans = [], []
+    for r, q in zip(rel, req):
+        r = torch.nn.functional.pad(r.long(), (0, ntiles * tile - n))
+        q = torch.nn.functional.pad(q.long(), (0, ntiles * tile - n))
+        s = r - q
+        kf = torch.where(q == 1, 0, NEG) - s
+        ka = torch.where(idx >= off, kf, NEG_INF)
+        e = tuple(torch.where(valid, v, i).reshape(ntiles, tile)
+                  for v, i in zip((s, ka, kf), ID))
+        inc = _scan(e)                                          # K1
+        pre = ID if o == 0 else tuple(v[t_off, o - 1] for v in inc)
+        tinc = _scan(tuple(v[:, -1] for v in inc))              # K2
+        excl = _shift(tinc, 1)
+        total = tuple(v[-1] for v in tinc)
+        if off <= 0:
+            before = tuple(torch.as_tensor(v) for v in ID)
+        elif off >= n:
+            before = total
+        else:
+            before = _combine(tuple(v[t_off] for v in excl),
+                              tuple(torch.as_tensor(v) for v in pre))
+        folds.append(torch.stack([torch.stack(total), torch.stack(before)]))
+        scans.append((inc, excl, r, q))
+    return torch.stack(folds), scans
+
+
+def _slab_emit_model(scans, init, offset, base, all_folds, index, n):
+    """ledger.cu's emit entry: the carry from the slabs before this one,
+    the boundary scalars from all of them, then the tile rescans."""
+    granted, finals = [], []
+    for led, ((inc, excl, r, q), i0) in enumerate(zip(scans, init)):
+        carry = total = at_off = tuple(torch.as_tensor(v) for v in ID)
+        for j in range(all_folds.shape[0]):
+            if j == index:
+                carry = total
+            total = _combine(total, tuple(all_folds[j, led, 0]))
+            at_off = _combine(at_off, tuple(all_folds[j, led, 1]))
+        base_a = int(i0) - at_off[0]
+        final_a = total[0] + torch.maximum(base_a, total[1])
+        finals.append(at_off[0] + torch.maximum(final_a, at_off[2]))
+        cur = _combine(tuple(v[None, None] for v in carry),
+                       _combine(tuple(v[:, None] for v in excl),
+                                _shift(inc, 1)))
+        cur = tuple(v.reshape(-1) for v in cur)
+        idx = torch.arange(cur[0].shape[0]) + base
+        m = torch.where(idx >= offset, torch.maximum(base_a, cur[1]),
+                        torch.maximum(final_a, cur[2]))
+        granted.append(((q == 1) & (cur[0] + r + m > 0))[:n])
+    return granted, torch.stack(finals).to(torch.int32)
+
+
+def _sharded_ledger_model(rel, req, init, offset, k, tile):
+    n = rel[0].shape[0] // k
+    slabs = [([x[j * n:(j + 1) * n] for x in rel],
+              [x[j * n:(j + 1) * n] for x in req]) for j in range(k)]
+    folded = [_slab_fold_model(r, q, offset, j * n, tile)
+              for j, (r, q) in enumerate(slabs)]
+    all_folds = torch.stack([f for f, _ in folded])
+    outs = [_slab_emit_model(sc, init, offset, j * n, all_folds, j, n)
+            for j, (_, sc) in enumerate(folded)]
+    for _, fin in outs[1:]:
+        assert torch.equal(fin, outs[0][1])
+    return ([torch.cat([g[led] for g, _ in outs]) for led in range(2)],
+            outs[0][1])
+
+
+def _sharded_ledger_twin(rel, req, init, offset, k):
+    n = rel[0].shape[0] // k
+    slabs = [([x[j * n:(j + 1) * n] for x in rel],
+              [x[j * n:(j + 1) * n] for x in req]) for j in range(k)]
+    all_folds = torch.stack([clamped.slab_folds_twin(r, q, offset, j * n)
+                             for j, (r, q) in enumerate(slabs)])
+    outs = [clamped.grants_twin_sharded(r, q, init, offset, j * n,
+                                        all_folds, j)
+            for j, (r, q) in enumerate(slabs)]
+    for _, fin in outs[1:]:
+        assert torch.equal(fin, outs[0][1])
+    return ([torch.cat([g[led] for g, _ in outs]) for led in range(2)],
+            outs[0][1])
+
+
+@pytest.mark.parametrize("tile", [64, 4096])
+@pytest.mark.parametrize("k", [2, 3, 4, 8])
+def test_sharded_ledger_kernel_model(k, tile):
+    """The sharded ledger's fold and emit entries, slab by slab, and
+    grants_twin_sharded equal grants_twin bit for bit. NL / k is 4608,
+    3072, 2304 or 1152 agents: tiles of 64 end on the slab edges, tiles
+    of 4096 straddle them; offsets at 0, in the middle of a slab near
+    its edge, on an edge and at the end."""
+    rel, req = _ledger_inputs(5, NL)
+    trel, treq = [_t(x) for x in rel], [_t(x) for x in req]
+    init = _t(np.array([20, 4], np.int32))
+    n = NL // k
+    for offset in (0, n - 7, n, NL - 1):
+        want, wfin = clamped.grants_twin(trel, treq, init, offset)
+        for got, fin in (_sharded_ledger_model(trel, treq, init, offset, k,
+                                               tile),
+                         _sharded_ledger_twin(trel, treq, init, offset, k)):
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.numpy(), w.numpy())
+            np.testing.assert_array_equal(fin.numpy(), wfin.numpy())
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_sharded_ledger_matches_jax(k, monkeypatch):
+    """The port's sharded twin and kernel model equal the JAX package's
+    _grants_sharded (4 virtual devices, shard_pallas, interpret mode),
+    run as tests/test_clamped.py::test_sharded_grants_match_unsharded
+    runs it."""
+    import jax
+    from jax.sharding import Mesh
+
+    monkeypatch.setenv("REINA_SHARD_INTERPRET", "1")
+    mesh = Mesh(np.array(jax.devices()[:k]).reshape(1, k), ("seed", "agent"))
+    n = 8192
+    rel, req = _ledger_inputs(7, n)
+    init = np.array([4, 1], np.int32)
+    trel, treq = [_t(x) for x in rel], [_t(x) for x in req]
+    for off in (0, 1, n // 4, n // 2 + 3, n - 1):
+        with jfm.shard_pallas(mesh):
+            (j0, j1), jfin = jax.jit(
+                lambda r, q, o: jclamped.clamped_counter_grants(
+                    list(r), list(q), jnp.asarray(init), o))(
+                [jnp.asarray(x) for x in rel],
+                [jnp.asarray(x) for x in req], jnp.int32(off))
+        for got, fin in (_sharded_ledger_twin(trel, treq, _t(init), off, k),
+                         _sharded_ledger_model(trel, treq, _t(init), off, k,
+                                               4096)):
+            np.testing.assert_array_equal(got[0].numpy(), np.asarray(j0))
+            np.testing.assert_array_equal(got[1].numpy(), np.asarray(j1))
+            np.testing.assert_array_equal(fin.numpy(), np.asarray(jfin))
+
+
+def _sharded_prefix_model(w, codes, n_seg, max_block_rows, k):
+    """prefix.cu's two sharded entries slab by slab: the slab's row
+    totals as a pairwise tree; then, from the stacked totals, each
+    logical block's row-offset scan and last value, the serial carry,
+    and (x_ls + d) + carry on the slab's rows only. Returns the slabs'
+    outputs put back into the unsharded (n_seg·N,) order, and the
+    segments' last values."""
+    N = w.shape[0]
+    R, nl = N // fusedmap.LANE, N // k
+    Rl = R // k
+    blk = fusedmap._largest_block(R, max_block_rows, 8)
+    G = R // blk
+
+    def seg(x, c, s):
+        return x if c is None else torch.where(c == s, x, torch.zeros(()))
+
+    totals = []
+    for j in range(k):                                        # launch 1
+        x = w[j * nl:(j + 1) * nl].reshape(Rl, 32, 4)
+        c = None if codes is None else codes[j * nl:(j + 1) * nl].reshape(
+            Rl, 32, 4)
+        totals.append(torch.stack([_row_total(seg(x, c, s))[:, 31]
+                                   for s in range(n_seg)]))
+    gathered = torch.stack(totals)                            # (k, n_seg, Rl)
+    out = torch.zeros(n_seg, N)
+    for j in range(k):                                        # launch 2
+        t = gathered.permute(1, 0, 2).reshape(n_seg * G, blk)
+        r, kk = t, 1
+        while kk < blk:
+            r = r + torch.cat([torch.zeros_like(r[:, :kk]), r[:, :-kk]], 1)
+            kk *= 2
+        d = (r - t).reshape(n_seg, R)
+        last = t[:, -1] + (r[:, -1] - t[:, -1])
+        carry, c_ = [], torch.zeros(())
+        for h in last:
+            carry.append(c_)
+            c_ = h + c_
+        carry = torch.stack(carry).reshape(n_seg, G)
+        ends = last.reshape(n_seg, G)[:, -1] + carry[:, -1]
+        rows = torch.arange(j * Rl, (j + 1) * Rl)
+        x = w[j * nl:(j + 1) * nl].reshape(Rl, 32, 4)
+        c = None if codes is None else codes[j * nl:(j + 1) * nl].reshape(
+            Rl, 32, 4)
+        for s in range(n_seg):
+            o = ((_row_lane_scan(seg(x, c, s)) + d[s, rows][:, None, None])
+                 + carry[s, rows // blk][:, None, None])
+            out[s, j * nl:(j + 1) * nl] = o.reshape(-1)
+    return out.reshape(-1), ends
+
+
+@pytest.mark.parametrize("blk", [8, 16, 24])
+@pytest.mark.parametrize("n_seg", [1, 2])
+@pytest.mark.parametrize("k", [2, 3, 4, 8])
+def test_sharded_prefix_kernel_model(k, n_seg, blk):
+    """The sharded prefix's two entries, slab by slab, and
+    concat_prefix_twin_sharded equal concat_prefix_twin bit for bit on
+    real-valued weights. 48 rows in slabs of 24, 16, 12 or 6: slab edges
+    on block edges and inside blocks of 8, 16 and 24 rows."""
+    r = np.random.default_rng(13)
+    N = 48 * fusedmap.LANE
+    w = _t((r.random(N) * 3).astype(np.float32))
+    codes = None if n_seg == 1 else _t(r.integers(0, n_seg, N)
+                                       .astype(np.int32))
+    want = fusedmap.concat_prefix_twin(w, codes, n_seg, max_block_rows=blk)
+    got, ends = _sharded_prefix_model(w, codes, n_seg, blk, k)
+    np.testing.assert_array_equal(got.view(torch.int32).numpy(),
+                                  want.view(torch.int32).numpy())
+    nl = N // k
+    parts = [(w[j * nl:(j + 1) * nl],
+              None if codes is None else codes[j * nl:(j + 1) * nl])
+             for j in range(k)]
+    gathered = torch.stack([fusedmap.row_totals_twin(x, c, n_seg)
+                            for x, c in parts])
+    for j, (x, c) in enumerate(parts):
+        out, tends = fusedmap.concat_prefix_twin_sharded(
+            x, c, n_seg, j * nl // fusedmap.LANE, N, gathered, blk)
+        np.testing.assert_array_equal(
+            out.view(torch.int32).numpy(),
+            want.reshape(n_seg, N)[:, j * nl:(j + 1) * nl]
+            .reshape(-1).view(torch.int32).numpy())
+        np.testing.assert_array_equal(tends.view(torch.int32).numpy(),
+                                      ends.view(torch.int32).numpy())
+    np.testing.assert_array_equal(
+        ends.view(torch.int32).numpy(),
+        want.reshape(n_seg, N)[:, -1].view(torch.int32).numpy())
+
+
 VEC = 16                 # consecutive agents a histogram thread takes
 
 

@@ -202,8 +202,9 @@ def test_runs_without_jax(tmp_path):
     builds and runs a synthetic run with a checkpoint, resumes from it,
     its CLI simulates a small area and samples the explorer on the CPU,
     its GraphQL server answers an area and an explorer query, and it
-    runs an ensemble, a calibration, the SIR model, the debug dumps and
-    a Monte-Carlo sweep that writes its CSV (also through the CLI)."""
+    runs an ensemble (also on a mesh of one rank over torch.distributed),
+    a calibration, the SIR model, the debug dumps and a Monte-Carlo
+    sweep that writes its CSV (also through the CLI)."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "sys.modules['reina_tpu'] = None\n"
@@ -249,6 +250,13 @@ def test_runs_without_jax(tmp_path):
         " synthetic_variables)\n"
         "e = run_ensemble(run, [1, 2])\n"
         "assert e.by_group.shape == (2, 2, 13, 9), e.by_group.shape\n"
+        "from reina_tpu_torch.parallel import mesh as M\n"
+        "assert M.init_distributed() == 1\n"
+        f"assert M.init_distributed('file://{tmp_path}/store', 1, 0,"
+        " 'gloo') == 1\n"
+        "m = M.make_mesh(device='cpu')\n"
+        "assert (run_ensemble(run, [1, 2], mesh=m).by_group"
+        " == e.by_group).all()\n"
         "best, ranked = calibrate(synthetic_variables(days=3),"
         " {'infectiousness_multiplier': [0.4, 0.7]}, observed_rows=["
         "{'date': '2020-02-20', 'confirmed': 3}], pad_multiple=256,"
