@@ -15,8 +15,11 @@ Run from the repository root on a machine with a CUDA device. It
      of 7), beside the least time the card could take (bound), and
      times each launch of the CUDA kernels;
   3. drives the main path: build_run for the default HUS scenario (365
-     days, 1,685,983 agents) on "cuda", then run_days, counting every
-     kernel's launches in that run;
+     days, 1,685,983 agents) on "cuda"; first the draw kernels
+     (threefry.cu, samplers.cu) against their twins at the day step's
+     shapes, binomial_fixed on the inputs its two calls get on day 100
+     of this run (run_days to day 100 records them); then run_days,
+     counting every kernel's launches in that run;
   4. checks the outcome: finite outputs of the expected shape, agents
      conserved every day, every kernel launched, and the final
      all_infected inside the JAX package's 1000-seed spread
@@ -104,10 +107,16 @@ WEBUI_POLL = ("query($id: ID!){ simulationResults(runId:$id) {\n"
 
 
 # kernels launched once a stepped day (the prefix twice or more a day,
-# the snapshot one-hot sums once a run)
+# the snapshot one-hot sums once a run), the samplers twice a day, the
+# draw kernel seven times or more a day (the contact normal, the three
+# receiver uniforms, the attribution's gumbel and uniform, the
+# severity uniform; tracing, imports and vaccination draw more)
 DAILY = ("fused_map.prologue", "fused_map.recv_front", "fused_map.post",
          "fused_map.finalize", "ledger_scan", "fused_fn_onehot_sum",
          "fused_bihistogram")
+TWICE = ("random.gamma_fixed", "random.binomial_fixed")
+DRAWS_A_DAY = 7
+CAPTURE_DAY = 100
 
 
 def fail(msg: str) -> None:
@@ -125,8 +134,9 @@ def check_launched(launches: dict, want: dict, phase: str) -> None:
 def day_launches(steps: int, snapshots: int) -> dict:
     """The least launches of ``steps`` stepped days and ``snapshots``
     day-0 snapshots."""
-    return ({k: steps for k in DAILY}
+    return ({k: steps for k in DAILY} | {k: 2 * steps for k in TWICE}
             | {"fused_concat_prefix": 2 * steps,
+               "prng.draw": DRAWS_A_DAY * steps,
                "fused_onehot_sum": snapshots})
 
 
@@ -179,14 +189,16 @@ def resume_phase(run, out, state, scratch: str) -> None:
 
 def check_runs_launched(launches: dict, steps: int, runs: int,
                         phase: str) -> None:
-    """Exactly one launch of each DAILY kernel a stepped day and one of
-    the snapshot one-hot sums a run; at least two prefix calls a day."""
-    for k, n in ({k: steps for k in DAILY}
+    """Exactly one launch of each DAILY kernel a stepped day, two of
+    each sampler and one of the snapshot one-hot sums a run; at least two
+    prefix calls and DRAWS_A_DAY draws a day."""
+    for k, n in ({k: steps for k in DAILY} | {k: 2 * steps for k in TWICE}
                  | {"fused_onehot_sum": runs}).items():
         if launches.get(k, 0) != n:
             fail(f"{phase}: {k} launched {launches.get(k, 0)} times, "
                  f"want {n}")
-    check_launched(launches, {"fused_concat_prefix": 2 * steps}, phase)
+    check_launched(launches, {"fused_concat_prefix": 2 * steps,
+                              "prng.draw": DRAWS_A_DAY * steps}, phase)
 
 
 def ensemble_phase(run, v, out, one_run_bytes: int, run_bytes: int) -> None:
@@ -422,6 +434,7 @@ def mesh_phase(run, out, ens, ens_ms_day: float, world: int = 2) -> dict:
             slabs.append(z)
             la, st = rec["launches"], rec["stats"]
             want = ({k: steps for k in DAILY if k != "ledger_scan"}
+                    | {k: 2 * steps for k in TWICE}
                     | {"ledger_sharded.fold": steps,
                        "ledger_sharded.emit": steps,
                        "concat_prefix_sharded.totals": 2 * steps,
@@ -432,6 +445,8 @@ def mesh_phase(run, out, ens, ens_ms_day: float, world: int = 2) -> dict:
                 if la.get(k, 0) != n:
                     fail(f"mesh (a): rank {r} launched {k} {la.get(k, 0)} "
                          f"times, want {n}")
+            check_launched(la, {"prng.draw": DRAWS_A_DAY * steps},
+                           f"mesh (a) rank {r}")
             print(f"mesh (a) agent axis, rank {r} on {rec['device']}: "
                   f"{steps} days in {rec['agent_s']:.3f} s, "
                   f"{rec['agent_s'] / steps * 1000:.2f} ms/day "
@@ -630,8 +645,8 @@ def warm_hit_run(base: str) -> None:
     check_launched(launches, {k: 1 for k in (
         "fused_map.prologue", "fused_map.recv_front", "fused_map.post",
         "fused_map.finalize", "ledger_scan", "fused_concat_prefix",
-        "fused_onehot_sum", "fused_fn_onehot_sum", "fused_bihistogram")},
-        "serve W")
+        "fused_onehot_sum", "fused_fn_onehot_sum", "fused_bihistogram",
+        "prng.draw") + TWICE}, "serve W")
 
 
 def concurrent_runs(base: str) -> None:
@@ -798,18 +813,24 @@ def main() -> None:
 
     # ---- kernels against their twins at HUS shapes
     results = {}
-    for c in checks.checks(checks.HUS_N, 0, "cuda"):
-        r = checks.run_check(c)
-        results[c.name] = (c, r)
-        lib = "none" if r.library_ms is None else f"{r.library_ms:.4f} ms"
-        print(f"kernel {r.name:22s} ok={r.ok} mismatches={r.mismatches} "
-              f"max_abs_err={r.max_abs_err:.3g} max_ulp={r.max_ulp} "
-              f"kernel {r.ms:.4f} ms  twin {r.plain_ms:.4f} ms  "
-              f"library {lib}  bound {r.bound_ms:.4f} ms ({r.bound_by})"
-              f"{'' if c.library_note == '' else '  [' + c.library_note + ']'}")
-    bad = [n for n, (_, r) in results.items() if not r.ok]
-    if bad:
-        fail(f"kernels disagree with their twins: {bad}")
+
+    def hold(cs):
+        for c in cs:
+            r = checks.run_check(c)
+            results[c.name] = (c, r)
+            lib = ("none" if r.library_ms is None
+                   else f"{r.library_ms:.4f} ms")
+            print(f"kernel {r.name:22s} ok={r.ok} mismatches={r.mismatches} "
+                  f"max_abs_err={r.max_abs_err:.3g} max_ulp={r.max_ulp} "
+                  f"kernel {r.ms:.4f} ms  twin {r.plain_ms:.4f} ms  "
+                  f"library {lib}  bound {r.bound_ms:.4f} ms ({r.bound_by})"
+                  + ("" if c.library_note == ""
+                     else f"  [{c.library_note}]"))
+        bad = [n for n, (_, r) in results.items() if not r.ok]
+        if bad:
+            fail(f"kernels disagree with their twins: {bad}")
+
+    hold(checks.checks(checks.HUS_N, 0, "cuda"))
     print("per-launch ms (cold L2, median of 7): "
           + json.dumps(checks.launch_times(checks.HUS_N, 0, "cuda")))
 
@@ -829,6 +850,18 @@ def main() -> None:
           f"padded={n_pad}")
     if run.n_agents != HUS_AGENTS:
         fail(f"expected {HUS_AGENTS} agents, got {run.n_agents}")
+
+    # ---- the draw kernels, binomial_fixed on day CAPTURE_DAY's inputs
+    t0 = time.perf_counter()
+    captured = checks.capture_samplers(run, CAPTURE_DAY)
+    torch.cuda.synchronize()
+    print(f"day {CAPTURE_DAY}'s sampler inputs in "
+          f"{time.perf_counter() - t0:.2f} s: binomial_fixed lanes "
+          f"{[int(n.numel()) for n, _ in captured['binomial']]}, "
+          f"gamma_fixed (kappa, shape) {captured['gamma']}; clock for the "
+          f"INT32 bound {checks.sm_clock_hz() / 1e6:.0f} MHz")
+    hold(checks.draw_checks(0, "cuda", captured))
+    del captured
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()

@@ -1,9 +1,11 @@
 """Hand-written Hopper kernels for the port's main path.
 
-Six CUDA kernels (``csrc/*.cu``, built by ``build.py`` with nvcc for
-sm_90a and bound with ctypes; the post-ledger pass of the day step among
-them, the ledger and the prefix also in a sharded form) and three
-Triton kernels (``fused_bodies``, the other fused per-agent passes).
+Eight CUDA kernel sources (``csrc/*.cu``, built by ``build.py`` with
+nvcc for sm_90a and bound with ctypes; the post-ledger pass of the day
+step among them, the ledger and the prefix also in a sharded form, and
+the day's random draws: ``threefry.cu`` for each draw, ``samplers.cu``
+for gamma_fixed and binomial_fixed) and three Triton kernels
+(``fused_bodies``, the other fused per-agent passes).
 The wrappers that launch them live beside their plain PyTorch twins in
 ``reina_tpu_torch.ops`` and ``fused_bodies``; each wrapper adds one to
 its entry of ``LAUNCHES`` where it launches its kernel, and nowhere
@@ -27,6 +29,11 @@ LAUNCHES = {
     "ledger_sharded.emit": 0,
     "concat_prefix_sharded.totals": 0,
     "concat_prefix_sharded.emit": 0,
+    # the draws (ops/prng.py: random_bits, uniform, normal, gumbel) and
+    # the samplers (ops/random.py)
+    "prng.draw": 0,
+    "random.gamma_fixed": 0,
+    "random.binomial_fixed": 0,
 }
 
 

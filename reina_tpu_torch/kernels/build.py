@@ -13,8 +13,9 @@ The library lands in ``build/reina_tpu_torch/`` at the repository root,
 named by a hash of the sources, and is built at first use. It is loaded
 with ctypes: every pointer and the stream are ``c_void_p``, and each C
 entry point returns ``cudaGetLastError()`` after its launches, on which
-:func:`check` raises. Every entry point also takes an optional array
-of CUDA events that it records around each launch.
+:func:`check` raises. Every entry point but the draw's and the
+samplers' also takes an optional array of CUDA events that it records
+around each launch.
 """
 from __future__ import annotations
 
@@ -37,6 +38,8 @@ _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
+_F = ctypes.c_float
 
 # C entry points and their argument types (see the .cu files)
 _SIGNATURES = {
@@ -50,6 +53,9 @@ _SIGNATURES = {
     "reina_ledger_emit_slab": [_P] * 10 + [_L, _L, _L, _I, _I, _I, _P, _P],
     "reina_prefix_row_totals": [_P, _P, _P, _L, _I, _P, _P],
     "reina_prefix_emit_slab": [_P] * 6 + [_L, _L, _L, _I, _I, _P, _P],
+    "reina_draw": [_P, _L, _L, _U, _U, _I, _F, _F, _P],
+    "reina_gamma_fixed": [_P, _L, _P, _I, _F, _F, _F, _P, _P],
+    "reina_binomial_fixed": [_P, _P, _P, _L, _P, _I, _P, _P],
 }
 
 _lib = None

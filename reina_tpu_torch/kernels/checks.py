@@ -28,10 +28,27 @@ move (each input read once, each output written once; for the
 over the H100 SXM's 3.35 TB/s, and its operations over the 67 TFLOP/s
 of the CUDA cores (``OPS_PER_AGENT``, counted from the twin's
 arithmetic: a compare, select, add or multiply is one, a transcendental
-about ten).
+about ten). The draws and the samplers are bound by integer operations
+instead, over :func:`int32_ops_per_s` (64 INT32 lanes an SM × 132 SMs ×
+the SM clock that ``nvidia-smi --query-gpu=clocks.max.sm`` reports):
+``OPS_PER_AGENT`` counts their threefry hashes, ~72 INT32 operations
+each (20 rounds of add, funnel shift and xor, and the key injections).
+``prng.draw`` is one hash an element. ``random.gamma_fixed`` is two a
+lane (the normal and the uniform of the first round; the few lanes that
+reject and run later rounds are not counted). ``random.binomial_fixed``
+is one for a lane that the CDF inversion takes (n·p ≤ 10) and two for a
+BTRS lane (its first round), counted from the lanes' n and p
+(:func:`binomial_int_ops`). Their float arithmetic, a few dozen
+operations a round on other units, is not counted: the bound stays a
+lower bound.
 """
 from __future__ import annotations
 
+import functools
+import math
+import subprocess
+from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence
 
@@ -39,7 +56,8 @@ import numpy as np
 import torch
 
 from ..core import step
-from ..ops import clamped, fusedmap
+from ..ops import clamped, fusedmap, prng
+from ..ops import random as samplers
 from . import fused_bodies
 
 HUS_N = 1686528          # the HUS run's padded agent count
@@ -49,15 +67,40 @@ VTS = V * T * 2
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM 80 GB, published peak
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+INT32_LANES_PER_SM, SMS = 64, 132   # H100 SXM
+MAX_SM_CLOCK_HZ = 1.98e9       # H100 SXM boost, when nvidia-smi says none
 
-# operations per agent of each function (see the module docstring)
+HASH_OPS = 72                  # INT32 operations of one threefry hash
+
+# operations per agent of each function (see the module docstring); for
+# the draws and the samplers INT32 operations an element or lane
 OPS_PER_AGENT = {
     "fused_map.prologue": 60, "fused_map.recv_front": 150,
     "fused_map.post": 80, "fused_map.finalize": 25, "ledger_scan": 16,
     "fused_concat_prefix": 60, "fused_onehot_sum": 26,
     "fused_fn_onehot_sum": 35, "fused_bihistogram": 4,
     "ledger_sharded": 16, "concat_prefix_sharded": 60,
+    "prng.draw": HASH_OPS, "random.gamma_fixed": 2 * HASH_OPS,
+    "random.binomial_fixed": HASH_OPS,          # a BTRS lane: 2 * HASH_OPS
 }
+INT32_BOUND = ("prng.draw", "random.gamma_fixed", "random.binomial_fixed")
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), or
+    MAX_SM_CLOCK_HZ where nvidia-smi gives none."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60).stdout.split()
+        return float(out[0]) * 1e6
+    except (OSError, IndexError, ValueError, subprocess.SubprocessError):
+        return MAX_SM_CLOCK_HZ
+
+
+def int32_ops_per_s() -> float:
+    return INT32_LANES_PER_SM * SMS * sm_clock_hz()
 
 
 @dataclass
@@ -73,6 +116,9 @@ class Check:
     library: Optional[Callable] = None  # one PyTorch call, same function
     library_note: str = ""            # what it is, or why there is none
     read_bytes: Optional[int] = None  # data-dependent input bytes
+    # the elements or lanes the bound counts (default: inputs[0]'s)
+    n: Optional[int] = None
+    int_ops: Optional[float] = None   # data-dependent INT32 operations
     # further (kernel, twin) pairs compared but not timed
     extra: Sequence = field(default_factory=tuple)
 
@@ -242,6 +288,8 @@ def post_edge_args(n, seed, dev):
 
 
 _FM = "reina_tpu/ops/fusedmap.py"
+_STEP = "reina_tpu/core/step.py"
+_RND = "reina_tpu/ops/random.py"
 
 
 def checks(n: int, seed: int, dev) -> List[Check]:
@@ -537,6 +585,150 @@ def sharded_checks(n: int, seed: int, dev, k: int) -> List[Check]:
     ]
 
 
+# ---------------------------------------------------------------------------
+# the day's draws and samplers (csrc/threefry.cu, csrc/samplers.cu)
+
+_DRAW_NOTE = ("none: torch.rand is Philox and torch.binomial another "
+              "algorithm, so no one call computes the same function")
+
+
+def binomial_int_ops(n, p) -> int:
+    """INT32 operations of the first-round hashes of binomial_fixed on
+    lanes n, p: one a lane for the inversion (n·p_eff <= 10), two a lane
+    for BTRS."""
+    p = torch.clamp(p.to(torch.float32), 0.0, 1.0)
+    p_eff = torch.where(p > 0.5, 1.0 - p, p)
+    small = int((n.to(torch.float32) * p_eff <= 10.0).sum())
+    return HASH_OPS * (small + 2 * (n.numel() - small))
+
+
+@contextmanager
+def _recording(module, name: str, keep):
+    """module.name's calls append their arguments to ``keep`` meanwhile."""
+    fn = getattr(module, name)
+
+    def record(*args, **kwargs):
+        keep.append(args)
+        return fn(*args, **kwargs)
+
+    setattr(module, name, record)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def capture_samplers(run, day: int) -> dict:
+    """The arguments of the day step's sampler calls on ``day`` of
+    ``run`` (run_days to that day): ``binomial`` the (n, p) of its two
+    binomial_fixed calls, the darts' (A, V, T, S, B) and the per-place
+    exposures' (A, P), flattened; ``gamma`` the (kappa, shape) of its two
+    gamma_fixed calls."""
+    from ..core.engine import run_days
+    binom, gamma = deque(maxlen=2), deque(maxlen=2)
+    with _recording(step, "binomial_fixed", binom), \
+            _recording(step, "gamma_fixed", gamma):
+        run_days(run, n_days=day + 1, chunk_days=day + 1)
+    return {"binomial": [(a[1], a[2]) for a in binom],
+            "gamma": [(a[1], tuple(a[2])) for a in gamma]}
+
+
+def _binomial_cases(seed: int, dev):
+    """(n, p) lanes of the day step's kinds and edges: darts-like (many
+    n = 0, small p), n·p on both sides of 10 and at 10, p above 0.5, p
+    at 0, 0.5 and 1, large n, NaN p; 76,356 lanes, the darts' shape
+    (A, V, T, S, B) at this module's B = 9 bands (HUS has 15)."""
+    r = np.random.default_rng(seed)
+    k = A * V * T * 2 * B
+    n = np.floor(r.random(k) ** 3 * 3000)
+    n[r.random(k) < 0.4] = 0
+    p = r.random(k) ** 3 * 0.2
+    sel = r.random(k) < 0.1                      # p above 0.5
+    p[sel] = 0.5 + r.random(int(sel.sum())) * 0.5
+    sel = r.random(k) < 0.1                      # n·p near 10
+    n[sel] = np.floor(10 + r.random(int(sel.sum())) * 90)
+    p[sel] = 10.0 / n[sel] * r.uniform(0.9, 1.1, int(sel.sum()))
+    edge_n = [0, 0, 20, 20, 40, 12, 1e5, 3e5, 50, 50, 7, 7, 1, 1, 1000, 2000]
+    edge_p = [0.3, 0.9, 0.5, 0.25, 0.75, 1.0, 1e-4, 0.5, 0, 1, 0.5, 0.99,
+              0.5, np.nan, np.nan, 0.6]
+    n[:16], p[:16] = edge_n, edge_p
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+    return t(n), t(p)
+
+
+def draw_checks(seed: int, dev, captured=None) -> List[Check]:
+    """The draw kernel at the day step's shapes (a 1-D uniform of N
+    timed; normal and bits of N, each from start 0 and from the second
+    slab's start N/2, odd sizes and starts, a uniform from 1e-37, the
+    tracing tables' 2-D shapes, the imports' 3-D one, gumbel of
+    (m, 101)); gamma_fixed at every slot tier for both kappas;
+    binomial_fixed at ``captured``'s HUS inputs (capture_samplers; made
+    up at the darts' shape without it) and made-up edges. Each against
+    its twin on the same device."""
+    from ..core import constants as C
+    keys = prng.split(prng.PRNGKey(seed + 9), 12)
+    N, half = HUS_N, HUS_N // 2
+
+    def pair(fn, twin, *args, **kw):
+        return (lambda: (fn(*args, **kw),), lambda: (twin(*args, **kw),))
+
+    def uni(key, shape, *a, **kw):
+        return pair(prng.uniform, prng.uniform_twin, key, shape, dev, *a,
+                    **kw)
+
+    draws = [
+        pair(prng.normal, prng.normal_twin, keys[1], (N,), dev),
+        pair(prng.random_bits, prng.random_bits_twin, keys[2], (N,), dev),
+        uni(keys[0], (N - half,), start=half),
+        pair(prng.normal, prng.normal_twin, keys[1], (N - half,), dev,
+             start=half),
+        pair(prng.random_bits, prng.random_bits_twin, keys[2], (N - half,),
+             dev, start=half),
+        uni(keys[3], (N - 3,), start=3), uni(keys[3], (7,), start=5),
+        uni(keys[4], (N,), 1e-37),
+        uni(keys[5], (4608, 12)), uni(keys[5], (513, 5)),
+        uni(keys[6], (512, 10, 2)),
+        pair(prng.gumbel, prng.gumbel_twin, keys[7], (4608, A), dev),
+        pair(prng.gumbel, prng.gumbel_twin, keys[7], (13, A), dev),
+    ]
+    kappas = (1.0 / C.INCUBATION_CV ** 2, 1.0 / C.ONSET_TO_REMOVED_CV ** 2)
+    ends = [lo + seg for lo, seg in step.tier_bounds(512, 65536)]
+    gamma = [pair(samplers.gamma_fixed, samplers.gamma_fixed_twin, keys[8],
+                  kappa, (e,), dev) for e in ends for kappa in kappas]
+    g_kappa, g_shape = (captured["gamma"][0] if captured
+                        else (kappas[0], (4608,)))
+    if captured:
+        (n_b, p_b), (n_x, p_x) = captured["binomial"]
+    else:
+        n_b, p_b = _binomial_cases(seed, dev)
+        n_x, p_x = n_b[:A * 6].clone(), p_b[:A * 6].clone()
+    n_e, p_e = _binomial_cases(seed + 1, dev)
+
+    def binom(k, n, p):
+        return pair(samplers.binomial_fixed, samplers.binomial_fixed_twin,
+                    k, n, p)
+
+    return [
+        Check("prng.draw", "cuda", "reina_tpu_torch/kernels/csrc/threefry.cu",
+              f"{_STEP}:1106", *uni(keys[0], (N,)), n=N,
+              library_note=_DRAW_NOTE, extra=draws),
+        Check("random.gamma_fixed", "cuda",
+              "reina_tpu_torch/kernels/csrc/samplers.cu", f"{_RND}:29",
+              *pair(samplers.gamma_fixed, samplers.gamma_fixed_twin, keys[9],
+                    g_kappa, g_shape, dev), n=math.prod(g_shape),
+              library_note=_DRAW_NOTE, extra=gamma),
+        Check("random.binomial_fixed", "cuda",
+              "reina_tpu_torch/kernels/csrc/samplers.cu", f"{_RND}:159",
+              *binom(keys[10], n_b, p_b), inputs=[n_b, p_b],
+              int_ops=binomial_int_ops(n_b, p_b),
+              library_note=_DRAW_NOTE,
+              extra=[binom(keys[11], n_x, p_x), binom(keys[10], n_e, p_e),
+                     binom(keys[11], n_e[:7], p_e[:7])]),
+    ]
+
+
 def compare(got, want, float_ulp: int):
     """(mismatches, max_abs_err, max_ulp) over paired outputs."""
     mism, err, ulp = 0, 0.0, 0
@@ -657,7 +849,12 @@ def bound_ms(c: Check, outputs, n: int):
     moved = (c.read_bytes if c.read_bytes is not None
              else _nbytes(c.inputs)) + _nbytes(outputs)
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = OPS_PER_AGENT[c.name] * n / CUDA_CORE_OPS_PER_S * 1e3
+    if c.name in INT32_BOUND:
+        ops = (c.int_ops if c.int_ops is not None
+               else OPS_PER_AGENT[c.name] * n)
+        t_ops = ops / int32_ops_per_s() * 1e3
+    else:
+        t_ops = OPS_PER_AGENT[c.name] * n / CUDA_CORE_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -670,7 +867,8 @@ def run_check(c: Check, timing: bool = True) -> Result:
     for g, w in pairs:
         m, e, u = compare(g, w, c.float_ulp)
         mism, err, ulp = mism + m, max(err, e), max(ulp, u)
-    bms, by = bound_ms(c, want, c.inputs[0].numel())
+    bms, by = bound_ms(c, want, c.n if c.n is not None
+                       else c.inputs[0].numel())
     nan = float("nan")
     ms = time_ms(c.kernel) if timing else nan
     plain = time_ms(c.twin) if timing else nan

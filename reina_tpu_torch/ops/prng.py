@@ -11,9 +11,12 @@ holds the two key words, and every derivation (``split``, ``fold_in``)
 runs in numpy, vectorised over any leading axes. Only the draws run on
 the device: element ``k`` of a draw of shape ``s`` hashes the counter
 pair ``(0, k)`` of the flattened shape, so a draw is one threefry pass
-over ``arange(prod(s))``. Device words are int32 tensors holding the
-uint32 bits (torch has no unsigned 32-bit arithmetic; int32 addition
-and left shifts wrap the same way).
+over ``arange(prod(s))``. On CUDA a draw is one launch of
+``kernels/csrc/threefry.cu``, which writes the bits or the floats; on
+the CPU the twins (``random_bits_twin``, ``uniform_twin``,
+``normal_twin``, ``gumbel_twin``) run the hash as eager ops on int32
+tensors holding the uint32 bits (torch has no unsigned 32-bit
+arithmetic; int32 addition and left shifts wrap the same way).
 
 The floats follow ``jax._src.random``: ``uniform`` fills the mantissa of
 ``[1, 2)`` and shifts; ``normal`` is ``sqrt(2)·erf_inv(u)`` with XLA's
@@ -30,6 +33,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from .. import kernels
 
 _M32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -110,7 +115,8 @@ def fold_in(key, data) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# draws (device)
+# draws (device): on CUDA one launch of kernels/csrc/threefry.cu a draw,
+# on the CPU the twins, which run the hash as eager int32 ops
 
 def _key_words(key):
     key = np.asarray(key, np.uint32)
@@ -119,14 +125,9 @@ def _key_words(key):
     return int(key[0]), int(key[1])
 
 
-def random_bits(key, shape: Sequence[int], device,
-                start: int = 0) -> torch.Tensor:
-    """32 random bits per element, as int32 with the same bits.
-
-    ``start``: the counter of the first element. A 1-D draw of
-    ``(hi - lo,)`` from ``start=lo`` is ``random_bits(key, (N,))[lo:hi]``
-    bit for bit (the counters are the flat positions), which is how an
-    agent shard draws its slab of a global (N,) draw."""
+def _draw_shape(shape, start: int):
+    """The draw's shape as ints and its element count; a draw from a
+    start counter is 1-D, and its counters stay below 2^31."""
     shape = tuple(int(s) for s in shape)
     n = math.prod(shape)
     if start and len(shape) != 1:
@@ -134,30 +135,95 @@ def random_bits(key, shape: Sequence[int], device,
     if start < 0 or start + n >= 2 ** 31:
         raise ValueError(f"draw of {n} elements from {start} exceeds the "
                          "int32 counter")
-    k1, k2 = _key_words(key)
-    lo = torch.arange(start, start + n, dtype=torch.int32, device=device)
-    b1, b2 = _threefry_t(k1, k2, torch.zeros_like(lo), lo)
-    return b1.bitwise_xor_(b2).reshape(shape)
+    return shape, n
 
 
 def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def uniform(key, shape, device, minval: float = 0.0,
-            maxval: float = 1.0, start: int = 0) -> torch.Tensor:
-    """jax.random.uniform in float32 (``start``: see random_bits)."""
-    bits = random_bits(key, shape, device, start)
+def affine(minval: float, maxval: float):
+    """(lo, scale) of a uniform on [minval, maxval) as float32 values:
+    the twin's ``floats * scale + lo``."""
+    lo, hi = np.float32(minval), np.float32(maxval)
+    return float(lo), _f32(hi - lo)
+
+
+# the modes of the draw kernel's entry point (threefry.cu)
+_BITS, _UNIFORM, _NORMAL, _GUMBEL = 0, 1, 2, 3
+
+
+def _draw(mode: int, key, shape, device, start: int, lo: float = 0.0,
+          scale: float = 1.0) -> torch.Tensor:
+    """One launch of the draw kernel: ``shape`` elements from counter
+    ``start``, as int32 bits (mode _BITS) or float32."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"prng: unsupported device {device}")
+    shape, n = _draw_shape(shape, start)
+    k1, k2 = _key_words(key)
+    out = torch.empty(shape, device=device,
+                      dtype=torch.int32 if mode == _BITS else torch.float32)
+    if n == 0:
+        return out
+    from ..kernels import build
+    build.check(build.lib().reina_draw(
+        out.data_ptr(), n, int(start), k1, k2, mode, lo, scale,
+        build.stream_of(out)), "prng.draw")
+    kernels.LAUNCHES["prng.draw"] += 1
+    return out
+
+
+def _on_cpu(device) -> bool:
+    return torch.device(device).type == "cpu"
+
+
+def random_bits_twin(key, shape: Sequence[int], device,
+                     start: int = 0) -> torch.Tensor:
+    """32 random bits per element, as int32 with the same bits.
+
+    ``start``: the counter of the first element. A 1-D draw of
+    ``(hi - lo,)`` from ``start=lo`` is ``random_bits(key, (N,))[lo:hi]``
+    bit for bit (the counters are the flat positions), which is how an
+    agent shard draws its slab of a global (N,) draw."""
+    shape, n = _draw_shape(shape, start)
+    k1, k2 = _key_words(key)
+    lo = torch.arange(start, start + n, dtype=torch.int32, device=device)
+    b1, b2 = _threefry_t(k1, k2, torch.zeros_like(lo), lo)
+    return b1.bitwise_xor_(b2).reshape(shape)
+
+
+def random_bits(key, shape: Sequence[int], device,
+                start: int = 0) -> torch.Tensor:
+    """random_bits_twin's bits: its twin on the CPU, the kernel on CUDA."""
+    if _on_cpu(device):
+        return random_bits_twin(key, shape, device, start)
+    return _draw(_BITS, key, shape, device, start)
+
+
+def uniform_twin(key, shape, device, minval: float = 0.0,
+                 maxval: float = 1.0, start: int = 0) -> torch.Tensor:
+    """jax.random.uniform in float32 (``start``: see random_bits_twin)."""
+    bits = random_bits_twin(key, shape, device, start)
     fb = (bits >> 9).bitwise_and_(0x7FFFFF).bitwise_or_(0x3F800000)
     floats = fb.view(torch.float32) - 1.0
-    lo, hi = np.float32(minval), np.float32(maxval)
-    scale = _f32(hi - lo)
-    out = floats * scale + float(lo)
-    return torch.clamp_min(out, float(lo))
+    lo, scale = affine(minval, maxval)
+    out = floats * scale + lo
+    return torch.clamp_min(out, lo)
+
+
+def uniform(key, shape, device, minval: float = 0.0,
+            maxval: float = 1.0, start: int = 0) -> torch.Tensor:
+    """uniform_twin's floats: its twin on the CPU, the kernel on CUDA."""
+    if _on_cpu(device):
+        return uniform_twin(key, shape, device, minval, maxval, start)
+    return _draw(_UNIFORM, key, shape, device, start,
+                 *affine(minval, maxval))
 
 
 # XLA's single-precision erf_inv (Giles' polynomials, as lowered by
 # chlo.erf_inv): w = −log1p(−x²); two degree-8 polynomials split at w = 5
+# (threefry.cuh holds the same float32 values)
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
                -4.39150654e-06, 0.00021858087, -0.00125372503,
                -0.00417768164, 0.246640727, 1.50140941)
@@ -181,19 +247,34 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _SQRT2 = _f32(np.sqrt(2))
 
 
-def normal(key, shape, device, start: int = 0) -> torch.Tensor:
-    """jax.random.normal in float32 (``start``: see random_bits)."""
-    u = uniform(key, shape, device, _NORMAL_LO, 1.0, start)
+def normal_twin(key, shape, device, start: int = 0) -> torch.Tensor:
+    """jax.random.normal in float32 (``start``: see random_bits_twin)."""
+    u = uniform_twin(key, shape, device, _NORMAL_LO, 1.0, start)
     return erf_inv(u) * _SQRT2
+
+
+def normal(key, shape, device, start: int = 0) -> torch.Tensor:
+    """normal_twin's floats: its twin on the CPU, the kernel on CUDA."""
+    if _on_cpu(device):
+        return normal_twin(key, shape, device, start)
+    return _draw(_NORMAL, key, shape, device, start,
+                 *affine(_NORMAL_LO, 1.0))
 
 
 _TINY = float(np.finfo(np.float32).tiny)
 
 
-def gumbel(key, shape, device) -> torch.Tensor:
+def gumbel_twin(key, shape, device) -> torch.Tensor:
     """jax.random.gumbel (mode "low") in float32."""
-    u = uniform(key, shape, device, _TINY, 1.0)
+    u = uniform_twin(key, shape, device, _TINY, 1.0)
     return -torch.log(-torch.log(u))
+
+
+def gumbel(key, shape, device) -> torch.Tensor:
+    """gumbel_twin's floats: its twin on the CPU, the kernel on CUDA."""
+    if _on_cpu(device):
+        return gumbel_twin(key, shape, device)
+    return _draw(_GUMBEL, key, shape, device, 0, *affine(_TINY, 1.0))
 
 
 def randint_scalar(key, minval: int, maxval: int) -> int:

@@ -8,12 +8,21 @@ XLA:CPU and torch. Powers are written as products (``x * (x * x)``),
 which is how ``lax.integer_pow`` evaluates them. The fixed-unroll
 bisects of the JAX package existed for its toolchain's gather cost;
 here they are ``torch.searchsorted``, exact on sorted input.
+
+On CUDA each sampler call is one launch of ``kernels/csrc/samplers.cu``
+(a lane a thread, only the branch it keeps, stopping at the round where
+it settles); on the CPU the twins (``gamma_fixed_twin``,
+``binomial_fixed_twin``) run every round on every lane as eager ops.
+Both give the same samples from the same keys.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
+from .. import kernels
 from . import prng
 
 F32 = torch.float32
@@ -23,20 +32,36 @@ def _cube(x):
     return x * (x * x)
 
 
-def gamma_fixed(key, kappa: float, shape, device, rounds: int = 4):
-    """Standard Gamma(kappa), kappa > 1, by Marsaglia–Tsang with
-    ``rounds`` rejection rounds; lanes that never accept take the mean."""
+# the kernel's largest round count (samplers.cu MAX_ROUNDS)
+MAX_ROUNDS = 8
+
+
+def _check_rounds(rounds: int) -> None:
+    if not 1 <= rounds <= MAX_ROUNDS:
+        raise ValueError(f"the sampler kernel runs 1 to {MAX_ROUNDS} "
+                         f"rounds, not {rounds}")
+
+
+def _gamma_scalars(kappa: float):
+    """(d, c) as the twin uses them: d a Python float (torch rounds it to
+    float32 in each op), c the float32 of 1/sqrt(9d)."""
     if not kappa > 1.0:
         raise ValueError("gamma_fixed requires kappa > 1")
     d = kappa - 1.0 / 3.0
-    c = float(np.float32(1.0) / np.sqrt(np.float32(9.0 * d)))
+    return d, float(np.float32(1.0) / np.sqrt(np.float32(9.0 * d)))
+
+
+def gamma_fixed_twin(key, kappa: float, shape, device, rounds: int = 4):
+    """Standard Gamma(kappa), kappa > 1, by Marsaglia–Tsang with
+    ``rounds`` rejection rounds; lanes that never accept take the mean."""
+    d, c = _gamma_scalars(kappa)
     out = torch.full(shape, float("nan"), dtype=F32, device=device)
     done = torch.zeros(shape, dtype=torch.bool, device=device)
     for k in prng.split(key, rounds):
         kx, ku = prng.split(k)
-        x = prng.normal(kx, shape, device)
+        x = prng.normal_twin(kx, shape, device)
         v = _cube(1.0 + c * x)
-        u = prng.uniform(ku, shape, device, minval=1e-37)
+        u = prng.uniform_twin(ku, shape, device, minval=1e-37)
         ok = (v > 0) & (torch.log(u) < 0.5 * x * x + d - d * v
                         + d * torch.log(torch.clamp_min(v, 1e-37)))
         take = ok & ~done
@@ -46,12 +71,56 @@ def gamma_fixed(key, kappa: float, shape, device, rounds: int = 4):
                                                device=device))
 
 
+def _affines():
+    """The float32 affines of the samplers' uniforms, as samplers.cu's
+    Affines: [0, 1), [1e-37, 1), [_NORMAL_LO, 1)."""
+    return (ctypes.c_float * 6)(*prng.affine(0.0, 1.0),
+                                *prng.affine(1e-37, 1.0),
+                                *prng.affine(prng._NORMAL_LO, 1.0))
+
+
+def _key_array(keys, words: int):
+    """The key words of (…, 2) key arrays in order, zero-padded to
+    ``words``, as the C array the kernel's entry points copy."""
+    flat = np.concatenate([np.asarray(k, np.uint32).reshape(-1)
+                           for k in keys])
+    out = np.zeros(words, np.uint32)
+    out[:flat.size] = flat
+    return (ctypes.c_uint * words)(*out.tolist())
+
+
+def gamma_fixed(key, kappa: float, shape, device, rounds: int = 4):
+    """gamma_fixed_twin's samples: its twin on the CPU; on CUDA one
+    launch of kernels/csrc/samplers.cu."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return gamma_fixed_twin(key, kappa, shape, device, rounds)
+    if device.type != "cuda":
+        raise ValueError(f"gamma_fixed: unsupported device {device}")
+    d, c = _gamma_scalars(kappa)
+    _check_rounds(rounds)
+    shape, n = prng._draw_shape(shape, 0)
+    out = torch.empty(shape, dtype=F32, device=device)
+    if n == 0:
+        return out
+    kxu = prng.split(prng.split(key, rounds))          # (rounds, 2, 2)
+    pad = np.zeros((MAX_ROUNDS - rounds, 2), np.uint32)
+    words = _key_array([kxu[:, 0], pad, kxu[:, 1], pad], 4 * MAX_ROUNDS)
+    from ..kernels import build
+    build.check(build.lib().reina_gamma_fixed(
+        out.data_ptr(), n, words, rounds, float(np.float32(d)), c,
+        float(np.float32(kappa)), _affines(), build.stream_of(out)),
+        "gamma_fixed")
+    kernels.LAUNCHES["random.gamma_fixed"] += 1
+    return out
+
+
 def _binomial_inversion(key, n, p, max_count: int = 48):
     """Binomial by CDF inversion over a fixed horizon: exact for counts
     < max_count, clamped above (for n·p ≲ 10)."""
     n = n.to(F32)
     p = torch.clamp(p.to(F32), 0.0, 1.0)
-    u = prng.uniform(key, n.shape, n.device)
+    u = prng.uniform_twin(key, n.shape, n.device)
     q = torch.clamp_min(1.0 - p, 1e-37)
     f = torch.exp(n * torch.log(q))
     ratio = p / q
@@ -59,8 +128,10 @@ def _binomial_inversion(key, n, p, max_count: int = 48):
     count = torch.zeros_like(n)
     settled = u < f
     for k in range(max_count):
-        k = float(k)
-        f = torch.clamp_min(f * (n - k) / (k + 1.0) * ratio, 0.0)
+        # / (k + 1) as torch on CUDA divides by a Python scalar: times its
+        # float32 reciprocal, written out so the CPU computes the same
+        inv = float(np.float32(1.0) / np.float32(k + 1.0))
+        f = torch.clamp_min(f * (n - float(k)) * inv * ratio, 0.0)
         cdf = cdf + f
         newly = ~settled & (u < cdf)
         count = torch.where(newly, k + 1.0, count)
@@ -108,8 +179,8 @@ def _binomial_btrs(key, n, p, rounds: int = 6):
     done = torch.zeros(n.shape, dtype=torch.bool, device=n.device)
     for rk in prng.split(key, rounds):
         ku, kv = prng.split(rk)
-        u = prng.uniform(ku, n.shape, n.device) - 0.5
-        v = prng.uniform(kv, n.shape, n.device, minval=1e-37)
+        u = prng.uniform_twin(ku, n.shape, n.device) - 0.5
+        v = prng.uniform_twin(kv, n.shape, n.device, minval=1e-37)
         us = 0.5 - torch.abs(u)
         k = torch.floor((2.0 * a / us + b) * u + c_)
         in_range = (k >= 0) & (k <= n)
@@ -123,7 +194,7 @@ def _binomial_btrs(key, n, p, rounds: int = 6):
     return torch.where(done, out, torch.round(n * p))
 
 
-def binomial_fixed(key, n, p, rounds: int = 6):
+def binomial_fixed_twin(key, n, p, rounds: int = 6):
     """Binomial(n, p), while-free: inversion for n·p ≤ 10, BTRS above,
     p > 0.5 by flipping."""
     n = n.to(F32)
@@ -140,6 +211,39 @@ def binomial_fixed(key, n, p, rounds: int = 6):
     cnt = torch.where(small_m, small, big)
     cnt = torch.minimum(torch.clamp_min(cnt, 0.0), n)
     return torch.where(flip, n - cnt, cnt)
+
+
+def binomial_fixed(key, n, p, rounds: int = 6):
+    """binomial_fixed_twin's samples: its twin for CPU tensors; on CUDA
+    one launch of kernels/csrc/samplers.cu (n and p of one shape, on one
+    device)."""
+    if n.device.type == "cpu":
+        return binomial_fixed_twin(key, n, p, rounds)
+    if n.device.type != "cuda" or p.device != n.device:
+        raise ValueError(f"binomial_fixed: n on {n.device}, p on "
+                         f"{p.device}; the kernel takes both on one CUDA "
+                         "device")
+    if p.shape != n.shape:
+        raise ValueError(f"binomial_fixed kernel takes n and p of one "
+                         f"shape, not {tuple(n.shape)} and {tuple(p.shape)}")
+    _check_rounds(rounds)
+    _, count = prng._draw_shape(n.shape, 0)
+    n32 = n.to(F32).contiguous()
+    p32 = p.to(F32).contiguous()
+    out = torch.empty(n.shape, dtype=F32, device=n.device)
+    if count == 0:
+        return out
+    k_inv, k_btrs = prng.split(key)
+    kuv = prng.split(prng.split(k_btrs, rounds))       # (rounds, 2, 2)
+    pad = np.zeros((MAX_ROUNDS - rounds, 2), np.uint32)
+    words = _key_array([k_inv, kuv[:, 0], pad, kuv[:, 1], pad],
+                       2 + 4 * MAX_ROUNDS)
+    from ..kernels import build
+    build.check(build.lib().reina_binomial_fixed(
+        out.data_ptr(), n32.data_ptr(), p32.data_ptr(), count, words, rounds,
+        _affines(), build.stream_of(out)), "binomial_fixed")
+    kernels.LAUNCHES["random.binomial_fixed"] += 1
+    return out
 
 
 def searchsorted(sorted_arr, queries, side: str = "left"):

@@ -7,8 +7,9 @@ Run on a machine with a CUDA device:
 Without one every test skips. Whether there is a card is decided inside
 each test, never at import, so every pytest worker collects the same
 tests. The tolerances are those of reina_tpu_torch/kernels/checks.py:
-exact for the prefix sums, histograms and ledger; exact integer and
-bool outputs and floats within 2 ulp for the fused bodies.
+exact for the prefix sums, histograms and ledger, the draws and the
+samplers; exact integer and bool outputs and floats within 2 ulp for the
+fused bodies.
 """
 import numpy as np
 import pytest
@@ -24,6 +25,8 @@ KERNELS = ["fused_map.prologue", "fused_map.recv_front", "fused_map.post",
 # the launch counts of the ledger's and the prefix's sharded forms
 SHARDED = ("ledger_sharded.fold", "ledger_sharded.emit",
            "concat_prefix_sharded.totals", "concat_prefix_sharded.emit")
+# the draw kernel and the samplers (threefry.cu, samplers.cu)
+DRAWS = ["prng.draw", "random.gamma_fixed", "random.binomial_fixed"]
 IVS = [["test-with-contact-tracing", "2020-02-20", 60],
        ["import-infections", "2020-02-20", 50],
        ["vaccinate", "2020-02-22", 700, 60, None]]
@@ -40,6 +43,21 @@ def test_kernel_matches_twin(name, n):
     _need_cuda()
     from reina_tpu_torch.kernels import checks
     c = {c.name: c for c in checks.checks(n, 0, "cuda")}[name]
+    before = kernels.launches()[name]
+    r = checks.run_check(c, timing=False)
+    assert kernels.launches()[name] > before
+    assert r.ok, r
+
+
+@pytest.mark.parametrize("name", DRAWS)
+def test_draw_kernel_matches_twin(name):
+    """Each draw kernel against its twin on the card, bit for bit: 1-D
+    draws of odd sizes from start 0 and from non-zero starts, 2-D and 3-D
+    shapes, gumbel, gamma at every slot tier, binomial on made-up
+    day-step lanes and edges (checks.draw_checks)."""
+    _need_cuda()
+    from reina_tpu_torch.kernels import checks
+    c = {c.name: c for c in checks.draw_checks(0, "cuda")}[name]
     before = kernels.launches()[name]
     r = checks.run_check(c, timing=False)
     assert kernels.launches()[name] > before
@@ -141,9 +159,11 @@ def test_wrappers_raise_and_never_fall_back():
     """On CUDA tensors the wrappers launch their kernel or raise: a
     mask function without a kernel, a wrong dtype (int64 or float64
     weights among them), an offset outside the ledger, a misaligned or
-    non-contiguous stream or gate, or a count of masks outside 1 to
-    ONEHOT_MAX_K are refused, never run by the twin, and no launch is
-    counted."""
+    non-contiguous stream or gate, a count of masks outside 1 to
+    ONEHOT_MAX_K, a multi-dimensional draw from a start counter or one
+    past the int32 counter, binomial lanes of two shapes or devices, or
+    a sampler's rounds outside 1 to MAX_ROUNDS are refused, never run by
+    the twin, and no launch is counted."""
     _need_cuda()
     from reina_tpu_torch.core import step
     from reina_tpu_torch.kernels import checks
@@ -216,6 +236,25 @@ def test_wrappers_raise_and_never_fall_back():
         fused_bodies.post(*strided)
     with pytest.raises(TypeError):
         fused_bodies.post(*po[:20], po[20].double(), *po[21:])
+    from reina_tpu_torch.ops import prng
+    from reina_tpu_torch.ops import random as trandom
+    key = prng.PRNGKey(1)
+    with pytest.raises(ValueError, match="1-D"):
+        prng.uniform(key, (4, 4), "cuda", start=3)
+    with pytest.raises(ValueError, match="int32 counter"):
+        prng.random_bits(key, (16,), "cuda", start=2 ** 31 - 8)
+    nb = torch.ones(8, device="cuda")
+    pb = torch.full((8,), 0.3, device="cuda")
+    with pytest.raises(ValueError, match="one shape"):
+        trandom.binomial_fixed(key, nb, pb[:4])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        trandom.binomial_fixed(key, nb, pb.cpu())
+    with pytest.raises(ValueError, match="rounds"):
+        trandom.binomial_fixed(key, nb, pb, rounds=trandom.MAX_ROUNDS + 1)
+    with pytest.raises(ValueError, match="rounds"):
+        trandom.gamma_fixed(key, 2.0, (8,), "cuda", rounds=0)
+    with pytest.raises(ValueError, match="kappa"):
+        trandom.gamma_fixed(key, 0.5, (8,), "cuda")
     assert kernels.launches() == before
 
 
