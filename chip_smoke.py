@@ -17,13 +17,21 @@ Run from the repository root on a machine with a CUDA device. It
   3. drives the main path: build_run for the default HUS scenario (365
      days, 1,685,983 agents) on "cuda"; first the draw kernels
      (threefry.cu, samplers.cu) against their twins at the day step's
-     shapes, binomial_fixed on the inputs its two calls get on day 100
-     of this run (run_days to day 100 records them); then run_days,
-     counting every kernel's launches in that run;
+     shapes, with their keys by value and from device memory (the day
+     step's key table), binomial_fixed on the inputs its two calls get
+     on day 100 of this run (run_days to day 100 records them); then
+     run_days, which steps the days as captured CUDA graphs
+     (reina_tpu_torch/core/graphs.py), counting every kernel's launches
+     in that run (a replay adds its graph's tally);
   4. checks the outcome: finite outputs of the expected shape, agents
      conserved every day, every kernel launched, and the final
      all_infected inside the JAX package's 1000-seed spread
      (373,466 ± 4 × 22,396, BENCH_MC.json);
+  4b. the graphs: the same run with the plain day step (graphs=False)
+     and again as graphs from the captured set; both must equal step 3's
+     outputs, final state and final carry bit for bit; it prints the
+     graphs captured (span and key), the capture seconds, replays and
+     host reads a day, ms/day and peak device memory of each mode;
   5. resumes at HUS scale: run_days to day 182 with a checkpoint, then
      a second run_days to day 364 that resumes from it; its outputs and
      final agent state must equal step 3's bit for bit;
@@ -185,6 +193,58 @@ def resume_phase(run, out, state, scratch: str) -> None:
             fail(f"resume: state.{name} differs from the uninterrupted run")
     print("resume: outputs and final state equal the uninterrupted run "
           "bit for bit")
+
+
+def graphs_phase(run, out, state, carry, wall: float, stats: dict,
+                 peak: int) -> None:
+    """The main path's graphed run against the plain day step and a
+    second graphed run from the captured set: equal bit for bit."""
+    import numpy as np
+    import torch
+    from reina_tpu_torch import convert
+    from reina_tpu_torch.core import graphs, step
+    from reina_tpu_torch.core.engine import run_days
+
+    steps = DAYS - 1
+    gs = graphs.acquire(run.cfg, run.arrays, run.schedules, run.device)
+    captured = sorted(gs.entries)
+    graphs.release(gs)
+    print(f"graphs: {stats.get('captures', 0)} captured in "
+          f"{stats.get('capture_s', 0.0):.3f} s (span, key): {captured}; "
+          f"{stats.get('replays', 0) / steps:.2f} replays and "
+          f"{stats['reads'] / steps:.2f} host reads a day; graphed "
+          f"{wall / steps * 1000:.2f} ms/day with the captures, peak "
+          f"device memory {peak / 2**30:.2f} GiB")
+    want = (out, state, carry)
+    for mode, graphed in (("eager", False), ("graphed again", True)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step.reset_stats()
+        t0 = time.perf_counter()
+        got = run_days(run, chunk_days=52, graphs=graphed)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = dict(step.STATS)
+        print(f"graphs: {mode} {secs / steps * 1000:.2f} ms/day "
+              f"({run.n_agents * steps / secs:.1f} agent-days/s), "
+              f"{st.get('captures', 0)} captures, "
+              f"{st.get('replays', 0) / steps:.2f} replays and "
+              f"{st['reads'] / steps:.2f} host reads a day, peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if graphed and st.get("captures", 0):
+            fail("graphs: the second graphed run captured again")
+        for name, a, b in zip(out._fields, want[0], got[0]):
+            if a.shape != b.shape or not np.array_equal(a, b):
+                fail(f"graphs: {mode}: outputs.{name} differ")
+        for what, w, g in (("state", want[1], got[1]),
+                           ("carry", want[2], got[2])):
+            w, g = convert.to_numpy(w), convert.to_numpy(g)
+            for k in w:
+                if not np.array_equal(w[k], g[k]):
+                    fail(f"graphs: {mode}: {what}.{k} differs")
+        del got
+    print("graphs: the graphed run equals the plain day step and the "
+          "replayed run on every output row, the final state and carry")
 
 
 def check_runs_launched(launches: dict, steps: int, runs: int,
@@ -863,14 +923,17 @@ def main() -> None:
     hold(checks.draw_checks(0, "cuda", captured))
     del captured
 
+    from reina_tpu_torch.core import step
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    step.reset_stats()
     t0 = time.perf_counter()
     out, state, carry, chunk_times = run_days(run, chunk_days=52)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launches()
     peak = torch.cuda.max_memory_allocated()
+    graph_stats = dict(step.STATS)
     steps = DAYS - 1
     final = int(out.by_group[-1, 3].sum())
     print(f"run_days: {wall:.3f} s for {steps} days "
@@ -897,6 +960,7 @@ def main() -> None:
     if not lo <= final <= hi:
         fail(f"final all_infected {final} outside [{lo:.0f}, {hi:.0f}]")
 
+    graphs_phase(run, out, state, carry, wall, graph_stats, peak)
     with tempfile.TemporaryDirectory(dir=here) as scratch:
         resume_phase(run, out, state, scratch)
     ens, ens_ms_day = ensemble_phase(run, v, out, peak - mem0, run_bytes)

@@ -1,7 +1,8 @@
 """REINA on PyTorch and CUDA: a port of the ``reina_tpu`` engine.
 
 The JAX package ``reina_tpu`` is the reference. This package runs its
-main path — ``core.engine.build_run`` → ``run_days`` → ``day_step`` —
+main path — ``core.engine.build_run`` → ``run_days`` → ``day_step``,
+on a card as captured CUDA graphs of the day's spans (``core.graphs``) —
 its driver (checkpoints, the build cache, ``simulate_individuals``, the
 CLI), seed ensembles and calibration sweeps, the parameter explorer and
 the serving runtime (GraphQL server, run workers, result cache, web UI)
@@ -19,7 +20,8 @@ Layout:
   data/        dataset loaders and their .npz archives (copies)
   utils/       locale, memoize (calcfunc), perf (PerfCounter)
   core/        constants, params, schedule, state (numpy host compile,
-               carried over from the JAX package), step, engine,
+               carried over from the JAX package), step (the day as
+               spans), graphs (the spans as CUDA graphs), engine,
                checkpoint (the JAX package's npz v6 layout), debug
                (person_str, dump_state, infection_tree)
   ops/         prng (jax.random's threefry, bit for bit), random

@@ -4,12 +4,14 @@ variables → compiled run on a device → days.
 ``build_run`` carries over the JAX package's numpy host compile and
 places every tensor on the device it is given; nothing picks a device
 by itself. ``reseed_run`` re-seeds a built run in numpy (the build
-cache's hit path). ``run_days`` steps the days eagerly, accumulating
-each chunk's outputs on the device, checks the problem bitmask at the
-end of every chunk, and checkpoints and resumes in the JAX package's
-file layout (``core/checkpoint.py``). Given a mesh whose agent axis has
-several ranks (parallel/mesh.py), ``run_days`` steps this rank's slab of
-the agents, bit-identical to the one-card run.
+cache's hit path). ``run_days`` steps the days — on a CUDA device as
+captured CUDA graphs of the day's spans (core/graphs.py), else with the
+plain day step —, keeps the outputs on the device until a sync point,
+fetches them there in one packed transfer and checks the problem
+bitmask, and checkpoints and resumes in the JAX package's file layout
+(``core/checkpoint.py``). Given a mesh whose agent axis has several
+ranks (parallel/mesh.py), ``run_days`` steps this rank's slab of the
+agents with the plain day step, bit-identical to the one-card run.
 """
 from __future__ import annotations
 
@@ -251,11 +253,62 @@ def stack_outputs(outs: List[DayOutputs]) -> DayOutputs:
     return DayOutputs(*cols)
 
 
+def _stack_device(outs: List[DayOutputs]) -> DayOutputs:
+    """Per-day outputs stacked along a leading day axis where they lie
+    (tensors on their device, host values as numpy)."""
+    return DayOutputs(*(torch.stack(list(v)) if isinstance(v[0], torch.Tensor)
+                        else np.stack([np.asarray(x) for x in v])
+                        for v in zip(*outs)))
+
+
+def _cat_device(chunks: List[DayOutputs]) -> DayOutputs:
+    return DayOutputs(*(torch.cat(list(v)) if isinstance(v[0], torch.Tensor)
+                        else np.concatenate(v) for v in zip(*chunks)))
+
+
+def pack_leaves(int_leaves, float_leaves):
+    """The JAX package's ``_pack_leaves`` (reina_tpu/core/engine.py):
+    the leaves flattened into one int32 and one float32 tensor on their
+    device. Exact: every integer output is < 2^24, and int32/float32
+    hold int16, int8 and bool losslessly."""
+    dev = (int_leaves + float_leaves)[0].device
+    i = (torch.cat([x.reshape(-1).to(torch.int32) for x in int_leaves])
+         if int_leaves else torch.zeros(0, dtype=torch.int32, device=dev))
+    f = (torch.cat([x.reshape(-1).to(torch.float32) for x in float_leaves])
+         if float_leaves else torch.zeros(0, dtype=torch.float32, device=dev))
+    return i, f
+
+
+def fetch_packed(outs: DayOutputs, problem):
+    """The JAX package's ``_fetch_chunk_packed``: stacked device outputs
+    and the problem scalar to the host in one int32 and one float32
+    transfer; returns (numpy DayOutputs, problem int). Host leaves pass
+    through as numpy."""
+    leaves = list(outs)
+    on_dev = [isinstance(x, torch.Tensor) for x in leaves]
+    is_int = [d and not x.is_floating_point() for x, d in zip(leaves, on_dev)]
+    ints = [x for x, b in zip(leaves, is_int) if b]
+    flts = [x for x, d, b in zip(leaves, on_dev, is_int) if d and not b]
+    pi, pf = pack_leaves(ints + [problem.reshape(1)], flts)
+    pi, pf = pi.cpu().numpy(), pf.cpu().numpy()
+    out, oi, of = [], 0, 0
+    for x, d, b in zip(leaves, on_dev, is_int):
+        if not d:
+            out.append(np.asarray(x))
+            continue
+        n = x.numel()
+        dt = torch.empty(0, dtype=x.dtype).numpy().dtype
+        src = pi[oi:oi + n] if b else pf[of:of + n]
+        out.append(src.reshape(tuple(x.shape)).astype(dt))
+        oi, of = (oi + n, of) if b else (oi, of + n)
+    return DayOutputs(*out), int(pi[oi])
+
+
 def run_chunk(cfg: EngineConfig, arrays: ModelArrays, schedules: Schedules,
               host_sched: Schedules, state: AgentState, carry: DayCarry,
               base_key, chunk_len: int, day0: int, shard=None):
-    """Step ``chunk_len`` days from ``day0``; returns (state, carry,
-    list of DayOutputs on the device)."""
+    """Step ``chunk_len`` days from ``day0`` with the plain day step;
+    returns (state, carry, list of DayOutputs on the device)."""
     dkeys = derive_day_keys(cfg, base_key, day0 + np.arange(chunk_len))
     outs = []
     for i in range(chunk_len):
@@ -271,28 +324,40 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
              chunk_days: int = 32, day_callback=None,
              seed: Optional[int] = None,
              checkpoint_dir: Optional[str] = None,
-             checkpoint_every: int = 64, resume: bool = True, mesh=None):
+             checkpoint_every: int = 64, resume: bool = True, mesh=None,
+             graphs: Optional[bool] = None):
     """Execute the run; returns (stacked DayOutputs as numpy with a
     leading day axis of ``n_days`` rows — row 0 is the initial
     snapshot —, final state, final carry, chunk times).
 
     ``day_callback(day, outputs_so_far)`` fires after each chunk;
-    returning False cancels the run with ExecutionInterrupted. The
-    problem bitmask is checked at the end of every chunk. With
+    returning False cancels the run with ExecutionInterrupted. With
     ``checkpoint_dir`` set, the full simulation state is saved at the
     first chunk end at least ``checkpoint_every`` days after the last
     save and at the end of the run, and (with ``resume``) a call
     resumes from the newest checkpoint there: bit-identical to an
     uninterrupted run.
 
+    Outputs stay on the device until a sync point, where they come to
+    the host in one packed transfer and the problem bitmask is checked:
+    the end of every chunk with a callback, a checkpoint directory or an
+    agent-sharded mesh, else the end of the run (as the JAX package).
+
+    ``graphs``: step the days as captured CUDA graphs (core/graphs.py),
+    bit-identical to the plain day step; the default on a CUDA device
+    (one card); False runs the plain day step. On the CPU, True runs the
+    graph runner's CPU model (recorded spans in place of graphs).
+
     ``mesh`` (parallel.mesh.Mesh) with an agent axis of k > 1 ranks:
     every rank of the agent group calls ``run_days`` on the same run,
-    steps its slab of the agents on its own device and returns the same
-    outputs as the unsharded run; the final state and carry are its
-    slab's. A checkpoint holds the whole run (gathered to the group's
-    first rank, which writes it), so a run resumes on any layout. With
-    one rank on the agent axis the mesh changes nothing."""
+    steps its slab of the agents on its own device with the plain day
+    step and returns the same outputs as the unsharded run; the final
+    state and carry are its slab's. A checkpoint holds the whole run
+    (gathered to the group's first rank, which writes it), so a run
+    resumes on any layout. With one rank on the agent axis the mesh
+    changes nothing."""
     from . import checkpoint as ckpt
+    from . import graphs as G
     from .. import convert
     n_days = n_days if n_days is not None else run.days
     base_key = prng.PRNGKey(run.random_seed if seed is None else seed)
@@ -305,15 +370,22 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
         device = mesh.device
     else:
         arrays, schedules, device = run.arrays, run.schedules, run.device
-        state = run.init_state
-        # the bucket table is updated in place by the day step: copy the
-        # run's initial table once so the run stays reusable
-        carry = run.init_carry._replace(
-            bkt_dst=run.init_carry.bkt_dst.clone())
+        state, carry = run.init_state, run.init_carry
+    if graphs is None:
+        graphs = device.type == "cuda" and shard is None
+    elif graphs and shard is not None:
+        raise ValueError("an agent-sharded run steps the plain day step "
+                         "(graphs=False)")
     host_sched = Schedules(*(x.cpu().numpy() for x in schedules))
 
-    rows = [stack_outputs([snapshot_outputs(cfg, arrays, state, carry,
-                                            np.float32(1.0), shard)])]
+    if shard is None and not graphs:
+        # the bucket table is updated in place by the day step: copy the
+        # run's initial table once so the run stays reusable
+        carry = carry._replace(bkt_dst=carry.bkt_dst.clone())
+    # device-resident until a sync point, then fetched rows
+    pending = [_stack_device([snapshot_outputs(cfg, arrays, state, carry,
+                                               np.float32(1.0), shard)])]
+    rows = []
     day = 0
     latest = (ckpt.latest_checkpoint(checkpoint_dir)
               if checkpoint_dir and resume else None)
@@ -327,41 +399,93 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
                                              cfg.max_infectees)
         day = carry.day
         if saved_out is not None:
-            rows = [saved_out]
+            pending, rows = [], [saved_out]
     steps_left = (n_days - 1) - day
-    chunk_times = []
-    since_ckpt = 0
-    while steps_left > 0:
-        this_chunk = min(chunk_days, steps_left)
-        t0 = time.perf_counter()
-        state, carry, outs = run_chunk(cfg, arrays, schedules, host_sched,
-                                       state, carry, base_key, this_chunk,
-                                       day, shard)
-        rows.append(stack_outputs(outs))
-        problem = carry.problem
+    sync_each_chunk = (day_callback is not None or checkpoint_dir is not None
+                       or shard is not None)
+    gs, plans, day0, bits = None, [], day, 0
+    leftover = carry.weekly_leftover
+    if graphs and steps_left > 0:
+        gs = G.acquire(cfg, arrays, schedules, device)
+        gs.start(state, carry, day)
+        plans = gs.prepare(host_sched, base_key, day, steps_left, leftover,
+                           state.age.shape[0])
+    synced = day
+
+    def sync():
+        """Fetch the pending outputs, check the problem bits."""
+        nonlocal pending, synced
+        if gs is not None:
+            if day > synced:
+                pending.append(gs.outputs(synced, day,
+                                          plans[synced - day0:day - day0]))
+            problem_t = gs.carry["problem"]
+        else:
+            problem_t = carry.problem
+        if pending:
+            out_np, problem = fetch_packed(_cat_device(pending), problem_t)
+            rows.append(out_np)
+            pending = []
+        else:
+            problem = int(problem_t)
+        synced = day
+        problem |= bits
         if shard is not None:
             # the bits of every rank, so that all raise together
-            problem = np.bitwise_or.reduce(
-                shard.all_gather(problem.reshape(1)).cpu().numpy())
+            problem = np.bitwise_or.reduce(shard.all_gather(
+                torch.tensor([problem], dtype=torch.int32,
+                             device=device)).cpu().numpy())
         check_problems(problem)
-        day += this_chunk
-        steps_left -= this_chunk
-        since_ckpt += this_chunk
-        chunk_times.append((this_chunk, time.perf_counter() - t0))
-        if checkpoint_dir and (since_ckpt >= checkpoint_every
-                               or steps_left == 0):
-            rows = [_concat(rows)]
-            path = ckpt.checkpoint_path(checkpoint_dir, day)
-            if shard is None:
-                ckpt.save_checkpoint(path, state, carry, rows[0])
+
+    chunk_times = []
+    since_ckpt = 0
+    try:
+        while steps_left > 0:
+            this_chunk = min(chunk_days, steps_left)
+            t0 = time.perf_counter()
+            if gs is not None:
+                chunk = plans[day - day0:day - day0 + this_chunk]
+                bits |= gs.step(chunk)
+                leftover = chunk[-1].leftover
             else:
-                ckpt.save_sharded(path, shard, state, carry, rows[0],
-                                  cfg.max_infectees)
-            since_ckpt = 0
-        if day_callback is not None:
-            rows = [_concat(rows)]
-            if not day_callback(day, rows[0]):
-                raise ExecutionInterrupted()
+                state, carry, outs = run_chunk(
+                    cfg, arrays, schedules, host_sched, state, carry,
+                    base_key, this_chunk, day, shard)
+                pending.append(_stack_device(outs))
+            day += this_chunk
+            steps_left -= this_chunk
+            since_ckpt += this_chunk
+            if sync_each_chunk or steps_left == 0:
+                sync()
+            chunk_times.append((this_chunk, time.perf_counter() - t0))
+            if checkpoint_dir and (since_ckpt >= checkpoint_every
+                                   or steps_left == 0):
+                rows = [_concat(rows)]
+                path = ckpt.checkpoint_path(checkpoint_dir, day)
+                st, cr = ((state, carry) if gs is None else
+                          gs.state_carry(day, leftover, bits, clone=False))
+                if shard is None:
+                    ckpt.save_checkpoint(path, st, cr, rows[0])
+                else:
+                    ckpt.save_sharded(path, shard, st, cr, rows[0],
+                                      cfg.max_infectees)
+                since_ckpt = 0
+            if day_callback is not None:
+                rows = [_concat(rows)]
+                if not day_callback(day, rows[0]):
+                    raise ExecutionInterrupted()
+        if pending or day > synced or not chunk_times:
+            sync()
+        if gs is not None:
+            state, carry = gs.state_carry(day, leftover, bits, clone=True)
+    except (C.SimulationFailed, ExecutionInterrupted):
+        # the run stopped, its graph set is sound (a set whose capture or
+        # replay failed is dropped, never reused)
+        if gs is not None:
+            G.release(gs)
+        raise
+    if gs is not None:
+        G.release(gs)
     return _concat(rows), state, carry, chunk_times
 
 

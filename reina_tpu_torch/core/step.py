@@ -13,17 +13,42 @@ with the same keys agrees field by field:
   6. merge of new infections (imports + contacts) with attribution
   7. per-age-group output counts
 
-PyTorch runs eagerly, so the JAX package's ``lax.cond``/``lax.switch``
-tiers become host decisions on counts read from the device; each tier
-still draws at its ceiling's shape, which keeps the random streams
-bit-equal. Scatters with the JAX package's ``mode="drop"`` sentinels go
-to one spare slot past the end of a buffer, or are cut to the prefix of
-used slots, which the host knows. The four fused per-agent bodies below
-(``prologue``, ``recv_front``, ``post``, ``finalize``) are the plain
-twins of the Triton kernels in reina_tpu_torch/kernels/fused_bodies.py;
+The JAX package compiles the day, and picks each data-dependent size on
+the device (``lax.cond``/``lax.switch`` into geometric tiers). Here the
+host picks the tiers from counts it reads from the device, so the day
+is a short sequence of spans, each ending where the host must read:
+
+  A       day start: capacity builds, the drain, yesterday's bucket
+          appends; on a tracing day the drained agents' compaction,
+          ending at the read of (ct_cases, n_d);
+  T1-T4   tracing (days with ct_cases > 0): level 1 to the read of its
+          bucket column ceiling, its buckets and the frontier's
+          compaction to the read of n_f, level 2 to the read of its
+          column ceiling, its buckets;
+  B       vaccination, exposure, the ledger, the post pass, imports and
+          both prefixes, ending at the read of n_new (A and B are one
+          span "AB" on a day without contact tracing);
+  C       the slot pipeline, the bucket appends, finalize and phase 7.
+
+Each span is keyed by what the host decided: the tier it picked after a
+read (``_tier_end``, the JAX package's searchsorted into the ceilings),
+and what the schedule says (tracing on, a vaccination day, imports).
+Each tier still draws at its ceiling's shape, which keeps the random
+streams bit-equal. A span reads every value that varies from day to day
+from device memory: the day row (``DayIn``: the day, the schedule's
+scalars, the ledger's offset, the import counts, the mobility and mask
+tables and the day's keys as ``prng.DevKey``s), the state, the carry and
+the tensors earlier spans handed on; host values reach it only through
+its key. ``run_day`` runs the spans through an executor: the plain
+``day_step`` runs them as they come (``EagerSpans``), the graph runner
+(core/graphs.py) replays each (span, key) as a captured CUDA graph.
+Scatters with the JAX package's ``mode="drop"`` sentinels go to one
+spare slot past the end of a buffer. The four fused per-agent bodies
+below (``prologue``, ``recv_front``, ``post``, ``finalize``) are the
+plain twins of the kernels in reina_tpu_torch/kernels/fused_bodies.py;
 ``fused_map`` picks one or the other by device.
 
-An agent-sharded run (parallel/mesh.py) steps the same function with a
+An agent-sharded run (parallel/mesh.py) steps the same spans with a
 ``shard``: per-agent tensors then hold this rank's slab of the agent
 axis, 1-D draws over the agents take their slab's counters, indices into
 the agent axis stay global, and the points where the day crosses agents
@@ -38,8 +63,9 @@ is the plain op.
 from __future__ import annotations
 
 from bisect import bisect_left
+from collections import Counter
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -52,6 +78,7 @@ from ..ops.compact import compact_indices
 from ..ops.fusedmap import (fused_bihistogram, fused_concat_prefix,
                             fused_fn_onehot_sum, fused_map,
                             fused_onehot_sum, sharded_concat_prefix)
+from ..ops import random as samplers
 from ..ops.random import binomial_fixed, gamma_fixed, searchsorted
 
 I8, I16, I32, I64 = torch.int8, torch.int16, torch.int32, torch.int64
@@ -114,7 +141,8 @@ class ModelArrays(NamedTuple):
 
 class SchedRow(NamedTuple):
     """One day of the schedules: the (A, P) tables as device tensors,
-    everything else as host numpy values."""
+    everything else as host numpy values (``plan_day`` turns them into
+    the day row)."""
     mobility: torch.Tensor        # (A, P)
     mobility_scalar: np.float32
     mask_p: torch.Tensor          # (A, P)
@@ -130,6 +158,8 @@ class SchedRow(NamedTuple):
 
 
 class DayOutputs(NamedTuple):
+    """One day's outputs: tensors on the run's device, but
+    ``mobility_limitation``, a host value."""
     by_group: torch.Tensor        # (13, G) int32
     available_hospital_beds: torch.Tensor
     available_icu_units: torch.Tensor
@@ -194,19 +224,20 @@ def severity_from_uniform(val, syc_raw, dohc, sc, cc, fc, vmod):
     return sev.to(I8), outside
 
 
-def vaccine_modifier(dov_i, day: int):
+def vaccine_modifier(dov_i, day):
     return torch.where((dov_i >= 0) & ((day - dov_i.to(I32))
                                        > C.VACCINE_DELAY_DAYS),
                        1.0 - C.VACCINE_EFFICACY, 1.0).to(F32)
 
 
-def severity_draw_slots(key, arrays, v_i, age_i, dov_i, day: int):
+def severity_draw_slots(key, arrays, v_i, age_i, dov_i, day):
     """get_symptom_severity (main.pyx:1041-1091) on the infection-slot
     domain: one uniform per slot from ``key``, then the decision chain
     on the (variant, age) table entries of ``arrays`` (any object with
     the p_sympt, p_doh, p_severe_c, p_critical_c and p_fatal_c tables as
-    tensors). The day step and the parameter explorer (``sampling.py``)
-    both draw through it. Returns (severity int8, death_outside bool)."""
+    tensors); ``day`` an int or a 0-d tensor. The day step and the
+    parameter explorer (``sampling.py``) both draw through it. Returns
+    (severity int8, death_outside bool)."""
     val = prng.uniform(key, tuple(v_i.shape), v_i.device)
     return severity_from_uniform(
         val, arrays.p_sympt[v_i, age_i], arrays.p_doh[v_i, age_i],
@@ -312,12 +343,11 @@ def recv_front(band, lam, isinf, hasimm, act, u_inf, u_var, st8, doi, dl,
 
     asympt = sev == C.ASYMPTOMATIC
     seek = onset & ~asympt & ~wdet
-    if mode in (C.TESTING_ALL_WITH_SYMPTOMS, C.TESTING_ALL_WITH_SYMPTOMS_CT):
-        queue_new = seek
-    elif mode == C.TESTING_ONLY_SEVERE_SYMPTOMS:
-        queue_new = seek & ((sev >= C.SEVERE) | (u_day < dap))
-    else:
-        queue_new = torch.zeros_like(seek)
+    # mode and dap: numbers or 0-d tensors (the day row)
+    queue_new = seek & ((mode == C.TESTING_ALL_WITH_SYMPTOMS)
+                        | (mode == C.TESTING_ALL_WITH_SYMPTOMS_CT)
+                        | ((mode == C.TESTING_ONLY_SEVERE_SYMPTOMS)
+                           & ((sev >= C.SEVERE) | (u_day < dap))))
 
     ill_end = adv_ill & fire
     die_home = ill_end & (sev == C.FATAL) & dout
@@ -388,7 +418,7 @@ def finalize(st8, sev8, var8, var_new, dl, doil, doi, newly, isinf, trc,
     doil_n = torch.where(newly, 0, doil.to(I32))
     return (st_n.to(I8), sev8.clone(), var_n.to(I8), dl.clone(),
             doil_n.to(I16), doi_n.to(I16), isinf | newly,
-            trc | (newly & bool(ct)), det | det_hosp)
+            trc | (newly & (ct != 0)), det | det_hosp)
 
 
 def _output_masks_reduced(active, is_inf, has_imm, dov, det, st, ever_icu,
@@ -425,6 +455,10 @@ def tier_bounds(head: int, cap: int):
         out.append((lo, seg))
         lo += seg
     return out
+
+
+def _ceilings(head: int, cap: int):
+    return [lo + seg for lo, seg in tier_bounds(min(head, cap), cap)]
 
 
 def _tier_end(ends, x: int) -> int:
@@ -480,6 +514,151 @@ def derive_day_keys(cfg: EngineConfig, base_key, days) -> DayKeys:
         sev=tab(ks[:, 5], np.arange(pk)))
 
 
+# the day's draws in the key table: plain keys (2 words), the samplers'
+# keys followed by their split words (ops/random.py) for the rounds the
+# day step runs (the samplers' defaults)
+_PLAIN_KEYS = ("contact", "inf", "var", "imp", "anyway", "mem", "l1", "e1",
+               "e2", "attr_age", "attr_src", "sev")
+GAMMA_ROUNDS, BINOMIAL_ROUNDS = 4, 6
+_SAMPLER_KEYS = (("gam1", samplers.gamma_words, GAMMA_ROUNDS),
+                 ("gam2", samplers.gamma_words, GAMMA_ROUNDS),
+                 ("bin", samplers.binomial_words, BINOMIAL_ROUNDS),
+                 ("place", samplers.binomial_words, BINOMIAL_ROUNDS))
+
+
+def _day_key_pairs(cfg: EngineConfig, dk: DayKeys) -> Dict[str, np.ndarray]:
+    """The (…, 2) key of each draw of the day, by slot name."""
+    b = dk.base
+    keys = dict(
+        contact=b[..., 0, :], bin=b[..., 1, :], place=b[..., 2, :],
+        inf=b[..., 3, :], var=b[..., 4, :], imp=b[..., 10, :],
+        anyway=b[..., 13, :], mem=dk.k_mem, l1=dk.l1[..., 0, :],
+        e1=dk.e1[..., 0, :], e2=dk.e2[..., 0, :],
+        attr_age=dk.attr_age[..., 0, :], attr_src=dk.attr_src[..., 0, :],
+        sev=dk.sev[..., 0, :], gam1=dk.gam1[..., 0, :],
+        gam2=dk.gam2[..., 0, :])
+    for s in range(cfg.vacc_slots):
+        keys[f"vacc{s}"] = dk.vacc[..., s, :]
+    return keys
+
+
+def key_slots(cfg: EngineConfig) -> Dict[str, tuple]:
+    """Slot name → (first word, words, rounds) in a day's key table."""
+    slots, at = {}, 0
+    names = _PLAIN_KEYS + tuple(f"vacc{s}" for s in range(cfg.vacc_slots))
+    for name in names:
+        slots[name] = (at, 2, 0)
+        at += 2
+    for name, words_of, rounds in _SAMPLER_KEYS:
+        w = 2 + words_of(np.zeros(2, np.uint32), rounds).size
+        slots[name] = (at, w, rounds)
+        at += w
+    return slots
+
+
+def key_table(cfg: EngineConfig, dk: DayKeys) -> np.ndarray:
+    """The key table of a day (…, KW) uint32, vectorised over the leading
+    axes of ``dk`` (``derive_day_keys``'s day axis)."""
+    pairs = _day_key_pairs(cfg, dk)
+    words_of = {name: (f, r) for name, f, r in _SAMPLER_KEYS}
+    cols = []
+    for name in key_slots(cfg):
+        cols.append(pairs[name])
+        if name in words_of:
+            f, rounds = words_of[name]
+            cols.append(f(pairs[name], rounds))
+    return np.concatenate(cols, axis=-1).astype(np.uint32)
+
+
+def dev_keys(cfg: EngineConfig, words: torch.Tensor) -> Dict[str, "prng.DevKey"]:
+    """The DevKey of each slot of a key table held in ``words`` (KW,)
+    int32 on a device: views, so a table rewritten in place gives the
+    draws their new keys."""
+    return {name: prng.DevKey(words[at:at + w], rounds)
+            for name, (at, w, rounds) in key_slots(cfg).items()}
+
+
+# ---------------------------------------------------------------------------
+# the day row: what varies from day to day, decided on the host from the
+# schedule and put where the spans read it
+
+# int32 row: the day, the testing mode, contact tracing on, the capacity
+# builds, the ledger's sweep offset, today's imports and their cumulative
+# counts by variant (V entries from I_CUM_IMP)
+I_DAY, I_MODE, I_CT, I_BEDS, I_ICU, I_OFFSET, I_TOT_IMP, I_CUM_IMP = range(8)
+# float32 row: trace_p, detect_anyway_p, floor(vacc_nr) of each slot
+F_TRACE, F_DAP, F_VACC = range(3)
+
+
+class DayPlan(NamedTuple):
+    """A day as the host sees it before it runs."""
+    day: int
+    ct_active: bool        # contact tracing on (testing mode ..._CT)
+    vacc: bool             # a vaccination day
+    imports: bool          # imported infections today
+    problem: int           # problem bits known from the schedule
+    leftover: np.ndarray   # the weekly-import carry after today (V,)
+    mobility_limitation: np.float32
+    ints: np.ndarray       # the int32 day row
+    floats: np.ndarray     # the float32 day row
+
+
+def plan_day(cfg: EngineConfig, sched: SchedRow, leftover, day: int,
+             dk: DayKeys, n_agents: int) -> DayPlan:
+    """Phase 1's host arithmetic (the weekly imports in float32, as the
+    JAX package's device arithmetic) and the day row; ``n_agents``: the
+    run's (padded) agent count, the range of the ledger's offset."""
+    leftover = (np.asarray(leftover, np.float32)
+                + np.float32(sched.weekly_amount) / np.float32(7.0)
+                * np.asarray(sched.weekly_shares, np.float32))
+    weekly_today = np.floor(leftover).astype(np.int32)
+    leftover = (leftover - weekly_today.astype(np.float32)).astype(np.float32)
+    import_counts = np.asarray(sched.import_today, np.int32) + weekly_today
+    cum_imp = np.cumsum(import_counts).astype(np.int32)
+    tot_imports = int(cum_imp[-1])
+    mode = int(sched.testing_mode)
+    ct_active = mode == C.TESTING_ALL_WITH_SYMPTOMS_CT
+    vacc_nr = np.asarray(sched.vacc_nr, np.float32)
+    offset = prng.randint_scalar(dk.base[14], 0, n_agents)
+    ints = np.array([day, mode, int(ct_active), int(sched.beds_build),
+                     int(sched.icu_build), offset, tot_imports, *cum_imp],
+                    np.int32)
+    floats = np.array([sched.trace_p, sched.detect_anyway_p,
+                       *np.floor(vacc_nr)], np.float32)
+    return DayPlan(
+        day=day, ct_active=ct_active,
+        vacc=bool(np.sum(vacc_nr) >= 1.0), imports=tot_imports > 0,
+        problem=(C.PROBLEM_IMPORT_BUFFER_OVERFLOW
+                 if tot_imports > cfg.import_buffer else 0),
+        leftover=leftover,
+        mobility_limitation=np.float32(1.0) - np.float32(
+            sched.mobility_scalar),
+        ints=ints, floats=floats)
+
+
+class DayIn(NamedTuple):
+    """The day row on the device, where the spans read it."""
+    ints: torch.Tensor     # int32 (I_CUM_IMP + V,)
+    floats: torch.Tensor   # float32 (F_VACC + S,)
+    mobility: torch.Tensor  # (A, P)
+    mask_p: torch.Tensor   # (A, P)
+    keys: Dict[str, "prng.DevKey"]   # views of the day's key table
+
+
+def day_inputs(cfg: EngineConfig, plan: DayPlan, words: np.ndarray,
+               mobility: torch.Tensor, mask_p: torch.Tensor) -> DayIn:
+    """A DayIn on the mobility table's device, from a plan and the day's
+    key table."""
+    dev = mobility.device
+
+    def up(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return DayIn(up(plan.ints), up(plan.floats), mobility, mask_p,
+                 dev_keys(cfg, up(np.asarray(words, np.uint32)
+                                  .view(np.int32))))
+
+
 def _spare(x, fill):
     """x with one spare element appended (a drop target for scatters)."""
     return torch.cat([x, torch.full((1,), fill, dtype=x.dtype,
@@ -510,11 +689,10 @@ def _look(shard, arrays, idx, scale: int = 1):
 
 
 def _put(shard, x, idx, vals):
-    """x.index_put((idx,), vals) at global indices, by their owner."""
-    if shard is None:
-        return x.index_put((idx,), vals)
+    """x with vals put at global indices ``idx``, by their owner; the
+    sentinel N drops."""
     n = x.shape[0]
-    return _spare(x, 0).index_put_((shard.local(idx).long(),), vals)[:n]
+    return _spare(x, 0).index_put_((_local(shard, idx).long(),), vals)[:n]
 
 
 def _add(shard, x, idx, vals):
@@ -539,148 +717,187 @@ def _compact(shard, mask, capacity: int):
     return torch.where(used, buf, shard.n), count
 
 
+def _dims(state: AgentState, shard):
+    """(agents here, agents in the run, the first one here, device)."""
+    n = state.age.shape[0]
+    return (n, n if shard is None else shard.n,
+            0 if shard is None else shard.lo, state.age.device)
+
+
 # ---------------------------------------------------------------------------
-# the day
+# the spans: span(cfg, arrays, din, state, carry, env, *key, shard) →
+# dict of tensors; ``env`` holds what the earlier spans of the day gave.
+# A span reads no host value but its key's, and writes in place only
+# the carry's bucket table.
 
-def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
-             state: AgentState, carry: DayCarry, dk: DayKeys, shard=None):
-    """Advance one day. Returns (state, carry, DayOutputs).
-
-    ``carry.bkt_dst`` is updated in place (it is N·64 int32; the engine
-    copies the run's initial table once per run); every other input is
-    left as it was. ``shard`` (parallel.mesh.AgentShard): step this
-    rank's slab of an agent-sharded run; the outputs and the carry's
-    scalars come out replicated."""
-    n = state.age.shape[0]                 # agents here
-    N = n if shard is None else shard.n    # agents in the run
-    lo = 0 if shard is None else shard.lo  # the first one here
-    A = arrays.age_start.shape[0] - 1
-    V = cfg.nr_variants
-    dev = state.age.device
-    day = int(carry.day)
-    (k_contact, k_bin, k_place, k_inf, k_var, _k_sev, _k_gam1, _k_gam2,
-     _k_attr_age, _k_attr_src, k_imp, _k_trace1, _r1, k_anyway,
-     k_offset, _r2, _r3) = dk.base
-
-    age = state.age.to(I32)
-    st = state.state
-    active = state.active
-    problem = carry.problem
-    trace_p = float(sched.trace_p)
-
-    # ---- phase 1: capacity builds + weekly imports (host arithmetic
-    # in float32, as the JAX package's device arithmetic)
-    beds_total = carry.beds_total + int(sched.beds_build)
-    icu_total = carry.icu_total + int(sched.icu_build)
-    beds_avail = carry.beds_avail + int(sched.beds_build)
-    icu_avail = carry.icu_avail + int(sched.icu_build)
-    leftover = (np.asarray(carry.weekly_leftover, np.float32)
-                + np.float32(sched.weekly_amount) / np.float32(7.0)
-                * np.asarray(sched.weekly_shares, np.float32))
-    weekly_today = np.floor(leftover).astype(np.int32)
-    leftover = (leftover - weekly_today.astype(np.float32)).astype(np.float32)
-    import_counts = np.asarray(sched.import_today, np.int32) + weekly_today
-
-    # ---- phase 3: testing drain, tracing, vaccination
+def span_a(cfg: EngineConfig, arrays: ModelArrays, din: DayIn,
+           state: AgentState, carry: DayCarry, env, trace: bool,
+           shard=None):
+    """Day start: capacity builds, the testing queue's drain (phase 3)
+    and yesterday's pending bucket appends; with ``trace``, the
+    compaction of the drained agents and the counts (ct_cases, n_d)."""
+    _, N, _, _ = _dims(state, shard)
     drained = state.queued
-    ct_cases = _total(shard, torch.sum(drained & active, dtype=I32))
-    newly_detected = drained & ~state.was_detected
-    was_detected = state.was_detected | drained
-    detected_today = newly_detected
-    queued = torch.zeros_like(drained)
-    ct_active = int(sched.testing_mode) == C.TESTING_ALL_WITH_SYMPTOMS_CT
-    is_dead = st == C.DEAD
-
-    Tcap = cfg.infection_buffer
-    CAPB = cfg.max_infectees
-    NC = N * CAPB
-    bkt_fill = carry.bkt_fill
+    drained_here = drained & state.active
+    ct_cases = _total(shard, torch.sum(drained_here, dtype=I32))
+    out = dict(
+        beds_total=carry.beds_total + din.ints[I_BEDS],
+        icu_total=carry.icu_total + din.ints[I_ICU],
+        beds_avail=carry.beds_avail + din.ints[I_BEDS],
+        icu_avail=carry.icu_avail + din.ints[I_ICU],
+        ct_cases=ct_cases,
+        detected_today=drained & ~state.was_detected,
+        wdet=state.was_detected | drained,
+        queued=torch.zeros_like(drained))
     # yesterday's pending bucket appends; drop sentinels (≥ NC) land in
     # the table's spare last slot
-    bd = carry.bkt_dst
-    app = (torch.clamp_max(carry.app_pos, NC) if shard is None
+    CAPB = cfg.max_infectees
+    app = (torch.clamp_max(carry.app_pos, N * CAPB) if shard is None
            else shard.local(carry.app_pos, CAPB))
-    bd.index_put_((app.long(),), carry.app_val)
-    col_ends = [lo + seg for lo, seg in
-                tier_bounds(min(cfg.bucket_head, CAPB), CAPB)]
-    mem_sizes = [lo + seg for lo, seg in
-                 tier_bounds(min(cfg.infection_head, Tcap), Tcap)]
+    carry.bkt_dst.index_put_((app.long(),), carry.app_val)
+    if trace:
+        dbuf, n_d = _compact(shard, drained_here, cfg.infection_buffer)
+        out.update(dbuf=dbuf, counts=torch.stack([ct_cases, n_d]))
+    return out
 
-    def do_tracing(queued):
-        eligible = active & ~is_dead & ~was_detected & ~queued
-        u_mem = prng.uniform(dk.k_mem, (n,), dev, start=lo)
-        infector = state.infector
-        r2_tab = torch.where(eligible & (u_mem < trace_p) & (infector >= 0),
-                             infector, N)
 
-        def bucket_passes(members_buf, src_ok, ktab, with_recurse, hit,
-                          hit_r2, n_m):
-            end = _tier_end(mem_sizes, min(n_m, Tcap))
-            seg_buf = members_buf[:end]
-            used = seg_buf < N
-            bp = torch.clamp(seg_buf, 0, N - 1).long()
-            srcs = [bkt_fill] if src_ok is None else [bkt_fill, src_ok]
-            fill_b = _look(shard, srcs, bp)
-            ok_m = used if src_ok is None else used & fill_b[1]
-            fill_m = torch.where(ok_m, torch.clamp_max(fill_b[0], CAPB), 0)
-            jend = _tier_end(col_ends, int(fill_m.max()))
-            cols = torch.arange(jend, dtype=I64, device=dev)
-            idx = (bp[:, None] * CAPB + cols[None, :]).reshape(-1)
-            dst = _look(shard, [bd], idx, CAPB)[0].reshape(end, jend)
-            live = cols[None, :] < fill_m[:, None]
-            u = prng.uniform(ktab[0], (end, jend), dev)
-            fire = live & (u < trace_p)
-            tgt = torch.where(fire, dst, N).reshape(-1)
-            hit[_local(shard, tgt).long()] = True
-            if with_recurse:
-                r2 = _look(shard, [r2_tab],
-                           torch.clamp(dst, 0, N - 1).long())[0]
-                t2 = torch.where(fire, r2, N).reshape(-1)
-                hit_r2[_local(shard, t2).long()] = True
-            return hit, hit_r2
+def _mark(x, idx, value: bool) -> None:
+    """x[idx] = value, the value made on x's device (a Python scalar
+    put into a CUDA tensor is copied from the host, which a graph
+    capture refuses)."""
+    x.index_put_((idx.long(),), torch.full((), value, dtype=x.dtype,
+                                           device=x.device))
 
-        def blank():
-            return torch.zeros(n + 1, dtype=torch.bool, device=dev)
 
-        # level 1: the drained queue
-        dbuf, n_d = _compact(shard, drained & active, Tcap)
-        n_d = int(n_d)
-        end = _tier_end(mem_sizes, min(n_d, Tcap))
-        seg_buf = dbuf[:end]
-        used = seg_buf < N
-        inf_s = _look(shard, [infector],
-                      torch.clamp(seg_buf, 0, N - 1).long())[0]
-        u1 = prng.uniform(dk.l1[0], (end,), dev)
-        succ = used & (inf_s >= 0) & (u1 < trace_p)
-        tgt = torch.where(succ, inf_s, N)
-        hit1, hit_r2a = blank(), blank()
-        hit1[_local(shard, tgt).long()] = True
-        r2 = _look(shard, [r2_tab], torch.clamp(tgt, 0, N - 1).long())[0]
-        t2a = torch.where(succ, r2, N)
-        hit_r2a[_local(shard, t2a).long()] = True
-        hit12, hit_r2ab = bucket_passes(dbuf, state.is_infected, dk.e1, True,
-                                        hit1, hit_r2a, n_d)
-        newq1 = eligible & hit12[:n]
-        # level 2: infectee buckets of the compacted frontier
-        frontier = newq1 & state.is_infected & (bkt_fill > 0)
-        fbuf, n_f = _compact(shard, frontier, Tcap)
-        n_f = int(n_f)
-        hit2_l2, _ = bucket_passes(fbuf, None, dk.e2, False, blank(),
-                                   blank(), n_f)
-        return (queued | (eligible & (hit12[:n] | hit_r2ab[:n]
-                                      | hit2_l2[:n])),
-                (n_d > Tcap) or (n_f > Tcap))
+def _blank(n: int, dev):
+    return torch.zeros(n + 1, dtype=torch.bool, device=dev)
 
-    if ct_active and int(ct_cases) > 0:
-        queued, trace_overflow = do_tracing(queued)
-        if trace_overflow:
-            problem = problem | C.PROBLEM_TRACING_BUFFER_OVERFLOW
+
+def _bucket_setup(cfg, state, carry, members_buf, src_ok, end: int, shard):
+    """The first ``end`` slots of a compacted member buffer: their agents
+    (bp) and their bucket fills (0 for empty slots and, with ``src_ok``,
+    for members it rules out)."""
+    _, N, _, _ = _dims(state, shard)
+    seg_buf = members_buf[:end]
+    used = seg_buf < N
+    bp = torch.clamp(seg_buf, 0, N - 1).long()
+    srcs = [carry.bkt_fill] if src_ok is None else [carry.bkt_fill, src_ok]
+    fill_b = _look(shard, srcs, bp)
+    ok_m = used if src_ok is None else used & fill_b[1]
+    fill_m = torch.where(ok_m, torch.clamp_max(fill_b[0], cfg.max_infectees),
+                         0)
+    return bp, fill_m
+
+
+def _bucket_cols(cfg, din, state, carry, bp, fill_m, end: int, jend: int,
+                 key, hit, hit_r2, r2_tab, shard):
+    """The first ``jend`` columns of the members' infectee buckets, each
+    traced with probability trace_p: marks the hit infectees in ``hit``
+    and, with ``hit_r2``, their r2_tab entries."""
+    _, N, _, dev = _dims(state, shard)
+    CAPB = cfg.max_infectees
+    cols = torch.arange(jend, dtype=I64, device=dev)
+    idx = (bp[:, None] * CAPB + cols[None, :]).reshape(-1)
+    dst = _look(shard, [carry.bkt_dst], idx, CAPB)[0].reshape(end, jend)
+    live = cols[None, :] < fill_m[:, None]
+    u = prng.uniform(key, (end, jend), dev)
+    fire = live & (u < din.floats[F_TRACE])
+    tgt = torch.where(fire, dst, N).reshape(-1)
+    _mark(hit, _local(shard, tgt), True)
+    if hit_r2 is not None:
+        r2 = _look(shard, [r2_tab], torch.clamp(dst, 0, N - 1).long())[0]
+        t2 = torch.where(fire, r2, N).reshape(-1)
+        _mark(hit_r2, _local(shard, t2), True)
+
+
+def span_t1(cfg, arrays, din, state, carry, env, end: int, shard=None):
+    """Tracing level 1 on the first ``end`` drained agents: each one's
+    infector (and its own infector, r2), then the bucket column ceiling
+    of their infectee buckets."""
+    n, N, lo, dev = _dims(state, shard)
+    trace_p = din.floats[F_TRACE]
+    eligible = (state.active & ~(state.state == C.DEAD) & ~env["wdet"]
+                & ~env["queued"])
+    u_mem = prng.uniform(din.keys["mem"], (n,), dev, start=lo)
+    infector = state.infector
+    r2_tab = torch.where(eligible & (u_mem < trace_p) & (infector >= 0),
+                         infector, N)
+    seg_buf = env["dbuf"][:end]
+    used = seg_buf < N
+    inf_s = _look(shard, [infector],
+                  torch.clamp(seg_buf, 0, N - 1).long())[0]
+    u1 = prng.uniform(din.keys["l1"], (end,), dev)
+    succ = used & (inf_s >= 0) & (u1 < trace_p)
+    tgt = torch.where(succ, inf_s, N)
+    hit1, hit_r2 = _blank(n, dev), _blank(n, dev)
+    _mark(hit1, _local(shard, tgt), True)
+    r2 = _look(shard, [r2_tab], torch.clamp(tgt, 0, N - 1).long())[0]
+    _mark(hit_r2, _local(shard, torch.where(succ, r2, N)), True)
+    _, fill_m = _bucket_setup(cfg, state, carry, env["dbuf"],
+                              state.is_infected, end, shard)
+    return dict(eligible=eligible, r2_tab=r2_tab, hit1=hit1, hit_r2=hit_r2,
+                fill_max=fill_m.max())
+
+
+def span_t2(cfg, arrays, din, state, carry, env, end: int, jend: int,
+            shard=None):
+    """Level 1's infectee buckets (``jend`` columns), then the
+    compaction of the level-2 frontier and its count n_f."""
+    n, _, _, _ = _dims(state, shard)
+    bp, fill_m = _bucket_setup(cfg, state, carry, env["dbuf"],
+                               state.is_infected, end, shard)
+    hit, hit_r2 = env["hit1"].clone(), env["hit_r2"].clone()
+    _bucket_cols(cfg, din, state, carry, bp, fill_m, end, jend,
+                 din.keys["e1"], hit, hit_r2, env["r2_tab"], shard)
+    newq1 = env["eligible"] & hit[:n]
+    frontier = newq1 & state.is_infected & (carry.bkt_fill > 0)
+    fbuf, n_f = _compact(shard, frontier, cfg.infection_buffer)
+    return dict(hit12=hit, hit_r2ab=hit_r2, fbuf=fbuf, n_f=n_f)
+
+
+def span_t3(cfg, arrays, din, state, carry, env, end: int, shard=None):
+    """Level 2: the bucket column ceiling of the first ``end`` frontier
+    agents."""
+    _, fill_m = _bucket_setup(cfg, state, carry, env["fbuf"], None, end,
+                              shard)
+    return dict(fill2_max=fill_m.max())
+
+
+def span_t4(cfg, arrays, din, state, carry, env, end: int, jend: int,
+            shard=None):
+    """Level 2's infectee buckets; the day's testing queue."""
+    n, _, _, dev = _dims(state, shard)
+    bp, fill_m = _bucket_setup(cfg, state, carry, env["fbuf"], None, end,
+                               shard)
+    hit2 = _blank(n, dev)
+    _bucket_cols(cfg, din, state, carry, bp, fill_m, end, jend,
+                 din.keys["e2"], hit2, None, None, shard)
+    queued = env["queued"] | (env["eligible"]
+                              & (env["hit12"][:n] | env["hit_r2ab"][:n]
+                                 | hit2[:n]))
+    return dict(queued=queued)
+
+
+def span_b(cfg, arrays, din, state, carry, env, vacc: bool, imports: bool,
+           shard=None):
+    """Vaccination (a vaccination day), exposure, progression through
+    the ledgers and the post pass, imports (a day with imports) and the
+    prefixes of today's infections; ends with n_new."""
+    n, N, lo, dev = _dims(state, shard)
+    A = arrays.age_start.shape[0] - 1
+    V = cfg.nr_variants
+    day = din.ints[I_DAY]
+    kd = din.keys
+    age = state.age.to(I32)
+    active = state.active
+    is_dead = state.state == C.DEAD
+    wdet = env["wdet"]
 
     dov = state.day_of_vaccination
-    if np.sum(np.asarray(sched.vacc_nr, np.float32)) >= 1.0:
+    if vacc:
         for s in range(cfg.vacc_slots):
-            nr = float(np.floor(np.float32(sched.vacc_nr[s])))
-            eligible = (active & ~is_dead & ~was_detected & (dov < 0)
+            nr = din.floats[F_VACC + s]
+            eligible = (active & ~is_dead & ~wdet & (dov < 0)
                         & (age >= arrays.vacc_min_age[s])
                         & (age <= arrays.vacc_max_age[s]))
             counts = _total(shard, fused_onehot_sum(
@@ -693,15 +910,15 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
                 torch.where(counts <= need_a, 1.0,
                             torch.clamp(need_a / torch.clamp_min(counts, 1.0),
                                         0.0, 1.0)))
-            u_vac = prng.uniform(dk.vacc[s], (n,), dev, start=lo)
+            u_vac = prng.uniform(kd[f"vacc{s}"], (n,), dev, start=lo)
             take = eligible & (u_vac < expand_by_age(arrays, frac_eff))
             dov = torch.where(take, day, dov.to(I32)).to(I16)
 
     # ---- phase 4: exposure
-    q = arrays.contact_base * sched.mobility[:, :, None]          # (A, P, B)
+    q = arrays.contact_base * din.mobility[:, :, None]            # (A, P, B)
     nc_a = q.sum(dim=(1, 2))
     q_hat = q / torch.clamp_min(nc_a, 1e-9)[:, None, None]
-    z = prng.normal(k_contact, (n,), dev, start=lo)
+    z = prng.normal(kd["contact"], (n,), dev, start=lo)
     # a pure function of mobility: recomputing it every day equals the
     # JAX package's carried copy
     nc_ag = expand_by_age(arrays, nc_a)
@@ -709,7 +926,7 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
         prologue,
         [state.state, state.days_left, state.day_of_illness,
          state.day_of_infection, state.severity, state.variant,
-         was_detected, state.is_infected, active, z, nc_ag,
+         wdet, state.is_infected, active, z, nc_ag,
          state.included_in_totals, state.n_infected],
         [arrays.iot, arrays.asymp_mult, arrays.inf_mult, day])
     VTS = V * C.IOT_LEN * 2
@@ -723,7 +940,7 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
         total_infections.to(F32) / torch.clamp_min(total_infectors, 1).to(F32),
         0.0)
 
-    m = sched.mask_p                                               # (A, P)
+    m = din.mask_p                                                 # (A, P)
     a_ = m[None] * arrays.mask_po[:, None, None]
     b_ = m[None] * arrays.mask_pw[:, None, None]
     save = a_ + b_ - a_ * b_                                       # (V, A, P)
@@ -736,13 +953,13 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
                          arrays.asymp_mult], dim=-1)[None, :, None, :]
           * arrays.inf_mult[None, :, None, None])
     pi = ig[..., None] * Tq.permute(1, 0, 2)[:, :, None, None, :]
-    darts = _binomial_split(k_bin, K_g, pi)                        # (A,V,T,S,B)
+    darts = _binomial_split(kd["bin"], K_g, pi)                    # (A,V,T,S,B)
     D = darts.sum(dim=(0, 2, 3))                                   # (V, B)
 
-    u_inf = prng.uniform(k_inf, (n,), dev, start=lo)
-    u_var = prng.uniform(k_var, (n,), dev, start=lo)
+    u_inf = prng.uniform(kd["inf"], (n,), dev, start=lo)
+    u_var = prng.uniform(kd["var"], (n,), dev, start=lo)
     o2r = state.o2r
-    u_day = prng.uniform(k_anyway, (n,), dev, start=lo)
+    u_day = prng.uniform(kd["anyway"], (n,), dev, start=lo)
     (new_contact, new_variant, susceptible,
      dl_a, day_of_illness, onset, queue_new, die_home, bed_request,
      recover_ill, hosp_end, icu_request, hosp_recover, icu_end,
@@ -751,17 +968,16 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
         [arrays.band_ag, arrays.lam_log1p_ag, state.is_infected,
          state.has_immunity, active, u_inf, u_var, state.state,
          state.day_of_infection, state.days_left, o2r, state.severity,
-         was_detected, state.death_outside, state.day_of_illness, u_day,
+         wdet, state.death_outside, state.day_of_illness, u_day,
          state.variant],
         [D, arrays.ratio_before_hosp, arrays.ratio_in_ward, day,
-         int(sched.testing_mode), float(sched.detect_anyway_p)])
-    queued = queued | queue_new
+         din.ints[I_MODE], din.floats[F_DAP]])
+    queued = env["queued"] | queue_new
 
-    offset = prng.randint_scalar(k_offset, 0, N)
     (granted_bed, granted_icu), after2 = clamped_counter_grants(
         [hosp_end.to(I32), icu_end.to(I32)], [bed_request, icu_request],
-        torch.stack([beds_avail, icu_avail]), offset, shard)
-    beds_after, icu_after = after2[0], after2[1]
+        torch.stack([env["beds_avail"], env["icu_avail"]]),
+        din.ints[I_OFFSET], shard)
 
     (new_st, days_left, is_infected, has_immunity, ever_icu,
      was_detected, detect_hosp) = fused_map(
@@ -769,35 +985,31 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
         [state.state, state.severity, state.variant, o2r, dl_a,
          granted_bed, granted_icu, u_day, bed_request, icu_request,
          die_home, recover_ill, hosp_recover, icu_die, icu_recover,
-         was_detected, state.is_infected, state.has_immunity,
+         wdet, state.is_infected, state.has_immunity,
          state.ever_icu, onset],
         [arrays.ratio_before_hosp, arrays.ratio_in_ward,
          arrays.p_icu_death_no_beds, arrays.p_hosp_death_no_beds])
 
     # ---- phase 6: merge new infections
-    M = cfg.import_buffer
-    cum_imp = np.cumsum(import_counts).astype(np.int32)
-    tot_imports = int(cum_imp[-1])
-    if tot_imports > M:
-        problem = problem | C.PROBLEM_IMPORT_BUFFER_OVERFLOW
     newly, variant_new = new_contact, new_variant
-    if tot_imports > 0:
+    if imports:
+        M = cfg.import_buffer
         slot_ids = torch.arange(M, dtype=I32, device=dev)
-        slot_valid = slot_ids < tot_imports
+        slot_valid = slot_ids < din.ints[I_TOT_IMP]
         slot_variant = torch.clamp(searchsorted(
-            torch.from_numpy(cum_imp).to(dev), slot_ids, side="right"),
+            din.ints[I_CUM_IMP:I_CUM_IMP + V], slot_ids, side="right"),
             0, V - 1)
-        u_imp = prng.uniform(k_imp, (M, cfg.import_attempts, 2), dev)
+        u_imp = prng.uniform(kd["imp"], (M, cfg.import_attempts, 2), dev)
         ncls = arrays.import_cum_p.shape[0]
         cls = torch.clamp(searchsorted(arrays.import_cum_p, u_imp[..., 0]),
                           0, ncls - 1).long()
-        lo = arrays.age_start[arrays.import_min_age[cls].long()]
-        hi = arrays.age_start[torch.clamp_max(
+        a_lo = arrays.age_start[arrays.import_min_age[cls].long()]
+        a_hi = arrays.age_start[torch.clamp_max(
             arrays.import_max_age[cls] + 1, A).long()]
-        pos = lo + torch.floor(
-            u_imp[..., 1] * torch.clamp_min(hi - lo, 1).to(F32)).to(I32)
+        pos = a_lo + torch.floor(
+            u_imp[..., 1] * torch.clamp_min(a_hi - a_lo, 1).to(F32)).to(I32)
         cand = torch.clamp(pos, 0, N - 1)
-        cand_ok = _look(shard, [susceptible], cand.long())[0] & (hi > lo)
+        cand_ok = _look(shard, [susceptible], cand.long())[0] & (a_hi > a_lo)
         first = torch.argmax(cand_ok.to(I32), dim=1)
         any_ok = cand_ok.any(dim=1)
         import_agent = cand[torch.arange(M, device=dev), first]
@@ -806,61 +1018,95 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
         # infection; the import's variant wins
         tgt_here = _local(shard, import_tgt)
         newly = _spare(new_contact, False)
-        newly[tgt_here] = True
+        _mark(newly, tgt_here, True)
         newly = newly[:n]
         variant_new = _spare(new_variant, 0)
         variant_new[tgt_here] = slot_variant
         variant_new = variant_new[:n]
         nc2 = _spare(new_contact, False)
-        nc2[tgt_here] = False
+        _mark(nc2, tgt_here, False)
         new_contact = nc2[:n]
 
-    Kcap = cfg.infection_buffer
-    Kh = min(cfg.infection_head, Kcap)
     variant = state.variant.to(I32)
     c_s = torch.where(exposer, k_s.to(F32) * inf_base, 0.0)
     if shard is None:
         cum_newly = fused_concat_prefix(newly.to(F32), None, 1)
         cum_cat = fused_concat_prefix(c_s, variant, V)
-        n_new = int(cum_newly[-1])
+        n_new = cum_newly[-1].to(I32)
     else:
         cum_newly, ends = sharded_concat_prefix(newly.to(F32), None, 1,
                                                 shard)
         cum_cat, _ = sharded_concat_prefix(c_s, variant, V, shard)
-        n_new = int(ends[0])
-    if n_new > Kcap:
-        problem = problem | C.PROBLEM_INFECTION_BUFFER_OVERFLOW
-    n_used = min(n_new, Kcap)
+        n_new = ends[0].to(I32)
+    return dict(
+        dov=dov, queued_b=queued, new_st=new_st, days_left=days_left,
+        is_infected=is_infected, has_immunity=has_immunity,
+        ever_icu=ever_icu, was_detected=was_detected,
+        detect_hosp=detect_hosp, day_of_illness=day_of_illness,
+        included=included, newly=newly, variant_new=variant_new,
+        new_contact=new_contact, nc_ag=nc_ag, K_g=K_g, ig=ig, Tq=Tq,
+        q_hat=q_hat, cum_newly=cum_newly, cum_cat=cum_cat, n_new=n_new,
+        beds_after=after2[0], icu_after=after2[1], r=r_value,
+        exposed_per_day=exposed_per_day)
 
-    C_av = (K_g * ig).sum(dim=(2, 3))                              # (A, V)
+
+def span_ab(cfg, arrays, din, state, carry, env, vacc: bool, imports: bool,
+            shard=None):
+    """A and B as one span (a day without contact tracing has no read
+    between them)."""
+    a = span_a(cfg, arrays, din, state, carry, env, False, shard)
+    b = span_b(cfg, arrays, din, state, carry, {**env, **a}, vacc, imports,
+               shard)
+    return {**a, **b}
+
+
+def span_c(cfg, arrays, din, state, carry, env, end: int, shard=None):
+    """Today's infections in slots [0, end): attribution, severity and
+    duration draws, the bucket appends, the scatters, finalize and the
+    phase-7 outputs. Returns {"state": AgentState, "carry": the carry's
+    device fields, "out": DayOutputs without mobility_limitation}."""
+    n, N, _, dev = _dims(state, shard)
+    A = arrays.age_start.shape[0] - 1
+    V = cfg.nr_variants
+    day = din.ints[I_DAY]
+    kd = din.keys
+    age = state.age.to(I32)
+    active = state.active
+    Kcap = cfg.infection_buffer
+    CAPB = cfg.max_infectees
+    NC = N * CAPB
+    K_g, Tq, cum_cat = env["K_g"], env["Tq"], env["cum_cat"]
+    dov, variant_new, newly = env["dov"], env["variant_new"], env["newly"]
+
+    C_av = (K_g * env["ig"]).sum(dim=(2, 3))                       # (A, V)
     kappa_inc = 1.0 / (C.INCUBATION_CV ** 2)
     kappa_o2r = 1.0 / (C.ONSET_TO_REMOVED_CV ** 2)
-    slot_ends = [lo_ + seg for lo_, seg in tier_bounds(Kh, Kcap)]
-    end = _tier_end(slot_ends, n_used)
+    n_used = torch.clamp_max(env["n_new"], Kcap)
 
     # compaction of today's infections into slots [0, end)
     slots = torch.arange(end, dtype=I32, device=dev)
     if shard is None:
-        buf = searchsorted(cum_newly, (slots + 1).to(F32))
+        buf = searchsorted(env["cum_newly"], (slots + 1).to(F32))
     else:
-        buf = shard.first_at_least(cum_newly, (slots + 1).to(F32)).to(I32)
+        buf = shard.first_at_least(env["cum_newly"],
+                                   (slots + 1).to(F32)).to(I32)
     buf_agent = torch.where(slots < n_used, buf, N)
 
     # slot pipeline: attribution, severity and duration draws
     bp = torch.clamp(buf_agent, 0, N - 1).long()
     slot_used = buf_agent < N
     nc_b, age_b, vn_b, dov_b = _look(
-        shard, [new_contact, age, variant_new, dov], bp)
+        shard, [env["new_contact"], age, variant_new, dov], bp)
     contact_p = nc_b & slot_used
     age_i = age_b.long()
     b_i = arrays.band_of_age[age_i].long()
     v_i = vn_b.long()
     w = C_av.T[v_i] * Tq.permute(0, 2, 1)[v_i, b_i]               # (m, A)
-    gumb = prng.gumbel(dk.attr_age[0], w.shape, dev)
+    gumb = prng.gumbel(kd["attr_age"], w.shape, dev)
     logw = torch.where(w > 0, torch.log(torch.clamp_min(w, 1e-30)),
                        -float("inf"))
     a_star = torch.argmax(logw + gumb, dim=1)
-    u_src = prng.uniform(dk.attr_src[0], (end,), dev)
+    u_src = prng.uniform(kd["attr_src"], (end,), dev)
     off = v_i * N
     lo_i = off + arrays.age_start[a_star]
     hi_i = off + arrays.age_start[a_star + 1]
@@ -878,9 +1124,9 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     ok = (hi_c > lo_c) & contact_p
     infector_new = torch.where(ok, src, -1).to(I32)
     tr_slot = ok & _look(shard, [state.traceable], src)[0]
-    g1 = gamma_fixed(dk.gam1[0], kappa_inc, (end,), dev)
-    g2 = gamma_fixed(dk.gam2[0], kappa_o2r, (end,), dev)
-    sev_slot, outside_slot = severity_draw_slots(dk.sev[0], arrays, v_i,
+    g1 = gamma_fixed(kd["gam1"], kappa_inc, (end,), dev, GAMMA_ROUNDS)
+    g2 = gamma_fixed(kd["gam2"], kappa_o2r, (end,), dev, GAMMA_ROUNDS)
+    sev_slot, outside_slot = severity_draw_slots(kd["sev"], arrays, v_i,
                                                  age_i, dov_b, day)
     theta_inc = (C.INCUBATION_CV ** 2) * arrays.mu_incub[v_i]
     incub_slot = _round_to_int(g1 * theta_inc)
@@ -903,28 +1149,29 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     rank = idx - run_start
     valid = src_s < SENT
     sp = torch.clamp(src_s, 0, N - 1)
+    bkt_fill = carry.bkt_fill
     j = _look(shard, [bkt_fill], sp.long())[0] + rank
     store = valid & (j < CAPB)
     app_pos = torch.where(store, sp * CAPB + torch.clamp_max(j, CAPB - 1),
                           NC + idx)
     app_val = torch.where(store, dst_s, N)
     app_src = torch.where(valid, sp, N)
-    problem = problem | torch.where(torch.any(valid & (j >= CAPB)),
-                                    C.PROBLEM_TOO_MANY_INFECTEES, 0).to(I32)
+    problem = carry.problem | torch.where(
+        torch.any(valid & (j >= CAPB)), C.PROBLEM_TOO_MANY_INFECTEES,
+        0).to(I32)
     if end < Kcap:
         tail = torch.arange(end, Kcap, dtype=I32, device=dev)
         app_pos = torch.cat([app_pos, NC + tail])
         app_val = torch.cat([app_val, torch.full_like(tail, N)])
         app_src = torch.cat([app_src, torch.full_like(tail, N)])
 
-    # slot-domain scatters: the used slots are the prefix [0, n_used)
-    tgt = buf_agent[:n_used].long()
-    infector = _put(shard, state.infector, tgt, infector_new[:n_used])
-    sev_out = _put(shard, state.severity, tgt, sev_slot[:n_used])
-    death_outside = _put(shard, state.death_outside, tgt,
-                         outside_slot[:n_used])
-    days_left = _put(shard, days_left, tgt, incub_slot[:n_used])
-    o2r = _put(shard, o2r, tgt, o2r_slot[:n_used])
+    # slot-domain scatters: unused slots hold the sentinel N and drop
+    tgt = buf_agent.long()
+    infector = _put(shard, state.infector, tgt, infector_new)
+    sev_out = _put(shard, state.severity, tgt, sev_slot)
+    death_outside = _put(shard, state.death_outside, tgt, outside_slot)
+    days_left = _put(shard, env["days_left"], tgt, incub_slot)
+    o2r = _put(shard, state.o2r, tgt, o2r_slot)
     src_ok = slot_used & (infector_new >= 0)
     n_infected = _add(shard, state.n_infected,
                       torch.where(src_ok, infector_new, 0).long(),
@@ -937,12 +1184,14 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     (st8_out, sev8_out, var8_out, dl16_out, doil16_out, doi16_out,
      is_infected, traceable, detected_today) = fused_map(
         finalize,
-        [new_st, sev_out, state.variant, variant_new, days_left,
-         day_of_illness, state.day_of_infection, newly, is_infected,
-         state.traceable, detected_today, detect_hosp],
-        [day, int(ct_active)])
+        [env["new_st"], sev_out, state.variant, variant_new, days_left,
+         env["day_of_illness"], state.day_of_infection, newly,
+         env["is_infected"], state.traceable, env["detected_today"],
+         env["detect_hosp"]],
+        [day, din.ints[I_CT]])
 
     # ---- phase 7: outputs
+    has_immunity, ever_icu = env["has_immunity"], env["ever_icu"]
     fields = [active, is_infected, has_immunity, dov, detected_today,
               st8_out, ever_icu, death_outside, newly]
     by10 = fused_fn_onehot_sum(fields, _output_masks_reduced, 10,
@@ -958,18 +1207,17 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
         arrays.active_per_group - ever_g, vacc_g, ever_g - dead_g - rec_g,
         ever_g, det_g, all_detected, inicu_g, cicu_g, ward_g, dead_g, rec_g,
         nh_g, new_g])
-    exposures = _exposures_by_place(k_place, K_g, q_hat)
+    exposures = _exposures_by_place(kd["place"], K_g, env["q_hat"])
 
     out = DayOutputs(
         by_group=by_group,
-        available_hospital_beds=beds_after,
-        available_icu_units=icu_after,
-        total_icu_units=icu_total,
-        r=r_value,
-        exposed_per_day=exposed_per_day,
-        ct_cases_per_day=ct_cases,
-        mobility_limitation=np.float32(1.0) - np.float32(
-            sched.mobility_scalar),
+        available_hospital_beds=env["beds_after"],
+        available_icu_units=env["icu_after"],
+        total_icu_units=env["icu_total"],
+        r=env["r"],
+        exposed_per_day=env["exposed_per_day"],
+        ct_cases_per_day=env["ct_cases"],
+        mobility_limitation=None,
         exposures_by_place=exposures,
         infected_by_variant=inf_by_variant,
     )
@@ -979,16 +1227,117 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
         day_of_illness=doil16_out, day_of_infection=doi16_out,
         day_of_vaccination=dov, o2r=o2r, infector=infector,
         n_infected=n_infected, is_infected=is_infected,
-        has_immunity=has_immunity, was_detected=was_detected, queued=queued,
-        traceable=traceable, ever_icu=ever_icu, included_in_totals=included,
-        active=active)
-    new_carry = DayCarry(
-        day=day + 1, beds_avail=beds_after, icu_avail=icu_after,
-        beds_total=beds_total, icu_total=icu_total, weekly_leftover=leftover,
-        all_detected=all_detected, problem=problem, bkt_dst=bd,
-        bkt_fill=bkt_fill, mob=sched.mobility, nc_ag=nc_ag,
+        has_immunity=has_immunity, was_detected=env["was_detected"],
+        queued=env["queued_b"], traceable=traceable, ever_icu=ever_icu,
+        included_in_totals=env["included"], active=active)
+    carry_dev = dict(
+        beds_avail=env["beds_after"], icu_avail=env["icu_after"],
+        beds_total=env["beds_total"], icu_total=env["icu_total"],
+        all_detected=all_detected, problem=problem, bkt_dst=carry.bkt_dst,
+        bkt_fill=bkt_fill, mob=din.mobility, nc_ag=env["nc_ag"],
         app_pos=app_pos, app_val=app_val, app_n=n_app)
-    return new_state, new_carry, out
+    return dict(state=new_state, carry=carry_dev, out=out)
+
+
+# the spans that open a day (and load its row) and the one that ends it
+FIRST_SPANS = ("A", "AB")
+LAST_SPAN = "C"
+# days run and host reads of device values in them, in every mode, and
+# the graph runner's captures, capture seconds and replays (for the
+# profiles; reset_stats() clears them)
+STATS = Counter()
+
+
+def reset_stats() -> None:
+    STATS.clear()
+
+
+class EagerSpans:
+    """The plain executor: each span runs as it comes."""
+
+    @staticmethod
+    def span(name: str, key: tuple, fn):
+        return fn()
+
+    @staticmethod
+    def read(t: torch.Tensor):
+        return t.tolist()
+
+
+def run_day(cfg: EngineConfig, arrays: ModelArrays, plan: DayPlan,
+            din: DayIn, state: AgentState, carry: DayCarry, spans,
+            shard=None):
+    """One day as its spans, in order, through ``spans`` (EagerSpans, or
+    a graphs.GraphSet that replays each (span, key) as a CUDA graph):
+    ``spans.span(name, key, fn)`` returns what span ``name`` gave for
+    ``key``, ``spans.read(t)`` a device value on the host. Returns (state,
+    carry, DayOutputs — None from a GraphSet, which keeps the day's
+    outputs on the device —, the problem bits found on the host)."""
+    env = {}
+    Tcap = cfg.infection_buffer
+
+    def span(name, fn, *key):
+        env.update(spans.span(name, key, lambda: fn(
+            cfg, arrays, din, state, carry, env, *key, shard=shard)))
+
+    def read(t):
+        STATS["reads"] += 1
+        return spans.read(t)
+
+    bits = plan.problem
+    if not plan.ct_active:
+        span("AB", span_ab, plan.vacc, plan.imports)
+    else:
+        span("A", span_a, True)
+        ct_cases, n_d = read(env["counts"])
+        if ct_cases > 0:
+            mem = _ceilings(cfg.infection_head, Tcap)
+            cols = _ceilings(cfg.bucket_head, cfg.max_infectees)
+            end_d = _tier_end(mem, min(n_d, Tcap))
+            span("T1", span_t1, end_d)
+            span("T2", span_t2, end_d,
+                 _tier_end(cols, read(env["fill_max"])))
+            n_f = read(env["n_f"])
+            end_f = _tier_end(mem, min(n_f, Tcap))
+            span("T3", span_t3, end_f)
+            span("T4", span_t4, end_f,
+                 _tier_end(cols, read(env["fill2_max"])))
+            if n_d > Tcap or n_f > Tcap:
+                bits |= C.PROBLEM_TRACING_BUFFER_OVERFLOW
+        span("B", span_b, plan.vacc, plan.imports)
+    n_new = read(env["n_new"])
+    if n_new > cfg.infection_buffer:
+        bits |= C.PROBLEM_INFECTION_BUFFER_OVERFLOW
+    span(LAST_SPAN, span_c, _tier_end(
+        _ceilings(cfg.infection_head, Tcap), min(n_new, Tcap)))
+    STATS["days"] += 1
+    out = env["out"]
+    if out is not None:
+        out = out._replace(mobility_limitation=plan.mobility_limitation)
+    return (env["state"], DayCarry(day=plan.day + 1,
+                                   weekly_leftover=plan.leftover,
+                                   **env["carry"]), out, bits)
+
+
+def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
+             state: AgentState, carry: DayCarry, dk: DayKeys, shard=None):
+    """Advance one day: its spans, eagerly. Returns (state, carry,
+    DayOutputs).
+
+    ``carry.bkt_dst`` is updated in place (it is N·64 int32; the engine
+    copies the run's initial table once per run); every other input is
+    left as it was. ``shard`` (parallel.mesh.AgentShard): step this
+    rank's slab of an agent-sharded run; the outputs and the carry's
+    scalars come out replicated."""
+    _, N, _, _ = _dims(state, shard)
+    plan = plan_day(cfg, sched, carry.weekly_leftover, int(carry.day), dk, N)
+    din = day_inputs(cfg, plan, key_table(cfg, dk), sched.mobility,
+                     sched.mask_p)
+    state, carry, out, bits = run_day(cfg, arrays, plan, din, state, carry,
+                                      EagerSpans, shard)
+    if bits:
+        carry = carry._replace(problem=carry.problem | bits)
+    return state, carry, out
 
 
 def _exposures_by_place(key, K_g, q_hat):

@@ -7,11 +7,18 @@ the day's random draws: ``threefry.cu`` for each draw, ``samplers.cu``
 for gamma_fixed and binomial_fixed) and three Triton kernels
 (``fused_bodies``, the other fused per-agent passes).
 The wrappers that launch them live beside their plain PyTorch twins in
-``reina_tpu_torch.ops`` and ``fused_bodies``; each wrapper adds one to
-its entry of ``LAUNCHES`` where it launches its kernel, and nowhere
-else, so a run can show that it went through the kernels.
+``reina_tpu_torch.ops`` and ``fused_bodies``; each wrapper calls
+:func:`launched` where it launches its kernel, and nowhere else, so a
+run can show that it went through the kernels. While a thread captures
+a CUDA graph (core/graphs.py) its wrappers launch nothing: their counts
+go into the graph's tally instead, and every replay of the graph adds
+that tally to ``LAUNCHES``.
 """
 from __future__ import annotations
+
+import threading
+from collections import Counter
+from contextlib import contextmanager
 
 LAUNCHES = {
     "fused_map.prologue": 0,
@@ -35,6 +42,36 @@ LAUNCHES = {
     "random.gamma_fixed": 0,
     "random.binomial_fixed": 0,
 }
+
+
+_capture = threading.local()
+
+
+def launched(name: str) -> None:
+    """One launch of kernel ``name`` (into the capturing thread's tally
+    while it captures a graph)."""
+    tally = getattr(_capture, "tally", None)
+    if tally is not None:
+        tally[name] += 1
+    else:
+        LAUNCHES[name] += 1
+
+
+@contextmanager
+def capturing():
+    """This thread's launches meanwhile go into the Counter it yields."""
+    tally = Counter()
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = None
+
+
+def replayed(tally) -> None:
+    """A replay of a graph whose capture counted ``tally``."""
+    for name, n in tally.items():
+        LAUNCHES[name] += n
 
 
 def reset_launches() -> None:

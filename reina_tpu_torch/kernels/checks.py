@@ -5,7 +5,9 @@ count made from a numpy seed (value ranges as the day step produces
 them), one launch through the kernel's wrapper and one through its
 plain PyTorch twin on the same device, the comparison with its stated
 tolerance, and three device times (kernel, twin and, where one PyTorch
-call computes the same function, that call). Used by
+call computes the same function, that call). The draw and sampler
+kernels are also held to their twins with their keys read from device
+memory (``dev_key_pairs``, as a captured day step passes them). Used by
 tests/test_torch_cuda.py and chip_smoke.py.
 
 Tolerances: the prefix sums, histograms and ledger outputs (grants and
@@ -295,7 +297,14 @@ _RND = "reina_tpu/ops/random.py"
 def checks(n: int, seed: int, dev) -> List[Check]:
     s = _streams(n, seed, dev)
     b, f = s["b"], s["f"]
-    day, mode, dap = 40, 3, 0.25
+    # the day's scalars as the day step passes them: 0-d tensors of its
+    # day row, which the kernels load through a pointer
+
+    def scalar(x, dt):
+        return torch.tensor(x, dtype=dt, device=dev)
+
+    day, mode, dap, ct = (scalar(40, torch.int32), scalar(3, torch.int32),
+                          scalar(0.25, torch.float32), scalar(1, torch.int32))
 
     pro = [s["st"], s["dl"], s["doil"], s["doi"], s["sev"], s["var"], b[0],
            b[1], b[2], s["z"], s["nc"], b[3], s["ninf"], s["iot"],
@@ -306,7 +315,7 @@ def checks(n: int, seed: int, dev) -> List[Check]:
           dap]
     po = post_args(s)
     fin = [s["st"], s["sev"], s["var"], s["vnew"], s["dl"], s["doil"],
-           s["doi"], b[0], b[1], b[2], b[3], b[4], day, 1]
+           s["doi"], b[0], b[1], b[2], b[3], b[4], day, ct]
     init = torch.tensor([300, 60], dtype=torch.int32, device=dev)
 
     def ledger(fn, offset, rel=s["rel"], req=s["req"]):
@@ -628,7 +637,8 @@ def capture_samplers(run, day: int) -> dict:
     binom, gamma = deque(maxlen=2), deque(maxlen=2)
     with _recording(step, "binomial_fixed", binom), \
             _recording(step, "gamma_fixed", gamma):
-        run_days(run, n_days=day + 1, chunk_days=day + 1)
+        # the plain day step: a replayed graph calls no Python
+        run_days(run, n_days=day + 1, chunk_days=day + 1, graphs=False)
     return {"binomial": [(a[1], a[2]) for a in binom],
             "gamma": [(a[1], tuple(a[2])) for a in gamma]}
 
@@ -656,6 +666,44 @@ def _binomial_cases(seed: int, dev):
     def t(x):
         return torch.from_numpy(x.astype(np.float32)).to(dev)
     return t(n), t(p)
+
+
+def dev_key_pairs(seed: int, dev) -> list:
+    """(name, kernel, twin) triples of the draw and sampler kernels
+    given their keys in device memory (prng.DevKey, as the day step's
+    key table gives them), each against its twin on the host key, at the
+    day step's kinds of calls."""
+    from ..core import constants as C
+    keys = prng.split(prng.PRNGKey(seed + 19), 6)
+    N, half = HUS_N, HUS_N // 2
+    dk = [prng.dev_key(k, dev) for k in keys[:4]]
+    gk = samplers.dev_key(keys[4], dev, samplers.gamma_words,
+                          step.GAMMA_ROUNDS)
+    bk = samplers.dev_key(keys[5], dev, samplers.binomial_words,
+                          step.BINOMIAL_ROUNDS)
+    n_b, p_b = _binomial_cases(seed, dev)
+
+    def pair(name, fn, twin, key, *args, **kw):
+        return (name, lambda: (fn(key, *args, **kw),),
+                lambda: (twin(prng.host_key(key), *args, **kw),))
+
+    kappa = 1.0 / C.INCUBATION_CV ** 2
+    return [
+        pair("uniform", prng.uniform, prng.uniform_twin, dk[0], (N,), dev),
+        pair("uniform slab", prng.uniform, prng.uniform_twin, dk[0],
+             (N - half,), dev, start=half),
+        pair("normal slab", prng.normal, prng.normal_twin, dk[1],
+             (N - half,), dev, start=half),
+        pair("bits 2-D", prng.random_bits, prng.random_bits_twin, dk[2],
+             (4608, 12), dev),
+        pair("gumbel", prng.gumbel, prng.gumbel_twin, dk[3], (4608, A), dev),
+        pair("gamma", samplers.gamma_fixed, samplers.gamma_fixed_twin, gk,
+             kappa, (4608,), dev, step.GAMMA_ROUNDS),
+        ("binomial", lambda: (samplers.binomial_fixed(
+            bk, n_b, p_b, step.BINOMIAL_ROUNDS),),
+         lambda: (samplers.binomial_fixed_twin(
+             prng.host_key(bk), n_b, p_b, step.BINOMIAL_ROUNDS),)),
+    ]
 
 
 def draw_checks(seed: int, dev, captured=None) -> List[Check]:
@@ -693,6 +741,10 @@ def draw_checks(seed: int, dev, captured=None) -> List[Check]:
         pair(prng.gumbel, prng.gumbel_twin, keys[7], (4608, A), dev),
         pair(prng.gumbel, prng.gumbel_twin, keys[7], (13, A), dev),
     ]
+    # the same kernels with their keys in device memory
+    by_kernel = {"gamma": [], "binomial": []}
+    for name, k, t in dev_key_pairs(seed, dev):
+        by_kernel.get(name, draws).append((k, t))
     kappas = (1.0 / C.INCUBATION_CV ** 2, 1.0 / C.ONSET_TO_REMOVED_CV ** 2)
     ends = [lo + seg for lo, seg in step.tier_bounds(512, 65536)]
     gamma = [pair(samplers.gamma_fixed, samplers.gamma_fixed_twin, keys[8],
@@ -718,14 +770,15 @@ def draw_checks(seed: int, dev, captured=None) -> List[Check]:
               "reina_tpu_torch/kernels/csrc/samplers.cu", f"{_RND}:29",
               *pair(samplers.gamma_fixed, samplers.gamma_fixed_twin, keys[9],
                     g_kappa, g_shape, dev), n=math.prod(g_shape),
-              library_note=_DRAW_NOTE, extra=gamma),
+              library_note=_DRAW_NOTE, extra=gamma + by_kernel["gamma"]),
         Check("random.binomial_fixed", "cuda",
               "reina_tpu_torch/kernels/csrc/samplers.cu", f"{_RND}:159",
               *binom(keys[10], n_b, p_b), inputs=[n_b, p_b],
               int_ops=binomial_int_ops(n_b, p_b),
               library_note=_DRAW_NOTE,
               extra=[binom(keys[11], n_x, p_x), binom(keys[10], n_e, p_e),
-                     binom(keys[11], n_e[:7], p_e[:7])]),
+                     binom(keys[11], n_e[:7], p_e[:7])]
+              + by_kernel["binomial"]),
     ]
 
 

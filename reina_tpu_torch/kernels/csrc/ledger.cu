@@ -204,8 +204,9 @@ __device__ __forceinline__ Tup scan_tile(const Ledgers& lg, long long n,
 // K1: tiles[led * ntiles + tile] = the tile's fold; pre[led] = the fold
 // of the agents of offset's tile before offset.
 __global__ void __launch_bounds__(THREADS, 3)
-ledger_tile_fold(Ledgers lg, long long n, long long offset, Tup* tiles,
-                 Tup* pre) {
+ledger_tile_fold(Ledgers lg, long long n, long long offset,
+                 const int* off_dev, Tup* tiles, Tup* pre) {
+  if (off_dev) offset = *off_dev;
   __shared__ Tup buf[33];
   const long long i = (long long)blockIdx.x * TILE + ITEMS * threadIdx.x;
   Agents a;
@@ -222,7 +223,9 @@ ledger_tile_fold(Ledgers lg, long long n, long long offset, Tup* tiles,
 // finals[led] = final_b.
 __global__ void ledger_tile_scan(const Tup* tiles, Tup* excl, const Tup* pre,
                                  const int* init, long long offset,
-                                 int ntiles, long long* scal, int* finals) {
+                                 const int* off_dev, int ntiles,
+                                 long long* scal, int* finals) {
+  if (off_dev) offset = *off_dev;
   __shared__ Tup buf[33];
   const int led = blockIdx.x;
   const Tup* tl = tiles + (long long)led * ntiles;
@@ -276,8 +279,9 @@ __device__ __forceinline__ void emit_grants(const Ledgers& lg, long long n,
 
 // K3: the grants of this lane's 16 agents.
 __global__ void __launch_bounds__(THREADS, 3)
-ledger_emit(Ledgers lg, long long n, long long offset, const Tup* excl,
-            const long long* scal) {
+ledger_emit(Ledgers lg, long long n, long long offset, const int* off_dev,
+            const Tup* excl, const long long* scal) {
+  if (off_dev) offset = *off_dev;
   __shared__ Tup buf[33];
   const long long i = (long long)blockIdx.x * TILE + ITEMS * threadIdx.x;
   Agents a;
@@ -363,8 +367,10 @@ ledger_emit_slab(Ledgers lg, long long n, long long offset, const Tup* excl,
 
 }  // namespace
 
-// 0 <= offset < n; rel, req and granted 16-byte aligned. init: (L,) int32
-// on the device; finals: (L,) int32 out. scratch: int64, 6 * L *
+// 0 <= offset < n: the host's offset or, where off_dev is not NULL, the
+// int32 it points to in device memory, read by each launch (a captured
+// day step's offset, from its day row). rel, req and granted 16-byte
+// aligned. init: (L,) int32 on the device; finals: (L,) int32 out. scratch: int64, 6 * L *
 // ceil(n / 4096) + 5 * L entries. events: NULL, or 4 CUDA events
 // recorded before K1 and after each launch.
 extern "C" int reina_ledger_grants(const void* rel0, const void* rel1,
@@ -372,8 +378,9 @@ extern "C" int reina_ledger_grants(const void* rel0, const void* rel1,
                                    void* granted0, void* granted1,
                                    const void* init, void* finals,
                                    void* scratch, long long n,
-                                   long long offset, int L,
-                                   void* const* events, void* stream) {
+                                   long long offset, const void* off_dev,
+                                   int L, void* const* events, void* stream) {
+  const int* od = (const int*)off_dev;
   cudaStream_t st = (cudaStream_t)stream;
   Ledgers lg;
   lg.rel[0] = (const int*)rel0;
@@ -389,13 +396,13 @@ extern "C" int reina_ledger_grants(const void* rel0, const void* rel1,
   long long* scal = (long long*)(pre + L);
   const dim3 grid(ntiles, L);
   if (events) cudaEventRecord((cudaEvent_t)events[0], st);
-  ledger_tile_fold<<<grid, THREADS, 0, st>>>(lg, n, offset, tiles, pre);
+  ledger_tile_fold<<<grid, THREADS, 0, st>>>(lg, n, offset, od, tiles, pre);
   if (events) cudaEventRecord((cudaEvent_t)events[1], st);
   ledger_tile_scan<<<L, SCAN_THREADS, 0, st>>>(tiles, excl, pre,
-                                               (const int*)init, offset,
+                                               (const int*)init, offset, od,
                                                ntiles, scal, (int*)finals);
   if (events) cudaEventRecord((cudaEvent_t)events[2], st);
-  ledger_emit<<<grid, THREADS, 0, st>>>(lg, n, offset, excl, scal);
+  ledger_emit<<<grid, THREADS, 0, st>>>(lg, n, offset, od, excl, scal);
   if (events) cudaEventRecord((cudaEvent_t)events[3], st);
   return (int)cudaGetLastError();
 }
@@ -432,8 +439,8 @@ extern "C" int reina_ledger_fold_slab(const void* rel0, const void* rel1,
   Tup* pre = excl + (long long)L * ntiles;
   const long long off = offset - base;
   if (events) cudaEventRecord((cudaEvent_t)events[0], st);
-  ledger_tile_fold<<<dim3(ntiles, L), THREADS, 0, st>>>(lg, n, off, tiles,
-                                                        pre);
+  ledger_tile_fold<<<dim3(ntiles, L), THREADS, 0, st>>>(lg, n, off, nullptr,
+                                                        tiles, pre);
   if (events) cudaEventRecord((cudaEvent_t)events[1], st);
   ledger_slab_scan<<<L, SCAN_THREADS, 0, st>>>(tiles, excl, pre, n, off,
                                                ntiles, (long long*)folds);

@@ -20,7 +20,10 @@
 //     lane draws exactly the numbers the twin's whole-array draws give
 //     it;
 //   * the keys are split on the host as the twin splits them (13 for
-//     binomial_fixed, 8 for gamma_fixed) and passed by value;
+//     binomial_fixed, 8 for gamma_fixed) and passed by value, or, for a
+//     captured day step (CUDA graphs), read at launch from the day's key
+//     table in device memory and staged in shared memory (the *_dev
+//     kernels), so that a replay draws with the day's keys;
 //   * a lane computes only the branch that the twin's
 //     where(small_m, small, big) keeps, and stops at the round or step
 //     where it settles. Both are exact: skipping a round shifts no
@@ -73,9 +76,23 @@ __device__ __forceinline__ float rdiv(float s, float t) {
   return __fmul_rn(__fdiv_rn(1.0f, t), s);
 }
 
-__global__ void __launch_bounds__(THREADS)
-    gamma_kernel(float* __restrict__ out, long long n, GammaKeys keys,
-                 int rounds, float d, float c, float kappa, Affines af) {
+// a key struct's words copied from device memory into shared memory by
+// the block, before any lane returns
+template <typename K>
+__device__ __forceinline__ void stage_keys(K& dst, const K* src) {
+  static_assert(sizeof(K) % sizeof(unsigned) == 0, "keys are words");
+  const unsigned* s = reinterpret_cast<const unsigned*>(src);
+  unsigned* d = reinterpret_cast<unsigned*>(&dst);
+  for (int j = threadIdx.x; j < (int)(sizeof(K) / sizeof(unsigned));
+       j += blockDim.x)
+    d[j] = s[j];
+  __syncthreads();
+}
+
+__device__ __forceinline__ void gamma_lane(float* __restrict__ out,
+                                           long long n, const GammaKeys& keys,
+                                           int rounds, float d, float c,
+                                           float kappa, const Affines& af) {
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n) return;
   const uint32_t ctr = (uint32_t)i;
@@ -97,6 +114,21 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
   out[i] = res;
+}
+
+__global__ void __launch_bounds__(THREADS)
+    gamma_kernel(float* __restrict__ out, long long n, GammaKeys keys,
+                 int rounds, float d, float c, float kappa, Affines af) {
+  gamma_lane(out, n, keys, rounds, d, c, kappa, af);
+}
+
+__global__ void __launch_bounds__(THREADS)
+    gamma_kernel_dev(float* __restrict__ out, long long n,
+                     const GammaKeys* __restrict__ keys_dev, int rounds,
+                     float d, float c, float kappa, Affines af) {
+  __shared__ GammaKeys keys;
+  stage_keys(keys, keys_dev);
+  gamma_lane(out, n, keys, rounds, d, c, kappa, af);
 }
 
 // _binomial_inversion for one lane: the count at which the CDF first
@@ -193,10 +225,10 @@ __device__ float btrs(const BinomialKeys& keys, int rounds, uint32_t ctr,
   return rintf(__fmul_rn(n, p));  // torch.round: half to even
 }
 
-__global__ void __launch_bounds__(THREADS)
-    binomial_kernel(float* __restrict__ out, const float* __restrict__ n_in,
-                    const float* __restrict__ p_in, long long len,
-                    BinomialKeys keys, int rounds, Affines af) {
+__device__ __forceinline__ void binomial_lane(
+    float* __restrict__ out, const float* __restrict__ n_in,
+    const float* __restrict__ p_in, long long len, const BinomialKeys& keys,
+    int rounds, const Affines& af) {
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= len) return;
   const uint32_t ctr = (uint32_t)i;
@@ -214,6 +246,24 @@ __global__ void __launch_bounds__(THREADS)
   }
   cnt = minimum(clamp_min(cnt, 0.0f), n);
   out[i] = flip ? __fsub_rn(n, cnt) : cnt;
+}
+
+__global__ void __launch_bounds__(THREADS)
+    binomial_kernel(float* __restrict__ out, const float* __restrict__ n_in,
+                    const float* __restrict__ p_in, long long len,
+                    BinomialKeys keys, int rounds, Affines af) {
+  binomial_lane(out, n_in, p_in, len, keys, rounds, af);
+}
+
+__global__ void __launch_bounds__(THREADS)
+    binomial_kernel_dev(float* __restrict__ out,
+                        const float* __restrict__ n_in,
+                        const float* __restrict__ p_in, long long len,
+                        const BinomialKeys* __restrict__ keys_dev, int rounds,
+                        Affines af) {
+  __shared__ BinomialKeys keys;
+  stage_keys(keys, keys_dev);
+  binomial_lane(out, n_in, p_in, len, keys, rounds, af);
 }
 
 template <typename K>
@@ -235,31 +285,49 @@ unsigned grid_for(long long n) {
 
 }  // namespace
 
-// out: n floats. words: 4 * MAX_ROUNDS key words on the host (kx of
-// rounds 0..MAX_ROUNDS-1, then ku), copied into the kernel's parameters.
-// affines: the 6 floats of Affines. d, c, kappa: the twin's float32
-// scalars.
+// out: n floats. words: 4 * MAX_ROUNDS key words (kx of rounds
+// 0..MAX_ROUNDS-1, then ku): on the host, copied into the kernel's
+// parameters, or, where words_dev is not NULL, the same words in device
+// memory (4-byte aligned), read at launch. affines: the 6 floats of
+// Affines. d, c, kappa: the twin's float32 scalars.
 extern "C" int reina_gamma_fixed(void* out, long long n, const unsigned* words,
-                                 int rounds, float d, float c, float kappa,
-                                 const float* affines, void* stream) {
+                                 const void* words_dev, int rounds, float d,
+                                 float c, float kappa, const float* affines,
+                                 void* stream) {
   if (rounds < 1 || rounds > MAX_ROUNDS) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  gamma_kernel<<<grid_for(n), THREADS, 0, (cudaStream_t)stream>>>(
-      (float*)out, n, keys_from<GammaKeys>(words), rounds, d, c, kappa,
-      affines_from(affines));
+  cudaStream_t st = (cudaStream_t)stream;
+  if (words_dev != nullptr) {
+    gamma_kernel_dev<<<grid_for(n), THREADS, 0, st>>>(
+        (float*)out, n, (const GammaKeys*)words_dev, rounds, d, c, kappa,
+        affines_from(affines));
+  } else {
+    gamma_kernel<<<grid_for(n), THREADS, 0, st>>>(
+        (float*)out, n, keys_from<GammaKeys>(words), rounds, d, c, kappa,
+        affines_from(affines));
+  }
   return (int)cudaGetLastError();
 }
 
 // out, n_in, p_in: len float32 lanes. words: 2 + 4 * MAX_ROUNDS key
-// words on the host (k_inv, then ku and kv of each BTRS round).
+// words (k_inv, then ku and kv of each BTRS round), on the host or,
+// where words_dev is not NULL, in device memory, as for gamma.
 extern "C" int reina_binomial_fixed(void* out, const void* n_in,
                                     const void* p_in, long long len,
-                                    const unsigned* words, int rounds,
+                                    const unsigned* words,
+                                    const void* words_dev, int rounds,
                                     const float* affines, void* stream) {
   if (rounds < 1 || rounds > MAX_ROUNDS) return (int)cudaErrorInvalidValue;
   if (len <= 0) return 0;
-  binomial_kernel<<<grid_for(len), THREADS, 0, (cudaStream_t)stream>>>(
-      (float*)out, (const float*)n_in, (const float*)p_in, len,
-      keys_from<BinomialKeys>(words), rounds, affines_from(affines));
+  cudaStream_t st = (cudaStream_t)stream;
+  if (words_dev != nullptr) {
+    binomial_kernel_dev<<<grid_for(len), THREADS, 0, st>>>(
+        (float*)out, (const float*)n_in, (const float*)p_in, len,
+        (const BinomialKeys*)words_dev, rounds, affines_from(affines));
+  } else {
+    binomial_kernel<<<grid_for(len), THREADS, 0, st>>>(
+        (float*)out, (const float*)n_in, (const float*)p_in, len,
+        keys_from<BinomialKeys>(words), rounds, affines_from(affines));
+  }
   return (int)cudaGetLastError();
 }

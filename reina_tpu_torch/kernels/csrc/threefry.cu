@@ -15,7 +15,10 @@
 //   * one launch a draw; the key's two words, the first counter
 //     (`start`, a 1-D slab's offset), the count and the float32 affine
 //     of the uniform are kernel arguments, so a draw copies nothing from
-//     the host to the device;
+//     the host to the device. A captured day step (CUDA graphs, see
+//     reina_tpu_torch/core/graphs.py) passes instead a pointer to the two
+//     words in its day's key table, which the replay of another day has
+//     rewritten: the kernel reads them at launch;
 //   * a thread takes ELEMS consecutive elements: element k hashes the
 //     counter pair (0, start + k), whatever the draw's shape (the flat
 //     position of a 2-D or 3-D draw), and the thread writes them as one
@@ -52,10 +55,12 @@ __device__ __forceinline__ uint32_t element(Key key, uint32_t ctr, float lo,
 template <int MODE>
 __global__ void __launch_bounds__(THREADS)
     draw_kernel(uint32_t* __restrict__ out, long long n, uint32_t start,
-                Key key, float lo, float scale) {
+                Key key, const uint32_t* __restrict__ key_dev, float lo,
+                float scale) {
   const long long base =
       ((long long)blockIdx.x * THREADS + threadIdx.x) * ELEMS;
   if (base >= n) return;
+  if (key_dev != nullptr) key = Key{key_dev[0], key_dev[1]};
   uint32_t w[ELEMS];
 #pragma unroll
   for (int j = 0; j < ELEMS; ++j)
@@ -72,14 +77,16 @@ static_assert(ELEMS == 4, "one uint4 store a thread");
 }  // namespace
 
 // out: n 32-bit words, 16-byte aligned; element k hashes counter
-// start + k (start + n <= 2^31, checked by the wrapper). mode: 0 bits,
-// 1 uniform, 2 normal, 3 gumbel; lo and scale: the uniform's float32
-// affine (unused for bits).
+// start + k (start + n <= 2^31, checked by the wrapper). The key: the
+// words k1, k2, or, where key_dev is not NULL, the two words it points
+// to in device memory. mode: 0 bits, 1 uniform, 2 normal, 3 gumbel; lo
+// and scale: the uniform's float32 affine (unused for bits).
 extern "C" int reina_draw(void* out, long long n, long long start,
-                          unsigned k1, unsigned k2, int mode, float lo,
-                          float scale, void* stream) {
+                          unsigned k1, unsigned k2, const void* key_dev,
+                          int mode, float lo, float scale, void* stream) {
   if (n <= 0) return 0;
   const Key key{k1, k2};
+  const uint32_t* kd = (const uint32_t*)key_dev;
   const long long per_block = (long long)THREADS * ELEMS;
   const unsigned grid = (unsigned)((n + per_block - 1) / per_block);
   cudaStream_t s = (cudaStream_t)stream;
@@ -87,16 +94,16 @@ extern "C" int reina_draw(void* out, long long n, long long start,
   const uint32_t st = (uint32_t)start;
   switch (mode) {
     case BITS:
-      draw_kernel<BITS><<<grid, THREADS, 0, s>>>(o, n, st, key, lo, scale);
+      draw_kernel<BITS><<<grid, THREADS, 0, s>>>(o, n, st, key, kd, lo, scale);
       break;
     case UNIFORM:
-      draw_kernel<UNIFORM><<<grid, THREADS, 0, s>>>(o, n, st, key, lo, scale);
+      draw_kernel<UNIFORM><<<grid, THREADS, 0, s>>>(o, n, st, key, kd, lo, scale);
       break;
     case NORMAL:
-      draw_kernel<NORMAL><<<grid, THREADS, 0, s>>>(o, n, st, key, lo, scale);
+      draw_kernel<NORMAL><<<grid, THREADS, 0, s>>>(o, n, st, key, kd, lo, scale);
       break;
     case GUMBEL:
-      draw_kernel<GUMBEL><<<grid, THREADS, 0, s>>>(o, n, st, key, lo, scale);
+      draw_kernel<GUMBEL><<<grid, THREADS, 0, s>>>(o, n, st, key, kd, lo, scale);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -23,6 +23,13 @@ draws against the twin), and the kernels compile with
 ``enable_fp_fusion=False`` so no multiply-add pair becomes an FMA that
 the twin does not perform.
 
+The day-varying scalars (the day, the testing mode, the detect-anyway
+probability, contact tracing on or off) reach the kernels through a
+pointer, as one-element device tensors: a captured CUDA graph then
+reads each replayed day's values from the day row (core/step.py), and
+Triton, which specialises integer arguments on their values, compiles
+each kernel once.
+
 Triton is imported, and the kernels are compiled, at first launch: the
 module is importable without it. The constants of
 reina_tpu_torch/core/constants.py appear as literals here and in
@@ -35,7 +42,7 @@ from __future__ import annotations
 
 import torch
 
-from . import LAUNCHES
+from . import launched
 from ..core import constants as C
 
 BLOCK = 1024
@@ -79,6 +86,15 @@ def _check(n, device, **streams):
             raise ValueError(f"{name}: expected contiguous (..., {n})")
 
 
+def _scalar(x, dtype, dev):
+    """A scalar argument: the one-element tensor on ``dev`` that the
+    kernel loads (a 0-d view of the day row on the main path)."""
+    if not isinstance(x, torch.Tensor) or x.device != dev \
+            or x.dtype != dtype or x.numel() != 1:
+        raise TypeError(f"expected one {dtype} element on {dev}, got {x!r}")
+    return x
+
+
 def _launch(fn, n, *args, **meta):
     grid = ((n + BLOCK - 1) // BLOCK,)
     _kernel(fn)[grid](*args, n, BLOCK=BLOCK, num_warps=4,
@@ -89,7 +105,7 @@ def _launch(fn, n, *args, **meta):
 # kernels (compiled at first launch; `tl` and `ld` are bound then)
 
 def _prologue_kernel(st8, dl, doil, doi, sev8, var8, wdet, isinf, act, z,
-                     nc_ag, incl, ninf, iot, asym, infm, day,
+                     nc_ag, incl, ninf, iot, asym, infm, day_ptr,
                      o_exposer, o_inf_base, o_k_s, o_vts, o_count_now,
                      o_included, o_ninf_m, n,
                      V: tl.constexpr, T: tl.constexpr, BLOCK: tl.constexpr):
@@ -108,6 +124,7 @@ def _prologue_kernel(st8, dl, doil, doi, sev8, var8, wdet, isinf, act, z,
     z_ = tl.load(z + offs, mask=m, other=0.0)
     nc = tl.load(nc_ag + offs, mask=m, other=0.0)
     ninf_ = tl.load(ninf + offs, mask=m, other=0)
+    day = tl.load(day_ptr)
 
     removed = (st == 5) | (st == 6)
     count_now = removed & (incl_ == 0) & act_
@@ -151,7 +168,7 @@ def _prologue_kernel(st8, dl, doil, doi, sev8, var8, wdet, isinf, act, z,
 
 def _recv_front_kernel(band, lam, isinf, hasimm, act, u_inf, u_var, st8, doi,
                        dl, o2r, sev8, wdet, dout, doil, u_day, var8,
-                       D, rbt, rwt, day, mode, dap,
+                       D, rbt, rwt, day_ptr, mode_ptr, dap_ptr,
                        o_nc, o_nv, o_susc, o_dl_a, o_doil, o_onset, o_queue,
                        o_die_home, o_bed_req, o_recover_ill, o_hosp_end,
                        o_icu_req, o_hosp_recover, o_icu_end, o_icu_die,
@@ -201,6 +218,9 @@ def _recv_front_kernel(band, lam, isinf, hasimm, act, u_inf, u_var, st8, doi,
     wdet_ = tl.load(wdet + offs, mask=m, other=0) != 0
     dout_ = tl.load(dout + offs, mask=m, other=0) != 0
     u_ = tl.load(u_day + offs, mask=m, other=0.0)
+    day = tl.load(day_ptr)
+    mode = tl.load(mode_ptr)
+    dap = tl.load(dap_ptr)
 
     live = isinf_ & act_
     adv_inc = (st == 1) & (doi_ < day) & live
@@ -253,7 +273,7 @@ def _recv_front_kernel(band, lam, isinf, hasimm, act, u_inf, u_var, st8, doi,
 
 
 def _finalize_kernel(st8, sev8, var8, var_new, dl, doil, doi, newly, isinf,
-                     trc, det, det_hosp, day, ct,
+                     trc, det, det_hosp, day_ptr, ct_ptr,
                      o_st, o_sev, o_var, o_dl, o_doil, o_doi, o_isinf,
                      o_trc, o_det, n, BLOCK: tl.constexpr):
     offs = tl.program_id(0) * BLOCK + tl.arange(0, BLOCK)
@@ -270,6 +290,8 @@ def _finalize_kernel(st8, sev8, var8, var_new, dl, doil, doi, newly, isinf,
     trc_ = tl.load(trc + offs, mask=m, other=0) != 0
     det_ = tl.load(det + offs, mask=m, other=0) != 0
     det_hosp_ = tl.load(det_hosp + offs, mask=m, other=0) != 0
+    day = tl.load(day_ptr)
+    ct = tl.load(ct_ptr)
 
     tl.store(o_st + offs, tl.where(newly_, 1, st).to(tl.int8), mask=m)
     tl.store(o_sev + offs, sev, mask=m)
@@ -304,10 +326,11 @@ def prologue(st8, dl, doil, doi, sev8, var8, wdet, isinf, act, z, nc_ag,
            ninf=(ninf, I32))
     V, T = iot.shape
     outs = _empty(n, dev, BOOL, F32, I32, I32, BOOL, BOOL, I32)
-    LAUNCHES["fused_map.prologue"] += 1
+    launched("fused_map.prologue")
     _launch(_prologue_kernel, n, st8, dl, doil, doi, sev8, var8, _b(wdet),
             _b(isinf), _b(act), z, nc_ag, _b(incl), ninf,
-            iot.contiguous(), asym.contiguous(), infm.contiguous(), int(day),
+            iot.contiguous(), asym.contiguous(), infm.contiguous(),
+            _scalar(day, I32, dev),
             *[_b(o) if o.dtype == BOOL else o for o in outs], V=V, T=T)
     return tuple(outs)
 
@@ -326,11 +349,12 @@ def recv_front(band, lam, isinf, hasimm, act, u_inf, u_var, st8, doi, dl,
     if lam.shape != (V, n):
         raise ValueError(f"lam: expected ({V}, {n}), got {tuple(lam.shape)}")
     outs = _empty(n, dev, BOOL, I32, BOOL, I16, I16, *([BOOL] * 11))
-    LAUNCHES["fused_map.recv_front"] += 1
+    launched("fused_map.recv_front")
     _launch(_recv_front_kernel, n, band, lam, _b(isinf), _b(hasimm),
             _b(act), u_inf, u_var, st8, doi, dl, o2r, sev8, _b(wdet),
             _b(dout), doil, u_day, var8, D.contiguous(), rbt.contiguous(),
-            rwt.contiguous(), int(day), int(mode), float(dap),
+            rwt.contiguous(), _scalar(day, I32, dev), _scalar(mode, I32, dev),
+            _scalar(dap, F32, dev),
             *[_b(o) if o.dtype == BOOL else o for o in outs], V=V, B=B)
     return tuple(outs)
 
@@ -370,7 +394,7 @@ def post(st8, sev8, var8, o2r, dl_a, gbed, gicu, u_day, bed_request,
         build.pointers(ins), build.pointers(tabs), V, build.pointers(outs),
         n, build.event_handles(events), build.stream_of(st8)),
         "fused_map.post")
-    LAUNCHES["fused_map.post"] += 1
+    launched("fused_map.post")
     return tuple(outs)
 
 
@@ -382,10 +406,10 @@ def finalize(st8, sev8, var8, var_new, dl, doil, doi, newly, isinf, trc,
            doi=(doi, I16), newly=(newly, BOOL), isinf=(isinf, BOOL),
            trc=(trc, BOOL), det=(det, BOOL), det_hosp=(det_hosp, BOOL))
     outs = _empty(n, dev, I8, I8, I8, I16, I16, I16, BOOL, BOOL, BOOL)
-    LAUNCHES["fused_map.finalize"] += 1
+    launched("fused_map.finalize")
     _launch(_finalize_kernel, n, st8, sev8, var8, var_new, dl, doil, doi,
-            _b(newly), _b(isinf), _b(trc), _b(det), _b(det_hosp), int(day),
-            int(ct), *[_b(o) if o.dtype == BOOL else o for o in outs])
+            _b(newly), _b(isinf), _b(trc), _b(det), _b(det_hosp),
+            _scalar(day, I32, dev), _scalar(ct, I32, dev), *[_b(o) if o.dtype == BOOL else o for o in outs])
     return tuple(outs)
 
 

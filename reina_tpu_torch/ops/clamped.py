@@ -31,10 +31,13 @@ _NEG = -(1 << 30)
 I32 = torch.int32
 
 
-def grants_twin(releases, requests, init, offset: int):
-    """The closed form, per ledger: 1 cumsum + 2 cummax."""
+def grants_twin(releases, requests, init, offset):
+    """The closed form, per ledger: 1 cumsum + 2 cummax. ``offset``: an
+    int or a 0-d integer tensor."""
     n = releases[0].shape[0]
     dev = releases[0].device
+    if isinstance(offset, torch.Tensor):
+        offset = offset.to(torch.int64)
     in_a = torch.arange(n, dtype=I32, device=dev) >= offset
     neg1 = torch.full((1,), _NEG, dtype=I32, device=dev)
     granted, finals = [], []
@@ -181,7 +184,7 @@ def ledger_fold_slab(releases, requests, offset: int, base: int,
     def ptr(lst, i):
         return lst[i].data_ptr() if i < L else None
 
-    kernels.LAUNCHES["ledger_sharded.fold"] += 1
+    kernels.launched("ledger_sharded.fold")
     build.check(build.lib().reina_ledger_fold_slab(
         ptr(releases, 0), ptr(releases, 1), ptr(req, 0), ptr(req, 1),
         scratch.data_ptr(), folds.data_ptr(), n, int(base), int(offset), L,
@@ -224,7 +227,7 @@ def ledger_emit_slab(releases, requests, init, offset: int, base: int,
     def ptr(lst, i):
         return lst[i].data_ptr() if i < L else None
 
-    kernels.LAUNCHES["ledger_sharded.emit"] += 1
+    kernels.launched("ledger_sharded.emit")
     build.check(build.lib().reina_ledger_emit_slab(
         ptr(releases, 0), ptr(releases, 1), ptr(req, 0), ptr(req, 1),
         ptr(granted, 0), ptr(granted, 1), init.data_ptr(), final.data_ptr(),
@@ -253,10 +256,13 @@ def sharded_grants(releases, requests, init, offset: int, shard):
                             shard.all_gather(folds), shard.index, scratch)
 
 
-def ledger_grants(releases, requests, init, offset: int, events=None):
+def ledger_grants(releases, requests, init, offset, events=None):
     """The ledger kernel (kernels/csrc/ledger.cu): grants and final
     balances of 1 or 2 ledgers of (n,) int32 releases and bool requests
-    on one CUDA device, in three launches and no other op. ``events``:
+    on one CUDA device, in three launches and no other op. ``offset``: an
+    int in [0, n), or a 0-d int32 tensor on the streams' device that the
+    kernel reads when it runs (its value is the caller's to keep in
+    range: a captured day step's comes from its day row). ``events``:
     None, or 4 recorded CUDA events the kernel records again before its
     first launch and after each one (for timing)."""
     L, n, dev = _check_streams(releases, requests, "ledger kernel")
@@ -264,7 +270,13 @@ def ledger_grants(releases, requests, init, offset: int, events=None):
             or not init.is_contiguous():
         raise TypeError("ledger kernel takes (L,) contiguous int32 init on "
                         "the streams' device")
-    if not 0 <= offset < n:
+    off_dev = None
+    if isinstance(offset, torch.Tensor):
+        if offset.device != dev or offset.dtype != I32 or offset.dim():
+            raise TypeError("ledger kernel takes a 0-d int32 offset on the "
+                            "streams' device")
+        off_dev, offset = offset.data_ptr(), 0
+    elif not 0 <= offset < n:
         raise ValueError(f"ledger kernel: offset {offset} outside [0, {n})")
     from ..kernels import build
     req = [q.view(torch.uint8) for q in requests]
@@ -280,30 +292,33 @@ def ledger_grants(releases, requests, init, offset: int, events=None):
     def ptr(lst, i):
         return lst[i].data_ptr() if i < L else None
 
-    kernels.LAUNCHES["ledger_scan"] += 1
+    kernels.launched("ledger_scan")
     build.check(build.lib().reina_ledger_grants(
         ptr(releases, 0), ptr(releases, 1), ptr(req, 0), ptr(req, 1),
         ptr(granted, 0), ptr(granted, 1), init.data_ptr(), final.data_ptr(),
-        scratch.data_ptr(), n, int(offset), L, build.event_handles(events),
-        build.stream_of(releases[0])), "ledger_scan")
+        scratch.data_ptr(), n, int(offset), off_dev, L,
+        build.event_handles(events), build.stream_of(releases[0])),
+        "ledger_scan")
     return granted, final
 
 
-def clamped_counter_grants(releases, requests, init, offset: int,
+def clamped_counter_grants(releases, requests, init, offset,
                            shard=None):
     """Grant/deny requests against clamped counters in cyclic order.
 
     releases: list of L (N,) int32 units returned per position;
     requests: list of L (N,) bool; init: (L,) int32 counter values at
-    sweep start; offset: host int, the sweep's first position.
+    sweep start; offset: the sweep's first position, a host int or a 0-d
+    int32 tensor on the streams' device (read back to the host in an
+    agent-sharded run).
     Returns (tuple of L (N,) bool grants, (L,) int32 final balances).
     With ``shard`` (an agent-sharded run) the streams are this rank's
     slab and the grants its slab's (:func:`sharded_grants`).
     """
     dev = releases[0].device
     if shard is not None:
-        granted, final = sharded_grants(releases, requests, init, offset,
-                                        shard)
+        granted, final = sharded_grants(releases, requests, init,
+                                        int(offset), shard)
     elif dev.type == "cpu":
         granted, final = grants_twin(releases, requests, init, offset)
     else:

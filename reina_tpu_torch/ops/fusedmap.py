@@ -65,8 +65,10 @@ def _scratch(dev, name: str, size: int) -> torch.Tensor:
     after every launch (hist_finish.cuh). Threads that call at once get
     one scratch. The launches that share it must run one after another
     in stream order: the serving workers launch on the default stream
-    (runtime/runner.py); two histograms of one kind on two streams are
-    not supported."""
+    (runtime/runner.py), and a captured day step's graphs, which hold
+    the scratch's address, replay on it too; two histograms of one kind
+    on two streams are not supported. The first call of a shape must
+    come before a capture (the graph runner's eager first run)."""
     key = (dev, name, size)
     with _SCRATCH_LOCK:
         if key not in _SCRATCH:
@@ -142,7 +144,7 @@ def fused_onehot_sum(parts, code_b, n_b: int, events=None) -> torch.Tensor:
         build.pointers(parts), K, code_b.data_ptr(), acc.data_ptr(),
         out.data_ptr(), n, n_b, build.event_handles(events),
         build.stream_of(code_b)), "fused_onehot_sum")
-    kernels.LAUNCHES["fused_onehot_sum"] += 1
+    kernels.launched("fused_onehot_sum")
     return out
 
 
@@ -179,7 +181,7 @@ def _launch_output_masks(fields, code_b, n_b: int, events=None):
         out.data_ptr(), n, n_b, C.HOSPITALIZED, C.IN_ICU, C.RECOVERED,
         C.DEAD, build.event_handles(events), build.stream_of(code_b)),
         "fused_fn_onehot_sum")
-    kernels.LAUNCHES["fused_fn_onehot_sum"] += 1
+    kernels.launched("fused_fn_onehot_sum")
     return out
 
 
@@ -267,7 +269,7 @@ def fused_bihistogram(code_a, n_a: int, weights, code_b, n_b: int, *,
         code_b.data_ptr(), acc.data_ptr(), out.data_ptr(), n, n_a, n_b,
         build.event_handles(events), build.stream_of(code_a)),
         "fused_bihistogram")
-    kernels.LAUNCHES["fused_bihistogram"] += 1
+    kernels.launched("fused_bihistogram")
     return out
 
 
@@ -364,7 +366,7 @@ def fused_concat_prefix(weights, codes, n_seg: int,
     out = torch.empty(n_seg * N, dtype=torch.float32, device=dev)
     # row totals (then row offsets), then the blocks' last values
     scratch = torch.empty(n_seg * R + nb, dtype=torch.float32, device=dev)
-    kernels.LAUNCHES["fused_concat_prefix"] += 1
+    kernels.launched("fused_concat_prefix")
     build.check(build.lib().reina_concat_prefix(
         weights.data_ptr(), None if codes is None else codes.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), N, n_seg, blk,
@@ -444,7 +446,7 @@ def prefix_row_totals(weights, codes, n_seg: int, events=None):
     from ..kernels import build
     td = torch.empty((n_seg, n // LANE), dtype=torch.float32,
                      device=weights.device)
-    kernels.LAUNCHES["concat_prefix_sharded.totals"] += 1
+    kernels.launched("concat_prefix_sharded.totals")
     build.check(build.lib().reina_prefix_row_totals(
         weights.data_ptr(), None if codes is None else codes.data_ptr(),
         td.data_ptr(), n, n_seg, build.event_handles(events),
@@ -478,7 +480,7 @@ def prefix_emit_slab(weights, codes, n_seg: int, row0: int, n_global: int,
     out = torch.empty(n_seg * n, dtype=torch.float32, device=dev)
     ends = torch.empty(n_seg, dtype=torch.float32, device=dev)
     scratch = torch.empty(n_seg * R + nb, dtype=torch.float32, device=dev)
-    kernels.LAUNCHES["concat_prefix_sharded.emit"] += 1
+    kernels.launched("concat_prefix_sharded.emit")
     build.check(build.lib().reina_prefix_emit_slab(
         weights.data_ptr(), None if codes is None else codes.data_ptr(),
         gathered.data_ptr(), out.data_ptr(), ends.data_ptr(),

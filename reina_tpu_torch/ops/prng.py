@@ -8,8 +8,12 @@ same uniforms.
 
 Keys are host values: a key is a numpy ``uint32`` array whose last axis
 holds the two key words, and every derivation (``split``, ``fold_in``)
-runs in numpy, vectorised over any leading axes. Only the draws run on
-the device: element ``k`` of a draw of shape ``s`` hashes the counter
+runs in numpy, vectorised over any leading axes. A draw also takes a
+:class:`DevKey`, the same words in device memory (a row of the day
+step's key table): the kernel reads them when it runs, which is what a
+captured CUDA graph needs to draw with each replayed day's keys (the
+twins read them back to the host). Only the draws run on the
+device: element ``k`` of a draw of shape ``s`` hashes the counter
 pair ``(0, k)`` of the flattened shape, so a draw is one threefry pass
 over ``arange(prod(s))``. On CUDA a draw is one launch of
 ``kernels/csrc/threefry.cu``, which writes the bits or the floats; on
@@ -29,7 +33,7 @@ the bound).
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -118,10 +122,38 @@ def fold_in(key, data) -> np.ndarray:
 # draws (device): on CUDA one launch of kernels/csrc/threefry.cu a draw,
 # on the CPU the twins, which run the hash as eager int32 ops
 
-def _key_words(key):
+class DevKey(NamedTuple):
+    """A key in device memory: ``words`` (int32 holding the uint32
+    bits) starts with the key's two words; a sampler's key
+    (ops/random.py) follows them with the words its kernel takes, split
+    on the host for ``rounds`` rounds."""
+    words: torch.Tensor
+    rounds: int = 0
+
+
+def host_key(key) -> np.ndarray:
+    """A key's two words as a numpy uint32 (2,) (a DevKey's are read
+    back from its device)."""
+    if isinstance(key, DevKey):
+        key = key.words[:2].cpu().numpy().view(np.uint32)
     key = np.asarray(key, np.uint32)
     if key.shape != (2,):
         raise ValueError(f"expected one key of shape (2,), got {key.shape}")
+    return key
+
+
+def dev_key(key, device, tail=None, rounds: int = 0) -> DevKey:
+    """``key`` (and a sampler's ``tail`` words) as a DevKey on
+    ``device``."""
+    words = host_key(key)
+    if tail is not None:
+        words = np.concatenate([words, np.asarray(tail, np.uint32)])
+    return DevKey(torch.from_numpy(words.view(np.int32).copy()).to(device),
+                  rounds)
+
+
+def _key_words(key):
+    key = host_key(key)
     return int(key[0]), int(key[1])
 
 
@@ -161,16 +193,25 @@ def _draw(mode: int, key, shape, device, start: int, lo: float = 0.0,
     if device.type != "cuda":
         raise ValueError(f"prng: unsupported device {device}")
     shape, n = _draw_shape(shape, start)
-    k1, k2 = _key_words(key)
     out = torch.empty(shape, device=device,
                       dtype=torch.int32 if mode == _BITS else torch.float32)
+    if isinstance(key, DevKey):
+        if key.words.device != out.device or key.words.dtype != torch.int32:
+            raise ValueError(f"prng: a device key on {key.words.device} "
+                             f"({key.words.dtype}) for a draw on "
+                             f"{out.device}")
+        k1 = k2 = 0
+        key_dev = key.words.data_ptr()
+    else:
+        k1, k2 = _key_words(key)
+        key_dev = None
     if n == 0:
         return out
     from ..kernels import build
     build.check(build.lib().reina_draw(
-        out.data_ptr(), n, int(start), k1, k2, mode, lo, scale,
+        out.data_ptr(), n, int(start), k1, k2, key_dev, mode, lo, scale,
         build.stream_of(out)), "prng.draw")
-    kernels.LAUNCHES["prng.draw"] += 1
+    kernels.launched("prng.draw")
     return out
 
 
@@ -280,7 +321,7 @@ def gumbel(key, shape, device) -> torch.Tensor:
 def randint_scalar(key, minval: int, maxval: int) -> int:
     """jax.random.randint(key, (), minval, maxval) for int32 bounds —
     the two-draw modulus algorithm, in uint32 arithmetic on the host."""
-    ks = split(key)
+    ks = split(host_key(key))
     hi = int(np.bitwise_xor(*_threefry_np(ks[0, 0], ks[0, 1], 0, 0)))
     lo = int(np.bitwise_xor(*_threefry_np(ks[1, 0], ks[1, 1], 0, 0)))
     span = (maxval - minval) & _M32 if maxval > minval else 1

@@ -13,7 +13,10 @@ On CUDA each sampler call is one launch of ``kernels/csrc/samplers.cu``
 (a lane a thread, only the branch it keeps, stopping at the round where
 it settles); on the CPU the twins (``gamma_fixed_twin``,
 ``binomial_fixed_twin``) run every round on every lane as eager ops.
-Both give the same samples from the same keys.
+Both give the same samples from the same keys. The kernel takes the
+keys split on the host (``gamma_words``, ``binomial_words``) by value,
+or from device memory for a ``prng.DevKey`` made with the same words
+(the day step's key table, read by a captured graph at replay).
 """
 from __future__ import annotations
 
@@ -57,7 +60,7 @@ def gamma_fixed_twin(key, kappa: float, shape, device, rounds: int = 4):
     d, c = _gamma_scalars(kappa)
     out = torch.full(shape, float("nan"), dtype=F32, device=device)
     done = torch.zeros(shape, dtype=torch.bool, device=device)
-    for k in prng.split(key, rounds):
+    for k in prng.split(prng.host_key(key), rounds):
         kx, ku = prng.split(k)
         x = prng.normal_twin(kx, shape, device)
         v = _cube(1.0 + c * x)
@@ -79,14 +82,63 @@ def _affines():
                                 *prng.affine(prng._NORMAL_LO, 1.0))
 
 
-def _key_array(keys, words: int):
-    """The key words of (…, 2) key arrays in order, zero-padded to
-    ``words``, as the C array the kernel's entry points copy."""
-    flat = np.concatenate([np.asarray(k, np.uint32).reshape(-1)
-                           for k in keys])
-    out = np.zeros(words, np.uint32)
-    out[:flat.size] = flat
-    return (ctypes.c_uint * words)(*out.tolist())
+def _rounds_padded(keys, rounds: int):
+    """(…, rounds, 2) keys zero-padded to (…, MAX_ROUNDS, 2)."""
+    pad = np.zeros(keys.shape[:-2] + (MAX_ROUNDS - rounds, 2), np.uint32)
+    return np.concatenate([keys, pad], axis=-2)
+
+
+def gamma_words(key, rounds: int = 4) -> np.ndarray:
+    """The 4·MAX_ROUNDS key words of samplers.cu's gamma kernel for
+    ``key`` (…, 2), vectorised over leading axes: split(split(key,
+    rounds)) as the twin splits it, the kx of each round zero-padded to
+    MAX_ROUNDS, then the ku."""
+    _check_rounds(rounds)
+    kxu = prng.split(prng.split(np.asarray(key, np.uint32), rounds))
+    lead = kxu.shape[:-3]
+    return np.concatenate(
+        [_rounds_padded(kxu[..., 0, :], rounds),
+         _rounds_padded(kxu[..., 1, :], rounds)],
+        axis=-2).reshape(lead + (4 * MAX_ROUNDS,))
+
+
+def binomial_words(key, rounds: int = 6) -> np.ndarray:
+    """The 2 + 4·MAX_ROUNDS key words of samplers.cu's binomial kernel
+    for ``key`` (…, 2): k_inv, then the ku and the kv of each BTRS round
+    zero-padded to MAX_ROUNDS, as the twin splits them."""
+    _check_rounds(rounds)
+    ks = prng.split(np.asarray(key, np.uint32))
+    kuv = prng.split(prng.split(ks[..., 1, :], rounds))
+    lead = kuv.shape[:-3]
+    return np.concatenate(
+        [ks[..., 0:1, :], _rounds_padded(kuv[..., 0, :], rounds),
+         _rounds_padded(kuv[..., 1, :], rounds)],
+        axis=-2).reshape(lead + (2 + 4 * MAX_ROUNDS,))
+
+
+def _kernel_words(key, words_of, rounds: int, device, what: str):
+    """The key words of a sampler launch: (C array, None) for a host
+    key; (None, device pointer) for a prng.DevKey made by
+    ``dev_key(…, words_of)`` for these rounds."""
+    if not isinstance(key, prng.DevKey):
+        w = words_of(prng.host_key(key), rounds)
+        return (ctypes.c_uint * w.size)(*w.tolist()), None
+    size = words_of(np.zeros(2, np.uint32), rounds).size
+    w = key.words
+    if key.rounds != rounds or w.shape != (2 + size,) \
+            or w.dtype != torch.int32 or w.device != device:
+        raise ValueError(f"{what}: a device key of {key.rounds} rounds, "
+                         f"{tuple(w.shape)} {w.dtype} on {w.device}; the "
+                         f"kernel takes {rounds} rounds, ({2 + size},) "
+                         f"int32 on {device}")
+    return None, w[2:].data_ptr()
+
+
+def dev_key(key, device, words_of, rounds: int) -> prng.DevKey:
+    """``key`` with its sampler words (``gamma_words`` or
+    ``binomial_words``) as a prng.DevKey on ``device``."""
+    return prng.dev_key(key, device, words_of(prng.host_key(key), rounds),
+                        rounds)
 
 
 def gamma_fixed(key, kappa: float, shape, device, rounds: int = 4):
@@ -103,15 +155,14 @@ def gamma_fixed(key, kappa: float, shape, device, rounds: int = 4):
     out = torch.empty(shape, dtype=F32, device=device)
     if n == 0:
         return out
-    kxu = prng.split(prng.split(key, rounds))          # (rounds, 2, 2)
-    pad = np.zeros((MAX_ROUNDS - rounds, 2), np.uint32)
-    words = _key_array([kxu[:, 0], pad, kxu[:, 1], pad], 4 * MAX_ROUNDS)
+    words, words_dev = _kernel_words(key, gamma_words, rounds, out.device,
+                                     "gamma_fixed")
     from ..kernels import build
     build.check(build.lib().reina_gamma_fixed(
-        out.data_ptr(), n, words, rounds, float(np.float32(d)), c,
+        out.data_ptr(), n, words, words_dev, rounds, float(np.float32(d)), c,
         float(np.float32(kappa)), _affines(), build.stream_of(out)),
         "gamma_fixed")
-    kernels.LAUNCHES["random.gamma_fixed"] += 1
+    kernels.launched("random.gamma_fixed")
     return out
 
 
@@ -202,7 +253,7 @@ def binomial_fixed_twin(key, n, p, rounds: int = 6):
     flip = p > 0.5
     p_eff = torch.where(flip, 1.0 - p, p)
     mean = n * p_eff
-    k_inv, k_btrs = prng.split(key)
+    k_inv, k_btrs = prng.split(prng.host_key(key))
     small_m = mean <= 10.0
     small = _binomial_inversion(k_inv, n,
                                 torch.where(small_m, p_eff, 0.0))
@@ -233,16 +284,14 @@ def binomial_fixed(key, n, p, rounds: int = 6):
     out = torch.empty(n.shape, dtype=F32, device=n.device)
     if count == 0:
         return out
-    k_inv, k_btrs = prng.split(key)
-    kuv = prng.split(prng.split(k_btrs, rounds))       # (rounds, 2, 2)
-    pad = np.zeros((MAX_ROUNDS - rounds, 2), np.uint32)
-    words = _key_array([k_inv, kuv[:, 0], pad, kuv[:, 1], pad],
-                       2 + 4 * MAX_ROUNDS)
+    words, words_dev = _kernel_words(key, binomial_words, rounds, n.device,
+                                     "binomial_fixed")
     from ..kernels import build
     build.check(build.lib().reina_binomial_fixed(
-        out.data_ptr(), n32.data_ptr(), p32.data_ptr(), count, words, rounds,
-        _affines(), build.stream_of(out)), "binomial_fixed")
-    kernels.LAUNCHES["random.binomial_fixed"] += 1
+        out.data_ptr(), n32.data_ptr(), p32.data_ptr(), count, words,
+        words_dev, rounds, _affines(), build.stream_of(out)),
+        "binomial_fixed")
+    kernels.launched("random.binomial_fixed")
     return out
 
 

@@ -1,18 +1,20 @@
 """Where a day's time goes on the card: torch.profiler over a window of
-days of the HUS run.
+days of the HUS run, with the plain day step and as captured CUDA
+graphs, from the same state in one call.
 
     python -m reina_tpu_torch.profile_days [--start 100] [--days 10]
 
-Builds the default HUS scenario on "cuda", steps it to day ``start``
-unprofiled, then runs the next ``days`` days twice from the same state,
-first without and then under the profiler, and prints: wall ms/day
-of each (host clock ending in a synchronize), device-busy ms/day (the
-sum of the device events' durations under the profiler), the device's
-idle share (1 - busy / the wall without the profiler, since the
-profiler's own host overhead stretches the wall it sees), device events
-(kernels, copies, sets) per day, the host CPU seconds of the profiled
-window, and the ten device events that took the most time. Needs a
-CUDA device.
+Builds the default HUS scenario on "cuda", steps it to day ``start``,
+then runs the next ``days`` days in each mode from that state: first a
+window that captures the graphs (graphed mode only: its capture
+seconds), then one without and one under the profiler. For each mode it
+prints wall ms/day (host clock ending in a synchronize), device-busy
+ms/day (the sum of the device events' durations under the profiler),
+the device's idle share (1 - busy / the wall without the profiler,
+since the profiler's own host overhead stretches the wall it sees),
+device events (kernels, copies, sets) a day, graph replays and host
+syncs a day, the host CPU seconds of the profiled window, and the ten
+device events that took the most time. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -33,8 +35,10 @@ def main(argv=None) -> int:
         raise SystemExit("needs a CUDA device")
 
     from .config.variables import VARIABLE_DEFAULTS
+    from .core import graphs, step
     from .core.engine import build_run, run_chunk, run_days
     from .core.schedule import Schedules
+    from .ops import prng
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -45,49 +49,69 @@ def main(argv=None) -> int:
     run = build_run(v, "cuda")
     _, state, carry, _ = run_days(run, n_days=args.start + 1)
     host = Schedules(*(x.cpu().numpy() for x in run.schedules))
-    from .ops import prng
     key = prng.PRNGKey(run.random_seed)
+    d = args.days
+    gs = graphs.acquire(run.cfg, run.arrays, run.schedules, run.device)
+    gs.entries.clear()             # the window's captures are measured
 
-    def window():
-        # the day step updates the bucket table in place: each window
-        # starts from its own copy
-        c = carry._replace(bkt_dst=carry.bkt_dst.clone())
+    def window(graphed: bool):
+        """The window's wall seconds and graph counters."""
+        if graphed:
+            gs.start(state, carry, args.start)
+            plans = gs.prepare(host, key, args.start, d,
+                               carry.weekly_leftover, state.age.shape[0])
+        else:
+            # the day step updates the bucket table in place: each
+            # window starts from its own copy
+            c = carry._replace(bkt_dst=carry.bkt_dst.clone())
         torch.cuda.synchronize()
+        step.reset_stats()
         t0 = time.perf_counter()
-        run_chunk(run.cfg, run.arrays, run.schedules, host, state, c,
-                  key, args.days, args.start)
+        if graphed:
+            gs.step(plans)
+        else:
+            run_chunk(run.cfg, run.arrays, run.schedules, host, state, c,
+                      key, d, args.start)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0
+        return time.perf_counter() - t0, dict(step.STATS)
 
-    wall = window()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        c0 = time.process_time()
-        wall_prof = window()
-        cpu = time.process_time() - c0
-
-    busy_us, count = 0.0, 0
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        busy_us += us
-        count += 1
-        by_name[e.name][0] += us
-        by_name[e.name][1] += 1
-    d = args.days
-    print(f"days {args.start}-{args.start + d - 1}: wall "
-          f"{wall / d * 1e3:.2f} ms/day ({wall_prof / d * 1e3:.2f} under the "
-          f"profiler), device busy "
-          f"{busy_us / d / 1e3:.2f} ms/day, idle share "
-          f"{1 - busy_us / 1e6 / wall:.3f}, device events/day {count / d:.1f}, "
-          f"host CPU {cpu:.3f} s")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
-    for name, (us, n) in top:
-        print(f"  {us / d / 1e3:8.3f} ms/day  {n / d:7.1f}/day  "
-              f"{100 * us / busy_us:5.1f}%  {name[:90]}")
+    for graphed in (False, True):
+        mode = "graphed" if graphed else "eager"
+        if graphed:
+            first, st = window(True)
+            print(f"{mode}: first window {first / d * 1e3:.2f} ms/day with "
+                  f"{st.get('captures', 0)} captures in "
+                  f"{st.get('capture_s', 0.0):.3f} s")
+        wall, st = window(graphed)
+        with torch.profiler.profile(activities=acts) as prof:
+            c0 = time.process_time()
+            wall_prof, _ = window(graphed)
+            cpu = time.process_time() - c0
+        busy_us, count = 0.0, 0
+        by_name = defaultdict(lambda: [0.0, 0])
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = e.time_range.elapsed_us()
+            busy_us += us
+            count += 1
+            by_name[e.name][0] += us
+            by_name[e.name][1] += 1
+        print(f"{mode} days {args.start}-{args.start + d - 1}: wall "
+              f"{wall / d * 1e3:.2f} ms/day ({wall_prof / d * 1e3:.2f} under "
+              f"the profiler), device busy {busy_us / d / 1e3:.2f} ms/day, "
+              f"idle share {1 - busy_us / 1e6 / wall:.3f}, device events/day "
+              f"{count / d:.1f}, graph replays/day "
+              f"{st.get('replays', 0) / d:.1f}, host reads/day "
+              f"{st['reads'] / d:.1f}, "
+              f"host CPU {cpu:.3f} s")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+        for name, (us, n) in top:
+            print(f"  {us / d / 1e3:8.3f} ms/day  {n / d:7.1f}/day  "
+                  f"{100 * us / busy_us:5.1f}%  {name[:90]}")
+    graphs.release(gs)
     return 0
 
 

@@ -544,3 +544,96 @@ def test_sharded_entries_raise():
     assert after["ledger_sharded.emit"] == before["ledger_sharded.emit"]
     assert (after["concat_prefix_sharded.emit"]
             == before["concat_prefix_sharded.emit"])
+
+
+# the calendar of tests/test_torch_step.py: testing, imports, weekly
+# imports, mobility limits, masks, contact tracing, vaccination and
+# capacity builds
+STEP_IVS = [
+    ["test-all-with-symptoms", "2020-02-20"],
+    ["import-infections", "2020-02-20", 50],
+    ["import-infections-weekly", "2020-02-25", 35],
+    ["limit-mobility", "2020-03-01", 30],
+    ["wear-masks", "2020-03-05", 50],
+    ["test-with-contact-tracing", "2020-03-05", 60],
+    ["vaccinate", "2020-03-01", 700, 60, None],
+    ["build-new-icu-units", "2020-03-03", 5],
+    ["build-new-hospital-beds", "2020-03-03", 20],
+]
+
+
+def test_graphed_run_equals_eager():
+    """25 days of the step calendar (tracing, vaccination and import
+    days among them) as captured CUDA graphs and with the plain day
+    step: every output row, the final state and the final carry equal bit
+    for bit, every kernel launched as often (the replays' tallies), the
+    tracing spans captured, and the second run of the build replays
+    without capturing."""
+    _need_cuda()
+    from reina_tpu_torch import convert
+    from reina_tpu_torch.core import graphs, step
+    from reina_tpu_torch.core.engine import run_days
+    from reina_tpu_torch.testing import build_synthetic_run
+    run = build_synthetic_run("cuda", n_agents=20000, days=25, seed=3,
+                              interventions=STEP_IVS)
+    kernels.reset_launches()
+    want = run_days(run, chunk_days=8, graphs=False)
+    eager_launches = kernels.launches()
+    graphs.drop_idle()
+    for captures in (True, False):
+        kernels.reset_launches()
+        step.reset_stats()
+        got = run_days(run, chunk_days=8)
+        st = dict(step.STATS)
+        assert kernels.launches() == eager_launches
+        assert (st.get("captures", 0) > 0) == captures, st
+        assert st["replays"] > 0, st
+        for name, a, b in zip(want[0]._fields, want[0], got[0]):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        for w, g in ((want[1], got[1]), (want[2], got[2])):
+            w, g = convert.to_numpy(w), convert.to_numpy(g)
+            for k in w:
+                np.testing.assert_array_equal(w[k], g[k], err_msg=k)
+    gs = graphs._IDLE[-1]
+    assert {"A", "T1", "T2", "T3", "T4", "B", "AB", "C"} <= {
+        name for name, _ in gs.entries}
+
+
+def test_device_key_draws_match_twins():
+    """The draw and sampler kernels reading their keys from device
+    memory (the day's key table) equal the twins on the host keys, bit
+    for bit (checks.dev_key_pairs)."""
+    _need_cuda()
+    from reina_tpu_torch.kernels import checks
+    before = kernels.launches()
+    for name, kernel, twin in checks.dev_key_pairs(0, "cuda"):
+        for g, w in zip(kernel(), twin()):
+            assert g.dtype == w.dtype and g.shape == w.shape, name
+            assert torch.equal(g.view(torch.int32) if g.is_floating_point()
+                               else g, w.view(torch.int32)
+                               if w.is_floating_point() else w), name
+    after = kernels.launches()
+    assert after["prng.draw"] - before["prng.draw"] == 5
+    assert after["random.gamma_fixed"] - before["random.gamma_fixed"] == 1
+    assert (after["random.binomial_fixed"]
+            - before["random.binomial_fixed"]) == 1
+
+
+def test_capture_failure_raises():
+    """A span that reads a device value on the host cannot be captured:
+    the graph runner raises, naming the span and its key, after the
+    span's eager first run; the card stays usable."""
+    _need_cuda()
+    from reina_tpu_torch.core import graphs
+    from reina_tpu_torch.testing import build_synthetic_run
+    run = build_synthetic_run("cuda", n_agents=8192, days=3, seed=1)
+    gs = graphs.GraphSet(run.cfg, run.arrays, run.schedules, "cuda")
+
+    def host_read():
+        x = torch.ones(8, device="cuda")
+        return {"y": x * float(x.sum())}
+
+    with pytest.raises(graphs.GraphError, match=r"span X \(7,\)"):
+        gs.span("X", (7,), host_read)
+    torch.cuda.synchronize()
+    assert float(torch.ones(4, device="cuda").sum()) == 4.0
