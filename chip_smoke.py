@@ -21,17 +21,30 @@ Run from the repository root on a machine with a CUDA device. It
      step's key table), binomial_fixed on the inputs its two calls get
      on day 100 of this run (run_days to day 100 records them); then
      run_days, which steps the days as captured CUDA graphs
-     (reina_tpu_torch/core/graphs.py), counting every kernel's launches
-     in that run (a replay adds its graph's tally);
+     as one CUDA graph launch a day with its tier picks on the device
+     (reina_tpu_torch/core/graphs.py, core/daygraph.py: each pick a
+     kernel of csrc/daygraph.cu that sets a conditional node), counting
+     every kernel's launches in that run (a launch adds its spans'
+     tallies, a sync point those of the branches that ran, from the
+     device's branch tallies); the pick kernel first against its twin at
+     every branch of every pick;
   4. checks the outcome: finite outputs of the expected shape, agents
-     conserved every day, every kernel launched, and the final
-     all_infected inside the JAX package's 1000-seed spread
-     (373,466 ± 4 × 22,396, BENCH_MC.json);
+     conserved every day, every kernel launched exactly as often as the
+     days ran it, and the final all_infected inside the JAX package's
+     1000-seed spread (373,466 ± 4 × 22,396, BENCH_MC.json);
   4b. the graphs: the same run with the plain day step (graphs=False)
-     and again as graphs from the captured set; both must equal step 3's
-     outputs, final state and final carry bit for bit; it prints the
-     graphs captured (span and key), the capture seconds, replays and
-     host reads a day, ms/day and peak device memory of each mode;
+     and again as graphs from the built set; both must equal step 3's
+     outputs, final state and final carry bit for bit, the plain step's
+     host picks must equal the device's picks of step 3 on every day,
+     and a graphed run must launch one day graph and read nothing on the
+     host a day; it prints the spans captured (span and key), the day
+     graphs, the capture and assembly seconds, launches and host reads a
+     day, ms/day and peak device memory of each mode;
+  4c. Turku (the turku override set with its astra-zeneca scenario, the
+     only vaccination in the set, 565 days, 192,962 agents): graphed
+     and with the plain day step, equal bit for bit, with every kernel's
+     launches exact and a one-hot vaccination sum on each vaccination
+     day;
   5. resumes at HUS scale: run_days to day 182 with a checkpoint, then
      a second run_days to day 364 that resumes from it; its outputs and
      final agent state must equal step 3's bit for bit;
@@ -71,17 +84,18 @@ Run from the repository root on a machine with a CUDA device. It
      susceptible exactly, and export its 365 days as a workbook; run B
      (seed 1) must be a reseed of A's build and end inside the same
      outcome band; the explorer's severity counts through the server
-     must equal the port's on the CPU. Last, one 30-day run alone and
-     then two at once from two sessions time the worker threads'
-     sharing of the card.
+     must equal the port's on the CPU. Last, 30-day runs from sessions
+     of their own, one alone, then 2, 4, 8 and 16 at once, time the
+     worker threads' sharing of the card, with each group's peak device
+     memory.
 
     python3 chip_smoke.py --mesh K
 
 runs only step 7's ranks, for 2 and K ranks (NCCL with K cards), after
 the 31 days of step 3 and the ensemble of step 6 that they are held to.
 
-Each of steps 3, 5, 8, the ensemble, the grid and the CLI run of 6, the
-agent-sharded run of 7 (in each rank) and each served run of 9 sets the
+Each of steps 3, 4c, 5, 8, the ensemble, the grid and the CLI run of 6,
+the agent-sharded run of 7 (in each rank) and each served run of 9 sets the
 kernels' launch counts to 0 just before it and reads them just after. It prints one
 JSON line of kernel results before the last line, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
@@ -196,9 +210,11 @@ def resume_phase(run, out, state, scratch: str) -> None:
 
 
 def graphs_phase(run, out, state, carry, wall: float, stats: dict,
-                 peak: int) -> None:
+                 peak: int, dev_picks) -> None:
     """The main path's graphed run against the plain day step and a
-    second graphed run from the captured set: equal bit for bit."""
+    second graphed run from the built set: equal bit for bit, the
+    device's tier picks equal to the host's on every day, one day-graph
+    launch and no host read a day."""
     import numpy as np
     import torch
     from reina_tpu_torch import convert
@@ -207,32 +223,61 @@ def graphs_phase(run, out, state, carry, wall: float, stats: dict,
 
     steps = DAYS - 1
     gs = graphs.acquire(run.cfg, run.arrays, run.schedules, run.device)
-    captured = sorted(gs.entries)
+    captured = sorted(gs.bodies)
+    day_graphs = sorted(gs.days)
     graphs.release(gs)
-    print(f"graphs: {stats.get('captures', 0)} captured in "
+    print(f"graphs: {stats.get('captures', 0)} spans captured in "
           f"{stats.get('capture_s', 0.0):.3f} s (span, key): {captured}; "
-          f"{stats.get('replays', 0) / steps:.2f} replays and "
-          f"{stats['reads'] / steps:.2f} host reads a day; graphed "
-          f"{wall / steps * 1000:.2f} ms/day with the captures, peak "
+          f"{len(day_graphs)} day graphs (ct_active, vacc, "
+          f"imports) {day_graphs} assembled in "
+          f"{stats.get('assemble_s', 0.0):.3f} s; "
+          f"{stats.get('launches', 0) / steps:.2f} day-graph launches and "
+          f"{stats.get('reads', 0) / steps:.2f} host reads a day; graphed "
+          f"{wall / steps * 1000:.2f} ms/day with the builds, peak "
           f"device memory {peak / 2**30:.2f} GiB")
+    if stats.get("launches") != steps or stats.get("reads", 0):
+        fail("graphs: the graphed run did not launch one day graph and "
+             "read nothing a day")
     want = (out, state, carry)
     for mode, graphed in (("eager", False), ("graphed again", True)):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         step.reset_stats()
+        picks = []
         t0 = time.perf_counter()
-        got = run_days(run, chunk_days=52, graphs=graphed)
+        got = run_days(run, chunk_days=52, graphs=graphed, picks=picks)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         st = dict(step.STATS)
         print(f"graphs: {mode} {secs / steps * 1000:.2f} ms/day "
               f"({run.n_agents * steps / secs:.1f} agent-days/s), "
               f"{st.get('captures', 0)} captures, "
-              f"{st.get('replays', 0) / steps:.2f} replays and "
-              f"{st['reads'] / steps:.2f} host reads a day, peak device "
-              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        if graphed and st.get("captures", 0):
-            fail("graphs: the second graphed run captured again")
+              f"{st.get('launches', 0) / steps:.2f} day-graph launches and "
+              f"{st.get('reads', 0) / steps:.2f} host reads a day, peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+              f" GiB ({held / 2**30:.2f} GiB held before the run)")
+        if graphed and (st.get("captures", 0) or st.get("reads", 0)
+                        or st.get("launches") != steps):
+            fail("graphs: the second graphed run captured or read again")
+        if not graphed:
+            if len(picks) != steps or len(dev_picks) != steps:
+                fail(f"graphs: {len(picks)} host and {len(dev_picks)} "
+                     f"device rows of picks, want {steps}")
+            bad = np.flatnonzero((np.array(picks) != np.array(dev_picks))
+                                 .any(axis=1))
+            if bad.size:
+                fail(f"graphs: the device's picks differ from the host's on "
+                     f"days {bad[:10].tolist()}")
+            tab = np.array(picks)
+            print(f"graphs: the device's picks equal the host's on all "
+                  f"{steps} days; tracing on {int((tab[:, 0] == 1).sum())}"
+                  f" days; slot tiers used "
+                  f"{np.bincount(tab[:, 5], minlength=5).tolist()}; "
+                  f"member tiers of n_d "
+                  f"{np.bincount(tab[tab[:, 1] >= 0, 1], minlength=5).tolist()}")
+        elif not np.array_equal(np.array(picks), np.array(dev_picks)):
+            fail("graphs: the second graphed run picked other tiers")
         for name, a, b in zip(out._fields, want[0], got[0]):
             if a.shape != b.shape or not np.array_equal(a, b):
                 fail(f"graphs: {mode}: outputs.{name} differ")
@@ -244,19 +289,95 @@ def graphs_phase(run, out, state, carry, wall: float, stats: dict,
                     fail(f"graphs: {mode}: {what}.{k} differs")
         del got
     print("graphs: the graphed run equals the plain day step and the "
-          "replayed run on every output row, the final state and carry")
+          "graphed run again on every output row, the final state and "
+          "carry")
+
+
+def turku_phase() -> None:
+    """The turku override set (config/override_sets.json: Turku, 900
+    beds, 55 ICU units, its calendar) with its astra-zeneca scenario,
+    whose vaccinate event (2021-03-15, day 391) is the only one in the
+    set: its 565 default days graphed and with the plain day step, equal
+    bit for bit, with one-hot vaccination sums on every vaccination
+    day."""
+    import copy
+
+    import numpy as np
+    import torch
+    from reina_tpu_torch import convert, kernels
+    from reina_tpu_torch.config.variables import (VARIABLE_DEFAULTS,
+                                                  VARIABLE_OVERRIDE_SETS)
+    from reina_tpu_torch.core import step
+    from reina_tpu_torch.core.engine import build_run, run_days
+
+    v = dict(VARIABLE_DEFAULTS)
+    v.update(copy.deepcopy(VARIABLE_OVERRIDE_SETS["turku"]))
+    v["active_scenario"] = "astra-zeneca"
+    t0 = time.perf_counter()
+    run = build_run(v, "cuda")
+    build_s = time.perf_counter() - t0
+    steps = run.days - 1
+    vacc_nr = run.schedules.vacc_nr.cpu().numpy()
+    vacc_days = int((vacc_nr[:steps].sum(axis=1) >= 1.0).sum())
+    res = {}
+    for mode, graphed in (("graphed", True), ("eager", False)):
+        kernels.reset_launches()
+        step.reset_stats()
+        picks = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[mode] = run_days(run, chunk_days=52, graphs=graphed, picks=picks)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = kernels.launches()
+        st = dict(step.STATS)
+        out = res[mode][0]
+        print(f"turku {mode}: {run.n_agents} agents, {steps} days in "
+              f"{secs:.3f} s ({secs / steps * 1000:.2f} ms/day, build "
+              f"{build_s:.3f} s), {st.get('captures', 0)} captures, "
+              f"{st.get('launches', 0) / steps:.2f} day-graph launches and "
+              f"{st.get('reads', 0) / steps:.2f} host reads a day; "
+              f"vaccination days {vacc_days}, fused_onehot_sum launched "
+              f"{launches['fused_onehot_sum']}; final all_infected "
+              f"{int(out.by_group[-1, 3].sum())}, vaccinated "
+              f"{int(out.by_group[-1, 1].sum())}")
+        res[mode + " picks"] = picks
+        check_runs_launched(launches, steps, 1 + vacc_days, f"turku {mode}")
+        cons = out.by_group[:, 0].sum(1) + out.by_group[:, 3].sum(1)
+        if not (cons == run.n_agents).all():
+            fail(f"turku {mode}: agents not conserved")
+    if vacc_days == 0 or int(res["graphed"][0].by_group[-1, 1].sum()) == 0:
+        fail("turku: no vaccination ran")
+    if not np.array_equal(np.array(res["graphed picks"]),
+                          np.array(res["eager picks"])):
+        fail("turku: the device's picks differ from the host's")
+    (go, gst, gcr), (eo, est, ecr) = (res["graphed"][:3], res["eager"][:3])
+    for name, a, b in zip(go._fields, go, eo):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            fail(f"turku: outputs.{name} differ")
+    for what, w, g in (("state", est, gst), ("carry", ecr, gcr)):
+        w, g = convert.to_numpy(w), convert.to_numpy(g)
+        for k in w:
+            if not np.array_equal(w[k], g[k]):
+                fail(f"turku: {what}.{k} differs")
+    print("turku: the graphed run equals the plain day step bit for bit "
+          "(outputs, final state and carry, picks)")
 
 
 def check_runs_launched(launches: dict, steps: int, runs: int,
                         phase: str) -> None:
     """Exactly one launch of each DAILY kernel a stepped day, two of
-    each sampler and one of the snapshot one-hot sums a run; at least two
-    prefix calls and DRAWS_A_DAY draws a day."""
+    each sampler and one of the snapshot one-hot sums a run, beside the
+    graph warm-ups' launches counted since the counts were reset
+    (kernels.WARMUPS); at least two prefix calls and DRAWS_A_DAY draws a
+    day."""
+    from reina_tpu_torch import kernels
+    warm = kernels.warmups()
     for k, n in ({k: steps for k in DAILY} | {k: 2 * steps for k in TWICE}
                  | {"fused_onehot_sum": runs}).items():
-        if launches.get(k, 0) != n:
+        if launches.get(k, 0) != n + warm.get(k, 0):
             fail(f"{phase}: {k} launched {launches.get(k, 0)} times, "
-                 f"want {n}")
+                 f"want {n} and {warm.get(k, 0)} in warm-ups")
     check_launched(launches, {"fused_concat_prefix": 2 * steps,
                               "prng.draw": DRAWS_A_DAY * steps}, phase)
 
@@ -710,52 +831,66 @@ def warm_hit_run(base: str) -> None:
 
 
 def concurrent_runs(base: str) -> None:
-    """Time to a result as the worker threads share the card: one
-    CLI_DAYS-day run alone, then two at once from two sessions."""
+    """Time to a result as the worker threads share the card: CLI_DAYS-day
+    runs, each from a session of its own, one alone, then 2, 4, 8 and 16
+    at once (16: the runner's MAX_CONCURRENT_RUNS), each run on a graph
+    set of its own; the peak device memory of each group."""
+    import torch
     from reina_tpu_torch import kernels
 
-    clients = [Client(base) for _ in range(3)]
+    groups = (1, 2, 4, 8, 16)
+    clients = [Client(base) for _ in range(max(groups))]
     for c in clients:
         c.post(f"mutation {{ setSimulationDays(days: {CLI_DAYS}) "
                "{ ok } }")
     steps = CLI_DAYS - 1
-    finals = []
-    for group in ((3,), (4, 5)):
+    seed = 3
+    for size in groups:
+        seeds = list(range(seed, seed + size))
+        seed += size
         kernels.reset_launches()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        runs = {seed: (clients[seed - 3], clients[seed - 3].post(
-            f"mutation {{ runSimulation(randomSeed: {seed}) {{ runId }} }}"
-        )["runSimulation"]["runId"]) for seed in group}
+        runs = {s: (c, c.post(
+            f"mutation {{ runSimulation(randomSeed: {s}) {{ runId }} }}"
+        )["runSimulation"]["runId"]) for s, c in zip(seeds, clients)}
         done = {}
         while len(done) < len(runs):
             if time.perf_counter() - t0 > 300:
-                fail(f"serve seeds {group}: not finished in 300 s")
+                fail(f"serve {size} at once: not finished in 300 s")
             time.sleep(POLL_S)
-            for seed, (c, run_id) in runs.items():
-                if seed in done:
+            for s, (c, run_id) in runs.items():
+                if s in done:
                     continue
                 res = poll(c, run_id)
                 if res["finished"]:
-                    done[seed] = (time.perf_counter() - t0, res)
+                    done[s] = (time.perf_counter() - t0, res)
+        peak = torch.cuda.max_memory_allocated()
         launches = kernels.launches()
-        for seed in group:
-            t_done, res = done[seed]
+        finals, times = set(), []
+        for s in seeds:
+            t_done, res = done[s]
+            times.append(t_done)
             m = {x["type"]: x["intValues"]
                  for x in res["predictedMetrics"]["metrics"]}
-            print(f"serve {CLI_DAYS}-day seed {seed}, {len(group)} at "
-                  f"once: finished at {t_done:.3f} s (polled every "
-                  f"{POLL_S} s), final all_infected {m['all_infected'][-1]}")
             if len(res["predictedMetrics"]["dates"]) != CLI_DAYS:
-                fail(f"serve seed {seed}: "
+                fail(f"serve seed {s}: "
                      f"{len(res['predictedMetrics']['dates'])} dates")
-            if any(s + i != HUS_AGENTS for s, i in
+            if any(a + i != HUS_AGENTS for a, i in
                    zip(m["susceptible"], m["all_infected"])):
-                fail(f"serve seed {seed}: agents not conserved")
-            finals.append(m["all_infected"])
-        check_launched(launches, day_launches(len(group) * steps, 0),
-                       f"serve seeds {group}")
-    if finals[1] == finals[2]:
-        fail("serve: the two concurrent runs gave the same curve")
+                fail(f"serve seed {s}: agents not conserved")
+            finals.add(tuple(m["all_infected"]))
+        times.sort()
+        print(f"serve {CLI_DAYS}-day runs, {size} at once: finished at "
+              f"{times[0]:.3f} / {times[len(times) // 2]:.3f} / "
+              f"{times[-1]:.3f} s (first / median / last, polled every "
+              f"{POLL_S} s); peak device memory {peak / 2**30:.2f} GiB")
+        check_runs_launched(launches, size * steps, size,
+                            f"serve {size} at once")
+        if len(finals) != size:
+            fail(f"serve {size} at once: {size - len(finals)} runs gave "
+                 "another run's curve")
 
 
 def serving_phase(main_all_infected, main_susceptible) -> None:
@@ -922,16 +1057,20 @@ def main() -> None:
           f"INT32 bound {checks.sm_clock_hz() / 1e6:.0f} MHz")
     hold(checks.draw_checks(0, "cuda", captured))
     del captured
+    hold([checks.pick_check("cuda")])
 
     from reina_tpu_torch.core import step
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     step.reset_stats()
     t0 = time.perf_counter()
-    out, state, carry, chunk_times = run_days(run, chunk_days=52)
+    dev_picks = []
+    out, state, carry, chunk_times = run_days(run, chunk_days=52,
+                                              picks=dev_picks)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launches()
+    warm = kernels.warmups()
     peak = torch.cuda.max_memory_allocated()
     graph_stats = dict(step.STATS)
     steps = DAYS - 1
@@ -940,7 +1079,8 @@ def main() -> None:
           f"({wall / steps * 1000:.2f} ms/day, "
           f"{run.n_agents * steps / wall:.1f} agent-days/s), "
           f"peak device memory {peak / 2**30:.2f} GiB")
-    print(f"final all_infected={final}; launches={launches}")
+    print(f"final all_infected={final}; launches={launches}, of them "
+          f"{sum(warm.values())} in the graph warm-ups: {warm}")
 
     # ---- outcome checks
     G = len(run.group_labels)
@@ -955,12 +1095,18 @@ def main() -> None:
     cons = out.by_group[:, 0].sum(1) + out.by_group[:, 3].sum(1)
     if not (cons == run.n_agents).all():
         fail("agents not conserved (susceptible + all_infected)")
-    check_launched(launches, day_launches(steps, 1), "main path")
+    check_runs_launched(launches, steps, 1, "main path")
+    # one pick a conditional node that ran: a picks-table entry each
+    picked = sum(int((row >= 0).sum()) for row in dev_picks)
+    if launches["daygraph.pick"] != picked:
+        fail(f"main path: daygraph.pick launched "
+             f"{launches['daygraph.pick']} times, want {picked}")
     lo, hi = MC_MEAN - 4 * MC_STD, MC_MEAN + 4 * MC_STD
     if not lo <= final <= hi:
         fail(f"final all_infected {final} outside [{lo:.0f}, {hi:.0f}]")
 
-    graphs_phase(run, out, state, carry, wall, graph_stats, peak)
+    graphs_phase(run, out, state, carry, wall, graph_stats, peak,
+                 dev_picks)
     with tempfile.TemporaryDirectory(dir=here) as scratch:
         resume_phase(run, out, state, scratch)
     ens, ens_ms_day = ensemble_phase(run, v, out, peak - mem0, run_bytes)
@@ -969,6 +1115,7 @@ def main() -> None:
     main_all_infected = out.by_group[:, 3].sum(1)
     main_susceptible = out.by_group[:, 0].sum(1)
     del run, out, state, carry
+    turku_phase()
     cli_phase()
     serving_phase(main_all_infected, main_susceptible)
 

@@ -5,8 +5,9 @@ variables → compiled run on a device → days.
 places every tensor on the device it is given; nothing picks a device
 by itself. ``reseed_run`` re-seeds a built run in numpy (the build
 cache's hit path). ``run_days`` steps the days — on a CUDA device as
-captured CUDA graphs of the day's spans (core/graphs.py), else with the
-plain day step —, keeps the outputs on the device until a sync point,
+one CUDA graph launch a day with the tier picks on the device
+(core/graphs.py), else with the plain day step —, keeps the outputs on
+the device until a sync point,
 fetches them there in one packed transfer and checks the problem
 bitmask, and checkpoints and resumes in the JAX package's file layout
 (``core/checkpoint.py``). Given a mesh whose agent axis has several
@@ -279,17 +280,18 @@ def pack_leaves(int_leaves, float_leaves):
     return i, f
 
 
-def fetch_packed(outs: DayOutputs, problem):
+def fetch_packed(outs: DayOutputs, tail):
     """The JAX package's ``_fetch_chunk_packed``: stacked device outputs
-    and the problem scalar to the host in one int32 and one float32
-    transfer; returns (numpy DayOutputs, problem int). Host leaves pass
-    through as numpy."""
+    and an int tensor ``tail`` (the problem bits first, then whatever the
+    run loop fetches with them) to the host in one int32 and one float32
+    transfer; returns (numpy DayOutputs, ``tail`` as a flat int32
+    array). Host leaves pass through as numpy."""
     leaves = list(outs)
     on_dev = [isinstance(x, torch.Tensor) for x in leaves]
     is_int = [d and not x.is_floating_point() for x, d in zip(leaves, on_dev)]
     ints = [x for x, b in zip(leaves, is_int) if b]
     flts = [x for x, d, b in zip(leaves, on_dev, is_int) if d and not b]
-    pi, pf = pack_leaves(ints + [problem.reshape(1)], flts)
+    pi, pf = pack_leaves(ints + [tail.reshape(-1)], flts)
     pi, pf = pi.cpu().numpy(), pf.cpu().numpy()
     out, oi, of = [], 0, 0
     for x, d, b in zip(leaves, on_dev, is_int):
@@ -301,21 +303,23 @@ def fetch_packed(outs: DayOutputs, problem):
         src = pi[oi:oi + n] if b else pf[of:of + n]
         out.append(src.reshape(tuple(x.shape)).astype(dt))
         oi, of = (oi + n, of) if b else (oi, of + n)
-    return DayOutputs(*out), int(pi[oi])
+    return DayOutputs(*out), pi[oi:]
 
 
 def run_chunk(cfg: EngineConfig, arrays: ModelArrays, schedules: Schedules,
               host_sched: Schedules, state: AgentState, carry: DayCarry,
-              base_key, chunk_len: int, day0: int, shard=None):
+              base_key, chunk_len: int, day0: int, shard=None, picks=None):
     """Step ``chunk_len`` days from ``day0`` with the plain day step;
-    returns (state, carry, list of DayOutputs on the device)."""
+    returns (state, carry, list of DayOutputs on the device). ``picks``:
+    a list that takes each day's row of tier picks."""
     dkeys = derive_day_keys(cfg, base_key, day0 + np.arange(chunk_len))
     outs = []
     for i in range(chunk_len):
         state, carry, out = day_step(cfg, arrays,
                                      sched_row(schedules, host_sched,
                                                day0 + i),
-                                     state, carry, dkeys.day(i), shard)
+                                     state, carry, dkeys.day(i), shard,
+                                     picks)
         outs.append(out)
     return state, carry, outs
 
@@ -325,7 +329,7 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
              seed: Optional[int] = None,
              checkpoint_dir: Optional[str] = None,
              checkpoint_every: int = 64, resume: bool = True, mesh=None,
-             graphs: Optional[bool] = None):
+             graphs: Optional[bool] = None, picks: Optional[list] = None):
     """Execute the run; returns (stacked DayOutputs as numpy with a
     leading day axis of ``n_days`` rows — row 0 is the initial
     snapshot —, final state, final carry, chunk times).
@@ -343,10 +347,17 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
     the end of every chunk with a callback, a checkpoint directory or an
     agent-sharded mesh, else the end of the run (as the JAX package).
 
-    ``graphs``: step the days as captured CUDA graphs (core/graphs.py),
-    bit-identical to the plain day step; the default on a CUDA device
-    (one card); False runs the plain day step. On the CPU, True runs the
-    graph runner's CPU model (recorded spans in place of graphs).
+    ``graphs``: step the days as CUDA graphs (core/graphs.py), one launch
+    a day with its tier picks on the device, bit-identical to the plain
+    day step; the default on a CUDA device (one card); False runs the
+    plain day step, which picks each tier on the host. On the CPU, True
+    runs the graph runner's CPU model (recorded spans in place of
+    graphs, the pick kernel's twin in place of the kernel).
+
+    ``picks``: a list that takes the stepped days' rows of tier picks
+    (``step.PICK_COLS``: the branch each conditional took, -1 where it
+    did not run), from the device at the sync points of a graphed run,
+    from the host in the plain step.
 
     ``mesh`` (parallel.mesh.Mesh) with an agent axis of k > 1 ranks:
     every rank of the agent group calls ``run_days`` on the same run,
@@ -407,27 +418,34 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
     leftover = carry.weekly_leftover
     if graphs and steps_left > 0:
         gs = G.acquire(cfg, arrays, schedules, device)
-        gs.start(state, carry, day)
         plans = gs.prepare(host_sched, base_key, day, steps_left, leftover,
                            state.age.shape[0])
+        gs.start(state, carry, day, plans)
     synced = day
 
     def sync():
-        """Fetch the pending outputs, check the problem bits."""
+        """Fetch the pending outputs (and a graphed run's picks and
+        branch tallies), check the problem bits."""
         nonlocal pending, synced
         if gs is not None:
             if day > synced:
                 pending.append(gs.outputs(synced, day,
                                           plans[synced - day0:day - day0]))
-            problem_t = gs.carry["problem"]
+            tail_t = gs.sync_tail(synced, day)
         else:
-            problem_t = carry.problem
+            tail_t = carry.problem.reshape(1)
         if pending:
-            out_np, problem = fetch_packed(_cat_device(pending), problem_t)
+            out_np, tail = fetch_packed(_cat_device(pending), tail_t)
             rows.append(out_np)
             pending = []
         else:
-            problem = int(problem_t)
+            tail = tail_t.cpu().numpy()
+        if gs is not None:
+            problem, day_picks = gs.synced(tail)
+            if picks is not None:
+                picks.extend(day_picks)
+        else:
+            problem = int(tail[0])
         synced = day
         problem |= bits
         if shard is not None:
@@ -445,12 +463,14 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
             t0 = time.perf_counter()
             if gs is not None:
                 chunk = plans[day - day0:day - day0 + this_chunk]
-                bits |= gs.step(chunk)
+                gs.step(chunk)
+                for plan in chunk:
+                    bits |= plan.problem      # known from the schedule
                 leftover = chunk[-1].leftover
             else:
                 state, carry, outs = run_chunk(
                     cfg, arrays, schedules, host_sched, state, carry,
-                    base_key, this_chunk, day, shard)
+                    base_key, this_chunk, day, shard, picks)
                 pending.append(_stack_device(outs))
             day += this_chunk
             steps_left -= this_chunk
@@ -479,14 +499,30 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
         if gs is not None:
             state, carry = gs.state_carry(day, leftover, bits, clone=True)
     except (C.SimulationFailed, ExecutionInterrupted):
-        # the run stopped, its graph set is sound (a set whose capture or
-        # replay failed is dropped, never reused)
+        # the run stopped, its graph set is sound (a set whose capture,
+        # assembly or launch failed is dropped, never reused)
         if gs is not None:
             G.release(gs)
         raise
     if gs is not None:
         G.release(gs)
     return _concat(rows), state, carry, chunk_times
+
+
+def build_graphs(run: CompiledRun) -> None:
+    """Build the day graph of every host key of ``run``'s days
+    (core/graphs.py) into an idle graph set of its build on its card, so
+    that a later graphed run of the build builds none; nothing is
+    stepped."""
+    from . import graphs as G
+    host_sched = Schedules(*(x.cpu().numpy() for x in run.schedules))
+    gs = G.acquire(run.cfg, run.arrays, run.schedules, run.device)
+    plans = gs.prepare(host_sched, prng.PRNGKey(run.random_seed), 0,
+                       run.days - 1,
+                       run.init_carry.weekly_leftover,
+                       run.init_state.age.shape[0])
+    gs.start(run.init_state, run.init_carry, 0, plans)
+    G.release(gs)
 
 
 def _concat(rows: List[DayOutputs]) -> DayOutputs:

@@ -1,13 +1,25 @@
-"""The day step as captured CUDA graphs: the port's counterpart of the JAX
+"""The day step as CUDA graphs: the port's counterpart of the JAX
 package's compiled day chunk (reina_tpu/core/engine.py:run_chunk, a
-``lax.scan`` over the days of a chunk, compiled once).
+``lax.scan`` over the days of a chunk, compiled once, that picks every
+tier on the device).
 
-A :class:`GraphSet` runs the spans of ``step.run_day`` for one build
-(model arrays, schedules, engine config) on one device. The first time a
-(span, key) comes up it runs eagerly, as the day's real work, and is
-then captured into a ``torch.cuda.CUDAGraph``; every later day with the
-same (span, key) replays the graph. For that, everything a span reads
-lies at an address that does not change from day to day:
+A :class:`GraphSet` runs the days of one build (model arrays, schedules,
+engine config) on one device. A day is ``step.day_program``: spans, and
+tier picks between them. For each host key (contact tracing on, a
+vaccination day, imports: what the schedule says) the set holds a day
+graph (core/daygraph.py) in which each span is its captured
+``torch.cuda.CUDAGraph`` and each pick a kernel that sets the
+conditional node after it; a day is one launch of its key's day graph,
+and the host reads nothing until the run loop's next sync point.
+
+Every branch exists before a day needs it: when a run starts, every host
+key of its days that the set lacks is built. Each (span, key) variant of
+the key's program that the set has not captured yet runs once eagerly on
+the static buffers (its warm-up: it allocates the span's handoff buffers
+and compiles its kernels), is captured, and the day graph is assembled;
+only then are the run's state and carry loaded into the static buffers.
+For that, everything a span reads lies at an address that does not
+change from day to day:
 
   * the day row (``step.DayIn``): tables of the run's day rows and key
     words are uploaded once a run; the first span of a day copies row
@@ -17,31 +29,38 @@ lies at an address that does not change from day to day:
     new day's into them (the bucket table is updated in place there, so
     it is never copied in a day);
   * what one span hands the next: a static buffer for each name,
-    allocated in the span's eager first run, into which every capture
-    of a span that gives that name copies it;
-  * the outputs: the last span writes the day's ``DayOutputs`` into row
-    ``counter`` of a device table (the scan's stacked outputs), which the
-    run loop fetches at its sync points.
+    allocated in the first warm-up that gives it, into which every
+    capture of a span that gives that name copies it; the counts the
+    picks read are among them;
+  * the outputs, picks and tallies: the last span writes the day's
+    ``DayOutputs`` into row ``counter`` of a device table (the scan's
+    stacked outputs), each pick its branch into row ``counter`` of the
+    picks table and one into its branch's tally; the run loop fetches
+    them with the problem bits at its sync points.
 
 The graphs of a set share one memory pool: no span keeps anything in it
-past its end, so one graph's temporaries may reuse another's memory.
-Captures hold a process-wide lock and use the thread-local capture mode,
-so a served run's capture is not broken by another worker thread's work;
-each run takes a set of its own (``acquire``/``release``), and a build's
-idle sets serve its later runs (ensemble members, reseeded and served
-runs). A capture or replay that fails raises, naming the span and key;
-nothing runs the day eagerly in its place.
+past its end, so one graph's temporaries may reuse another's memory, and
+any branch may follow any other. Captures hold a process-wide lock and
+use the thread-local capture mode, so a served run's capture is not
+broken by another worker thread's work; each run takes a set of its own
+(``acquire``/``release``), and a build's idle sets serve its later runs
+(ensemble members, reseeded and served runs). A capture, assembly or
+launch that fails raises GraphError naming the span or host key; nothing
+runs the day eagerly in its place.
 
 Launch counts (``kernels.LAUNCHES``): a capture's launches go into the
-graph's tally, and each replay adds the tally. ``step.STATS`` counts
-the captures, their seconds and the replays beside the days and the
-host reads.
+span's tally; each launch of a day graph adds the tallies of the spans it
+always runs, and each sync point those of the branches that ran, from
+the device's branch tallies, with one pick launch a tally count. The
+warm-ups launch their kernels eagerly and count them there, each also
+in ``kernels.WARMUPS``. ``step.STATS`` counts the captures, their and
+the assemblies' seconds and the day-graph launches beside the days.
 
 On the CPU a GraphSet is a model of the same machinery for the tests:
-each (span, key) records its body (the span and the copies around it) on
-its first day and calls it again on later days, so a span that read a
-day-varying value from anywhere but the static buffers would give a
-wrong day there, as a replayed graph would.
+each (span, key) records its body (the span and the copies around it) at
+its warm-up and calls it again on later days, and each pick is the pick
+kernel's twin, whose entry in the picks table names the branch that
+runs; the host reads no count.
 """
 from __future__ import annotations
 
@@ -54,9 +73,12 @@ import numpy as np
 import torch
 
 from . import step as S
+from .daygraph import DayGraph, GraphError, check_body_nodes, pick
 from .schedule import Schedules
 from .state import AgentState, DayCarry
 from .. import kernels
+
+__all__ = ["GraphError", "GraphSet", "acquire", "release", "drop_idle"]
 
 _CAPTURE_LOCK = threading.Lock()
 _IDLE_LOCK = threading.Lock()
@@ -67,18 +89,33 @@ _IDLE: List["GraphSet"] = []
 DEVICE_CARRY = tuple(f for f in DayCarry._fields
                      if f not in ("day", "weekly_leftover"))
 
-class GraphError(RuntimeError):
-    """A span's capture or replay failed."""
-
 
 class _Entry(NamedTuple):
     run: object            # the CUDAGraph, or on the CPU the body
-    fields: tuple          # the names the span gives
-    tally: Counter         # launches of one replay
+    tally: Counter         # launches of one run
+
+
+def host_key(plan: S.DayPlan) -> tuple:
+    """What the schedule decides of a day's program."""
+    return (plan.ct_active, plan.vacc, plan.imports)
+
+
+def _variants(nodes):
+    """(name, key, span function) of every span of a program at every
+    tier, in the program's order."""
+    for node in nodes:
+        if isinstance(node, S.Span):
+            yield node.name, node.key, node.fn
+        elif isinstance(node, S.If):
+            yield from _variants(node.body)
+        else:
+            for key in node.keys():
+                yield node.name, key, node.fn
 
 
 class GraphSet:
-    """The static buffers and captured spans of one build on one device."""
+    """The static buffers, captured spans and day graphs of one build on
+    one device."""
 
     def __init__(self, cfg: S.EngineConfig, arrays: S.ModelArrays,
                  schedules: Schedules, device):
@@ -101,14 +138,31 @@ class GraphSet:
             torch.zeros((A, P), dtype=torch.float32, device=dev),
             S.dev_keys(cfg, self.key_words))
         # a row a day of the outputs' int leaves, flattened, and of r;
-        # made at the first day's eager run of the last span
+        # made at the first warm-up of the last span
         self.out_i = self.out_f = None
         self.int_shapes = []
         self.counter = torch.zeros((), dtype=torch.int64, device=dev)
         self.state: Optional[AgentState] = None
         self.carry: Dict[str, torch.Tensor] = {}
         self.handoff: Dict[str, torch.Tensor] = {}
-        self.entries: Dict[tuple, _Entry] = {}
+        self.bodies: Dict[tuple, _Entry] = {}
+        self.days: Dict[tuple, object] = {}
+        # each conditional node: its picks-table column, its first
+        # branch tally and its branches (the If's: not run, run), and the
+        # span key of each branch of a switch
+        self.layout: Dict[str, tuple] = {}
+        self.branch_keys: Dict[str, list] = {}
+        slot = 0
+        for node in S.conditionals(S.day_program(cfg, True, False, False)):
+            n = 2 if isinstance(node, S.If) else len(node.keys())
+            self.layout[node.name] = (S.PICK_COLS.index(node.name), slot, n)
+            slot += n
+            if isinstance(node, S.Switch):
+                self.branch_keys[node.name] = node.keys()
+        self.picks = torch.full((days, len(S.PICK_COLS)), -1,
+                                dtype=torch.int32, device=dev)
+        self.tally = torch.zeros(slot, dtype=torch.int32, device=dev)
+        self._tallied = np.zeros(slot, np.int64)
         if not self.model:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(dev)
@@ -119,23 +173,10 @@ class GraphSet:
 
     # ---- a run
 
-    def start(self, state: AgentState, carry: DayCarry, day: int) -> None:
-        """Take a run's state and carry into the static buffers, from
-        ``day``."""
-        if self.state is None:
-            self.state = AgentState(*(x.clone() for x in state))
-            self.carry = {f: getattr(carry, f).clone() for f in DEVICE_CARRY}
-        else:
-            for dst, src in zip(self.state, state):
-                dst.copy_(src)
-            for f in DEVICE_CARRY:
-                self.carry[f].copy_(getattr(carry, f))
-        self.counter.fill_(day)
-
     def prepare(self, host: Schedules, base_key, day0: int, steps: int,
                 leftover, n_agents: int) -> List[S.DayPlan]:
         """The plans of days [day0, day0 + steps) and their rows and keys
-        in the device tables (one upload a run)."""
+        in the device tables (one upload a run); their picks unset."""
         from .engine import sched_row
         days = day0 + np.arange(steps)
         dks = S.derive_day_keys(self.cfg, base_key, days)
@@ -154,17 +195,44 @@ class GraphSet:
                 np.stack([p.floats for p in plans])))
             self.tab_k[rows].copy_(torch.from_numpy(
                 S.key_table(self.cfg, dks).view(np.int32)))
+            self.picks[rows].fill_(-1)
         return plans
 
-    def step(self, plans: List[S.DayPlan]) -> int:
-        """Run the planned days; returns the problem bits the host found
-        (the state, carry and outputs stay in the static buffers)."""
-        carry = DayCarry(day=None, weekly_leftover=None, **self.carry)
-        bits = 0
+    def start(self, state: AgentState, carry: DayCarry, day: int,
+              plans: List[S.DayPlan]) -> None:
+        """Build the day graphs ``plans`` need that the set lacks, then
+        take a run's state and carry into the static buffers, from
+        ``day``."""
+        if self.state is None:
+            self.state = AgentState(*(x.clone() for x in state))
+            self.carry = {f: getattr(carry, f).clone() for f in DEVICE_CARRY}
         for plan in plans:
-            bits |= S.run_day(self.cfg, self.arrays, plan, self.din,
-                              self.state, carry, self)[3]
-        return bits
+            hkey = host_key(plan)
+            if hkey not in self.days:
+                self._build(hkey, plan.day)
+        for dst, src in zip(self.state, state):
+            dst.copy_(src)
+        for f in DEVICE_CARRY:
+            self.carry[f].copy_(getattr(carry, f))
+        self.counter.fill_(day)
+
+    def step(self, plans: List[S.DayPlan]) -> None:
+        """Run the planned days, one day-graph launch each (the state,
+        carry, outputs and picks stay on the device)."""
+        stream = (None if self.model
+                  else torch.cuda.current_stream(self.device).cuda_stream)
+        for plan in plans:
+            hkey = host_key(plan)
+            day = self.days.get(hkey)
+            if day is None:
+                raise GraphError(f"no day graph for host key {hkey}")
+            if self.model:
+                self._model_day(hkey, day)
+            else:
+                day.launch(stream)
+                kernels.replayed(day.fixed)
+            S.STATS["launches"] += 1
+            S.STATS["days"] += 1
 
     def outputs(self, a: int, b: int, plans) -> S.DayOutputs:
         """The outputs of stepped days [a, b) as device views of the table
@@ -179,39 +247,84 @@ class GraphSet:
             [p.mobility_limitation for p in plans], np.float32)
         return S.DayOutputs(**leaves)
 
+    def sync_tail(self, a: int, b: int) -> torch.Tensor:
+        """The problem bits, the branch tallies and the picks of days
+        [a, b) as one int32 tensor, for the run loop's packed fetch."""
+        return torch.cat([self.carry["problem"].reshape(1), self.tally,
+                          self.picks[a:b].reshape(-1)])
+
+    def synced(self, tail: np.ndarray):
+        """Take a fetched ``sync_tail``: the launches of the branches run
+        since the last sync point go into ``kernels.LAUNCHES``. Returns
+        (the problem bits, the picks rows)."""
+        n = self.tally.numel()
+        counts = tail[1:1 + n].astype(np.int64)
+        delta, self._tallied = counts - self._tallied, counts
+        if not self.model:
+            for name, keys in self.branch_keys.items():
+                _, slot, nb = self.layout[name]
+                for b in range(nb):
+                    if delta[slot + b]:
+                        kernels.replayed(self.bodies[(name, keys[b])].tally,
+                                         int(delta[slot + b]))
+            kernels.replayed({"daygraph.pick": int(delta.sum())})
+        return int(tail[0]), tail[1 + n:].reshape(-1, len(S.PICK_COLS))
+
     def state_carry(self, day: int, leftover, bits: int, clone: bool):
         """The run's state and carry now (views of the static buffers, or
-        copies), the host's problem bits merged into ``problem``."""
+        copies), the schedule's problem bits merged into ``problem``."""
         copy = (lambda x: x.clone()) if clone else (lambda x: x)
         cr = {f: copy(t) for f, t in self.carry.items()}
         cr["problem"] = self.carry["problem"] | bits
         return (AgentState(*(copy(x) for x in self.state)),
                 DayCarry(day=day, weekly_leftover=leftover, **cr))
 
-    # ---- the executor of step.run_day
+    # ---- building a host key's day
 
-    @staticmethod
-    def read(t: torch.Tensor):
-        return t.tolist()
-
-    def span(self, name: str, key: tuple, fn):
-        entry = self.entries.get((name, key))
+    def entry(self, hkey: tuple, name: str, key: tuple) -> _Entry:
+        entry = self.bodies.get((name, key))
         if entry is None:
-            body = self._body(name, fn)
-            fields = body()            # the day's work, eagerly
-            entry = self._record(name, key, body, fields)
-            self.entries[(name, key)] = entry
-        else:
-            self._replay(name, key, entry)
-        if name == S.LAST_SPAN:
-            return dict(state=self.state, carry=self.carry, out=None)
-        return {f: self.handoff[f] for f in entry.fields}
+            raise GraphError(f"day graph {hkey}: no capture of span {name} "
+                             f"{key}")
+        return entry
 
-    def _body(self, name: str, fn):
+    def count(self, p: S.Pick) -> torch.Tensor:
+        """The 0-d count a pick reads, in its handoff buffer."""
+        t = self.handoff[p.src]
+        return t if p.idx is None else t[p.idx]
+
+    def _build(self, hkey: tuple, day: int) -> None:
+        """Warm up and capture every variant of ``hkey``'s program the set
+        lacks (on the static buffers, with day ``day``'s row), then
+        assemble its day graph."""
+        nodes = S.day_program(self.cfg, *hkey)
+        for name, key, fn in _variants(nodes):
+            if (name, key) in self.bodies:
+                continue
+            body = self._span_body(name, key, fn)
+            self.counter.fill_(day)
+            try:
+                with kernels.warming():
+                    body()
+            except Exception as e:
+                raise GraphError(f"day graph {hkey}: warm-up of span {name} "
+                                 f"{key} failed: {e}") from e
+            self.bodies[(name, key)] = self.capture(name, key, body)
+        if self.model:
+            self.days[hkey] = nodes
+            return
+        t0 = time.perf_counter()
+        self.days[hkey] = DayGraph(hkey, nodes, self)
+        S.STATS["assemble_s"] += time.perf_counter() - t0
+
+    def _span_body(self, name: str, key: tuple, fn):
+        carry = DayCarry(day=None, weekly_leftover=None, **self.carry)
+
         def body():
             if name in S.FIRST_SPANS:
                 self._load_day()
-            return self._commit(name, fn())
+            self._commit(name, fn(self.cfg, self.arrays, self.din,
+                                  self.state, carry, self.handoff, *key))
         return body
 
     def _load_day(self) -> None:
@@ -222,9 +335,9 @@ class GraphSet:
         self.din.mobility.copy_(self.schedules.mobility.index_select(0, i)[0])
         self.din.mask_p.copy_(self.schedules.mask_p.index_select(0, i)[0])
 
-    def _commit(self, name: str, outs: dict) -> tuple:
+    def _commit(self, name: str, outs: dict) -> None:
         """Copy a span's results where the next spans (and days) read
-        them; returns the names it gave."""
+        them."""
         if name == S.LAST_SPAN:
             for dst, src in zip(self.state, outs["state"]):
                 _copy(dst, src, "state")
@@ -245,7 +358,7 @@ class GraphSet:
             self.out_i.index_copy_(0, i, row[None])
             self.out_f.index_copy_(0, i, out.r.reshape(1, 1).to(torch.float32))
             self.counter.add_(1)
-            return ()
+            return
         for f, t in outs.items():
             h = self.handoff.get(f)
             if h is None:
@@ -255,13 +368,14 @@ class GraphSet:
                 self.handoff[f] = t.clone()
             else:
                 _copy(h, t, f)
-        return tuple(outs)
 
-    def _record(self, name, key, body, fields) -> _Entry:
+    def capture(self, name: str, key: tuple, body) -> _Entry:
+        """Capture ``body`` as span ``name``'s graph at ``key`` (on the CPU
+        record it), with the launches it makes."""
         S.STATS["captures"] += 1
         if self.model:
-            return _Entry(body, fields, Counter())
-        g = torch.cuda.CUDAGraph()
+            return _Entry(body, Counter())
+        g = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
         with _CAPTURE_LOCK:
             try:
@@ -270,23 +384,30 @@ class GraphSet:
                                           stream=self.stream,
                                           capture_error_mode="thread_local"):
                         body()
+                check_body_nodes(g.raw_cuda_graph(), f"span {name} {key}")
             except Exception as e:
                 raise GraphError(f"capture of span {name} {key} failed: "
                                  f"{e}") from e
         S.STATS["capture_s"] += time.perf_counter() - t0
-        return _Entry(g, fields, tally)
+        return _Entry(g, tally)
 
-    def _replay(self, name, key, entry: _Entry) -> None:
-        S.STATS["replays"] += 1
-        if self.model:
-            entry.run()
-            return
-        try:
-            entry.run.replay()
-        except Exception as e:
-            raise GraphError(f"replay of span {name} {key} failed: "
-                             f"{e}") from e
-        kernels.replayed(entry.tally)
+    def _model_day(self, hkey: tuple, nodes) -> None:
+        """The CPU model of a day graph's launch: recorded spans, and the
+        pick twin's branch in the picks table choosing each tier."""
+        for node in nodes:
+            if isinstance(node, S.Span):
+                self.entry(hkey, node.name, node.key).run()
+                continue
+            col, slot, n = self.layout[node.name]
+            pick([self.count(p) for p in node.picks], node.picks, self.picks,
+                 self.counter, col, self.tally[slot:slot + n],
+                 self.carry["problem"])
+            branch = int(self.picks[int(self.counter), col])
+            if isinstance(node, S.If):
+                if branch:
+                    self._model_day(hkey, node.body)
+            else:
+                self.entry(hkey, node.name, node.keys()[branch]).run()
 
 
 _INT_OUTS = tuple(f for f in S.DayOutputs._fields

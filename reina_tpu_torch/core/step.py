@@ -15,33 +15,36 @@ with the same keys agrees field by field:
 
 The JAX package compiles the day, and picks each data-dependent size on
 the device (``lax.cond``/``lax.switch`` into geometric tiers). Here the
-host picks the tiers from counts it reads from the device, so the day
-is a short sequence of spans, each ending where the host must read:
+day is a program (``day_program``) of spans and of the tier picks
+between them, each pick reading a count that the span before it gave:
 
   A       day start: capacity builds, the drain, yesterday's bucket
-          appends; on a tracing day the drained agents' compaction,
-          ending at the read of (ct_cases, n_d);
-  T1-T4   tracing (days with ct_cases > 0): level 1 to the read of its
-          bucket column ceiling, its buckets and the frontier's
-          compaction to the read of n_f, level 2 to the read of its
-          column ceiling, its buckets;
+          appends; on a tracing day the drained agents' compaction and
+          the counts (ct_cases, n_d);
+  T       on a tracing day, T1-T4 if ct_cases > 0 (the JAX package's
+          cond): level 1 at the member tier of n_d, then its buckets at
+          the column tier of their fill and the frontier's compaction to
+          n_f, level 2 at the member tier of n_f and its column tier;
   B       vaccination, exposure, the ledger, the post pass, imports and
-          both prefixes, ending at the read of n_new (A and B are one
-          span "AB" on a day without contact tracing);
-  C       the slot pipeline, the bucket appends, finalize and phase 7.
+          both prefixes, ending with n_new (A and B are one span "AB" on
+          a day without contact tracing);
+  C       at the slot tier of n_new: the slot pipeline, the bucket
+          appends, finalize and phase 7.
 
-Each span is keyed by what the host decided: the tier it picked after a
-read (``_tier_end``, the JAX package's searchsorted into the ceilings),
-and what the schedule says (tracing on, a vaccination day, imports).
-Each tier still draws at its ceiling's shape, which keeps the random
-streams bit-equal. A span reads every value that varies from day to day
-from device memory: the day row (``DayIn``: the day, the schedule's
-scalars, the ledger's offset, the import counts, the mobility and mask
-tables and the day's keys as ``prng.DevKey``s), the state, the carry and
-the tensors earlier spans handed on; host values reach it only through
-its key. ``run_day`` runs the spans through an executor: the plain
-``day_step`` runs them as they come (``EagerSpans``), the graph runner
-(core/graphs.py) replays each (span, key) as a captured CUDA graph.
+A pick's branch is the JAX package's searchsorted into the tier
+ceilings, clamped to the last branch (``tier_branch``); each tier still
+draws at its ceiling's shape, which keeps the random streams bit-equal.
+A span is keyed by its tier and by what the schedule says (tracing on,
+a vaccination day, imports), and reads every value that varies from day
+to day from device memory: the day row (``DayIn``: the day, the
+schedule's scalars, the ledger's offset, the import counts, the
+mobility and mask tables and the day's keys as ``prng.DevKey``s), the
+state, the carry and the tensors earlier spans handed on; host values
+reach it only through its key. The plain ``day_step`` (``run_day``)
+reads each pick's count on the host and runs the span it names; the
+graph runner (core/graphs.py) runs a day as one CUDA graph in which each
+pick is a kernel that sets a conditional node, so the host reads
+nothing.
 Scatters with the JAX package's ``mode="drop"`` sentinels go to one
 spare slot past the end of a buffer. The four fused per-agent bodies
 below (``prologue``, ``recv_front``, ``post``, ``finalize``) are the
@@ -65,7 +68,8 @@ from __future__ import annotations
 from bisect import bisect_left
 from collections import Counter
 from dataclasses import dataclass
-from typing import Dict, NamedTuple
+from itertools import product
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -459,12 +463,6 @@ def tier_bounds(head: int, cap: int):
 
 def _ceilings(head: int, cap: int):
     return [lo + seg for lo, seg in tier_bounds(min(head, cap), cap)]
-
-
-def _tier_end(ends, x: int) -> int:
-    """The smallest tier ceiling ≥ x (the JAX package's searchsorted
-    into the ceilings, clamped to the last branch)."""
-    return ends[min(bisect_left(ends, x), len(ends) - 1)]
 
 
 class DayKeys(NamedTuple):
@@ -1243,8 +1241,8 @@ def span_c(cfg, arrays, din, state, carry, env, end: int, shard=None):
 FIRST_SPANS = ("A", "AB")
 LAST_SPAN = "C"
 # days run and host reads of device values in them, in every mode, and
-# the graph runner's captures, capture seconds and replays (for the
-# profiles; reset_stats() clears them)
+# the graph runner's captures, capture seconds and day-graph launches
+# (for the profiles; reset_stats() clears them)
 STATS = Counter()
 
 
@@ -1252,75 +1250,150 @@ def reset_stats() -> None:
     STATS.clear()
 
 
-class EagerSpans:
-    """The plain executor: each span runs as it comes."""
+# ---------------------------------------------------------------------------
+# the day as a program: the spans, and the tier picks between them that the
+# JAX package makes on the device (lax.cond / lax.switch)
 
-    @staticmethod
-    def span(name: str, key: tuple, fn):
-        return fn()
+class Pick(NamedTuple):
+    """A count a tier pick reads: ``env[src]`` (its element ``idx``),
+    clamped to ``cap``, and its branch: the JAX package's left
+    searchsorted into the ceilings ``ends``, clamped to the last branch
+    as lax.switch clamps. ``bit`` is set in the problem bits where the
+    count exceeds ``cap``."""
+    src: str
+    idx: Optional[int]
+    ends: tuple
+    cap: Optional[int]
+    bit: int = 0
 
-    @staticmethod
-    def read(t: torch.Tensor):
-        return t.tolist()
+
+class Span(NamedTuple):
+    """A span at a key the host knows from the schedule."""
+    name: str
+    fn: Callable
+    key: tuple
+
+
+class Switch(NamedTuple):
+    """A span at the tier its picks name, one ceiling a pick: branch
+    b0 · len(ends1) + b1 of a switch over every tier (lax.switch)."""
+    name: str
+    fn: Callable
+    picks: tuple
+
+    def keys(self):
+        """The span's key of each branch, in branch order."""
+        return [tuple(p.ends[b] for p, b in zip(self.picks, bs))
+                for bs in product(*(range(len(p.ends)) for p in self.picks))]
+
+
+class If(NamedTuple):
+    """The ``body`` on a day whose one pick takes branch 1 (lax.cond)."""
+    name: str
+    picks: tuple
+    body: tuple
+
+
+# the columns of a day's row of picks (-1 where the node did not run)
+PICK_COLS = ("T", "T1", "T2", "T3", "T4", "C")
+
+
+def day_program(cfg: EngineConfig, ct_active: bool, vacc: bool,
+                imports: bool) -> tuple:
+    """The spans and picks of a day with this schedule (the JAX
+    package's day_step: the tracing cond at reina_tpu/core/step.py:976,
+    its member-tier switches :922 and :952 with their column switches
+    :912-918, the slot-tier switch :1344; the overflow bits :979-981 and
+    :1231-1232)."""
+    Tcap = cfg.infection_buffer
+    mem = tuple(_ceilings(cfg.infection_head, Tcap))
+    cols = tuple(_ceilings(cfg.bucket_head, cfg.max_infectees))
+    slots = Switch(LAST_SPAN, span_c, (Pick(
+        "n_new", None, mem, Tcap, C.PROBLEM_INFECTION_BUFFER_OVERFLOW),))
+    if not ct_active:
+        return (Span("AB", span_ab, (vacc, imports)), slots)
+    n_d = Pick("counts", 1, mem, Tcap, C.PROBLEM_TRACING_BUFFER_OVERFLOW)
+    n_f = Pick("n_f", None, mem, Tcap, C.PROBLEM_TRACING_BUFFER_OVERFLOW)
+    tracing = (
+        Switch("T1", span_t1, (n_d,)),
+        Switch("T2", span_t2, (n_d._replace(bit=0),
+                               Pick("fill_max", None, cols, None))),
+        Switch("T3", span_t3, (n_f,)),
+        Switch("T4", span_t4, (n_f._replace(bit=0),
+                               Pick("fill2_max", None, cols, None))))
+    return (Span("A", span_a, (True,)),
+            If("T", (Pick("counts", 0, (0, 1), None),), tracing),
+            Span("B", span_b, (vacc, imports)), slots)
+
+
+def conditionals(nodes):
+    """Every If and Switch of a program, in order (an If before the
+    nodes of its body)."""
+    for node in nodes:
+        if not isinstance(node, Span):
+            yield node
+            if isinstance(node, If):
+                yield from conditionals(node.body)
+
+
+def tier_branch(p: Pick, x: int) -> int:
+    """The branch pick ``p`` takes for the count ``x`` (the host's form
+    of the pick kernel, reina_tpu_torch/kernels/csrc/daygraph.cu)."""
+    x = x if p.cap is None else min(x, p.cap)
+    return min(bisect_left(p.ends, x), len(p.ends) - 1)
 
 
 def run_day(cfg: EngineConfig, arrays: ModelArrays, plan: DayPlan,
-            din: DayIn, state: AgentState, carry: DayCarry, spans,
-            shard=None):
-    """One day as its spans, in order, through ``spans`` (EagerSpans, or
-    a graphs.GraphSet that replays each (span, key) as a CUDA graph):
-    ``spans.span(name, key, fn)`` returns what span ``name`` gave for
-    ``key``, ``spans.read(t)`` a device value on the host. Returns (state,
-    carry, DayOutputs — None from a GraphSet, which keeps the day's
-    outputs on the device —, the problem bits found on the host)."""
-    env = {}
-    Tcap = cfg.infection_buffer
-
-    def span(name, fn, *key):
-        env.update(spans.span(name, key, lambda: fn(
-            cfg, arrays, din, state, carry, env, *key, shard=shard)))
-
-    def read(t):
-        STATS["reads"] += 1
-        return spans.read(t)
-
+            din: DayIn, state: AgentState, carry: DayCarry, shard=None):
+    """One day with the plain step: its program's spans as they come,
+    each tier picked on the host from the count it reads. Returns
+    (state, carry, DayOutputs, the problem bits found on the host, the
+    day's picks as a PICK_COLS row)."""
+    env, reads = {}, {}
+    row = np.full(len(PICK_COLS), -1, np.int32)
     bits = plan.problem
-    if not plan.ct_active:
-        span("AB", span_ab, plan.vacc, plan.imports)
-    else:
-        span("A", span_a, True)
-        ct_cases, n_d = read(env["counts"])
-        if ct_cases > 0:
-            mem = _ceilings(cfg.infection_head, Tcap)
-            cols = _ceilings(cfg.bucket_head, cfg.max_infectees)
-            end_d = _tier_end(mem, min(n_d, Tcap))
-            span("T1", span_t1, end_d)
-            span("T2", span_t2, end_d,
-                 _tier_end(cols, read(env["fill_max"])))
-            n_f = read(env["n_f"])
-            end_f = _tier_end(mem, min(n_f, Tcap))
-            span("T3", span_t3, end_f)
-            span("T4", span_t4, end_f,
-                 _tier_end(cols, read(env["fill2_max"])))
-            if n_d > Tcap or n_f > Tcap:
-                bits |= C.PROBLEM_TRACING_BUFFER_OVERFLOW
-        span("B", span_b, plan.vacc, plan.imports)
-    n_new = read(env["n_new"])
-    if n_new > cfg.infection_buffer:
-        bits |= C.PROBLEM_INFECTION_BUFFER_OVERFLOW
-    span(LAST_SPAN, span_c, _tier_end(
-        _ceilings(cfg.infection_head, Tcap), min(n_new, Tcap)))
+
+    def count(p: Pick) -> int:
+        if p.src not in reads:
+            STATS["reads"] += 1
+            reads[p.src] = env[p.src].tolist()
+        v = reads[p.src]
+        return v if p.idx is None else v[p.idx]
+
+    # a work list, not a recursive closure: a closure that calls itself
+    # is a reference cycle, which would keep the day's tensors alive
+    # until the garbage collector ran
+    nodes = list(day_program(cfg, plan.ct_active, plan.vacc, plan.imports))
+    while nodes:
+        node = nodes.pop(0)
+        if isinstance(node, Span):
+            key = node.key
+        else:
+            flat = 0
+            for p in node.picks:
+                x = count(p)
+                if p.bit and x > p.cap:
+                    bits |= p.bit
+                flat = flat * len(p.ends) + tier_branch(p, x)
+            row[PICK_COLS.index(node.name)] = flat
+            if isinstance(node, If):
+                if flat:
+                    nodes[:0] = node.body
+                continue
+            key = node.keys()[flat]
+        env.update(node.fn(cfg, arrays, din, state, carry, env, *key,
+                           shard=shard))
+
     STATS["days"] += 1
-    out = env["out"]
-    if out is not None:
-        out = out._replace(mobility_limitation=plan.mobility_limitation)
+    out = env["out"]._replace(mobility_limitation=plan.mobility_limitation)
     return (env["state"], DayCarry(day=plan.day + 1,
                                    weekly_leftover=plan.leftover,
-                                   **env["carry"]), out, bits)
+                                   **env["carry"]), out, bits, row)
 
 
 def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
-             state: AgentState, carry: DayCarry, dk: DayKeys, shard=None):
+             state: AgentState, carry: DayCarry, dk: DayKeys, shard=None,
+             picks=None):
     """Advance one day: its spans, eagerly. Returns (state, carry,
     DayOutputs).
 
@@ -1328,15 +1401,18 @@ def day_step(cfg: EngineConfig, arrays: ModelArrays, sched: SchedRow,
     copies the run's initial table once per run); every other input is
     left as it was. ``shard`` (parallel.mesh.AgentShard): step this
     rank's slab of an agent-sharded run; the outputs and the carry's
-    scalars come out replicated."""
+    scalars come out replicated. ``picks``: a list that takes the day's
+    row of tier picks."""
     _, N, _, _ = _dims(state, shard)
     plan = plan_day(cfg, sched, carry.weekly_leftover, int(carry.day), dk, N)
     din = day_inputs(cfg, plan, key_table(cfg, dk), sched.mobility,
                      sched.mask_p)
-    state, carry, out, bits = run_day(cfg, arrays, plan, din, state, carry,
-                                      EagerSpans, shard)
+    state, carry, out, bits, row = run_day(cfg, arrays, plan, din, state,
+                                           carry, shard)
     if bits:
         carry = carry._replace(problem=carry.problem | bits)
+    if picks is not None:
+        picks.append(row)
     return state, carry, out
 
 

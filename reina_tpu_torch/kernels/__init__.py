@@ -1,18 +1,24 @@
 """Hand-written Hopper kernels for the port's main path.
 
-Eight CUDA kernel sources (``csrc/*.cu``, built by ``build.py`` with
+Nine CUDA kernel sources (``csrc/*.cu``, built by ``build.py`` with
 nvcc for sm_90a and bound with ctypes; the post-ledger pass of the day
-step among them, the ledger and the prefix also in a sharded form, and
-the day's random draws: ``threefry.cu`` for each draw, ``samplers.cu``
-for gamma_fixed and binomial_fixed) and three Triton kernels
-(``fused_bodies``, the other fused per-agent passes).
+step among them, the ledger and the prefix also in a sharded form, the
+day's random draws: ``threefry.cu`` for each draw, ``samplers.cu`` for
+gamma_fixed and binomial_fixed, and ``daygraph.cu``: the day graph's
+tier picks and its assembly) and three Triton kernels (``fused_bodies``,
+the other fused per-agent passes).
 The wrappers that launch them live beside their plain PyTorch twins in
 ``reina_tpu_torch.ops`` and ``fused_bodies``; each wrapper calls
 :func:`launched` where it launches its kernel, and nowhere else, so a
 run can show that it went through the kernels. While a thread captures
 a CUDA graph (core/graphs.py) its wrappers launch nothing: their counts
-go into the graph's tally instead, and every replay of the graph adds
-that tally to ``LAUNCHES``.
+go into the graph's tally instead, and every run of the graph adds
+that tally to ``LAUNCHES`` (core/graphs.py: a day graph's always-run
+spans at its launch, its branches from the device's branch tallies).
+Before a span is captured it runs once eagerly (its warm-up, inside
+:func:`warming`): those launches are real and go into ``LAUNCHES``
+like any other, and ``WARMUPS`` counts them again, so that a run's
+launches are its stepped days' plus its warm-ups'.
 """
 from __future__ import annotations
 
@@ -41,10 +47,17 @@ LAUNCHES = {
     "prng.draw": 0,
     "random.gamma_fixed": 0,
     "random.binomial_fixed": 0,
+    # the day graph's tier picks (core/daygraph.py)
+    "daygraph.pick": 0,
 }
 
 
+# of LAUNCHES, those made by the graph runner's warm-ups
+WARMUPS = Counter()
+
 _capture = threading.local()
+# served runs count from worker threads of their own
+_LOCK = threading.Lock()
 
 
 def launched(name: str) -> None:
@@ -53,8 +66,21 @@ def launched(name: str) -> None:
     tally = getattr(_capture, "tally", None)
     if tally is not None:
         tally[name] += 1
-    else:
+        return
+    with _LOCK:
         LAUNCHES[name] += 1
+        if getattr(_capture, "warming", False):
+            WARMUPS[name] += 1
+
+
+@contextmanager
+def warming():
+    """This thread's launches meanwhile are a span's warm-up."""
+    _capture.warming = True
+    try:
+        yield
+    finally:
+        _capture.warming = False
 
 
 @contextmanager
@@ -68,16 +94,25 @@ def capturing():
         _capture.tally = None
 
 
-def replayed(tally) -> None:
-    """A replay of a graph whose capture counted ``tally``."""
-    for name, n in tally.items():
-        LAUNCHES[name] += n
+def replayed(tally, times: int = 1) -> None:
+    """``times`` runs of a graph whose capture counted ``tally``."""
+    with _LOCK:
+        for name, n in tally.items():
+            LAUNCHES[name] += n * times
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        WARMUPS.clear()
 
 
 def launches() -> dict:
-    return dict(LAUNCHES)
+    with _LOCK:
+        return dict(LAUNCHES)
+
+
+def warmups() -> dict:
+    with _LOCK:
+        return dict(WARMUPS)

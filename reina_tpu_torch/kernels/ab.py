@@ -138,21 +138,30 @@ def run_tree(tree: Path, label: str) -> dict:
     return json.loads(line.split(" ", 2)[2])
 
 
+def in_turns(other, rounds: int, run_tree, here: Path = HERE) -> dict:
+    """{label: [run_tree(tree, label), ...]}: tree ``other`` ("other")
+    and ``here`` ("this") in the order other, this, this, other,
+    ``rounds`` times; without ``other``, ``here`` once a round. Prints
+    the card's nvidia-smi line first."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"nvidia-smi: {smi}", flush=True)
+    order = ("other", "this", "this", "other") if other else ("this",)
+    runs = {label: [] for label in order}
+    for _ in range(rounds):
+        for label in order:
+            tree = Path(other).resolve() if label == "other" else here
+            runs[label].append(run_tree(tree, label))
+    return runs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
     args = ap.parse_args(argv)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(f"nvidia-smi: {smi}")
-    order = ("other", "this", "this", "other") if args.other else ("this",)
-    runs = {label: [] for label in order}
-    for _ in range(args.rounds):
-        for label in order:
-            tree = args.other.resolve() if label == "other" else HERE
-            runs[label].append(run_tree(tree, label))
+    runs = in_turns(args.other, args.rounds, run_tree)
     for label, rs in runs.items():
         keys = sorted(k for k in rs[0] if k.endswith("_ms"))
         print(f"{label}: " + ", ".join(

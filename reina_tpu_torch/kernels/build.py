@@ -13,9 +13,11 @@ The library lands in ``build/reina_tpu_torch/`` at the repository root,
 named by a hash of the sources, and is built at first use. It is loaded
 with ctypes: every pointer and the stream are ``c_void_p``, and each C
 entry point returns ``cudaGetLastError()`` after its launches, on which
-:func:`check` raises. Every entry point but the draw's and the
-samplers' also takes an optional array of CUDA events that it records
-around each launch.
+:func:`check` raises. Every kernel entry point but the draw's, the
+samplers' and the pick's also takes an optional array of CUDA events
+that it records around each launch. ``daygraph.cu`` also has the entry
+points that assemble, launch and free a day graph (``reina_dg_*``, each
+returning its cudaError_t).
 """
 from __future__ import annotations
 
@@ -40,6 +42,11 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _U = ctypes.c_uint
 _F = ctypes.c_float
+_Q = ctypes.c_ulonglong
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_IP = ctypes.POINTER(ctypes.c_int)
+# a pick's arguments (csrc/daygraph.cu: PICK_ARGS)
+_PICK = [_P, _IP, _I, _I, _I] * 2 + [_P, _P, _I, _I, _P, _P]
 
 # C entry points and their argument types (see the .cu files)
 _SIGNATURES = {
@@ -56,7 +63,20 @@ _SIGNATURES = {
     "reina_draw": [_P, _L, _L, _U, _U, _P, _I, _F, _F, _P],
     "reina_gamma_fixed": [_P, _L, _P, _P, _I, _F, _F, _F, _P, _P],
     "reina_binomial_fixed": [_P, _P, _P, _L, _P, _P, _I, _P, _P],
+    "reina_pick": _PICK + [_P],
+    "reina_dg_create": [_PP],
+    "reina_dg_child": [_P, _P, _P, _PP],
+    "reina_dg_handle": [_P, ctypes.POINTER(_Q)],
+    "reina_dg_pick": [_P, _P] + _PICK + [_Q, _PP],
+    "reina_dg_cond": [_P, _P, _Q, _I, _I, _PP, _PP],
+    "reina_dg_instantiate": [_P, _PP],
+    "reina_dg_launch": [_P, _P],
+    "reina_dg_destroy": [_P, _P],
+    "reina_dg_node_types": [_P, _IP],
+    "reina_error_string": [_I],
 }
+# entry points that return other than a cudaError_t
+_RESTYPES = {"reina_error_string": ctypes.c_char_p}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -130,7 +150,7 @@ def lib():
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(so, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _lib = so
     return _lib
 

@@ -7,8 +7,9 @@ plain PyTorch twin on the same device, the comparison with its stated
 tolerance, and three device times (kernel, twin and, where one PyTorch
 call computes the same function, that call). The draw and sampler
 kernels are also held to their twins with their keys read from device
-memory (``dev_key_pairs``, as a captured day step passes them). Used by
-tests/test_torch_cuda.py and chip_smoke.py.
+memory (``dev_key_pairs``, as a captured day step passes them), and the
+day graph's pick kernel at every branch of every pick of the day
+(``pick_check``). Used by tests/test_torch_cuda.py and chip_smoke.py.
 
 Tolerances: the prefix sums, histograms and ledger outputs (grants and
 final balances) are exact, and so is the post body (integer and bool
@@ -84,6 +85,9 @@ OPS_PER_AGENT = {
     "ledger_sharded": 16, "concat_prefix_sharded": 60,
     "prng.draw": HASH_OPS, "random.gamma_fixed": 2 * HASH_OPS,
     "random.binomial_fixed": HASH_OPS,          # a BTRS lane: 2 * HASH_OPS
+    # one pick: a clamp, a search over at most 8 ceilings, the flat
+    # branch, the table, tally and problem writes
+    "daygraph.pick": 24,
 }
 INT32_BOUND = ("prng.draw", "random.gamma_fixed", "random.binomial_fixed")
 
@@ -118,6 +122,8 @@ class Check:
     library: Optional[Callable] = None  # one PyTorch call, same function
     library_note: str = ""            # what it is, or why there is none
     read_bytes: Optional[int] = None  # data-dependent input bytes
+    # the bytes it writes, where less than the outputs compared
+    write_bytes: Optional[int] = None
     # the elements or lanes the bound counts (default: inputs[0]'s)
     n: Optional[int] = None
     int_ops: Optional[float] = None   # data-dependent INT32 operations
@@ -782,6 +788,76 @@ def draw_checks(seed: int, dev, captured=None) -> List[Check]:
     ]
 
 
+# ---------------------------------------------------------------------------
+# the day graph's pick (csrc/daygraph.cu)
+
+def pick_cases(cfg):
+    """(pick node, counts) at every branch of every pick of a tracing
+    day's program, and past each cap: each count at 0, 1, each ceiling
+    and the one above it, its cap + 1 and 10^6."""
+    cases = []
+
+    def edges(p):
+        xs = {0, 1, p.cap + 1 if p.cap is not None else p.ends[-1] + 1,
+              10 ** 6}
+        for e in p.ends:
+            xs |= {e, e + 1}
+        return sorted(xs)
+
+    for node in step.conditionals(step.day_program(cfg, True, False, False)):
+        ps = node.picks
+        if len(ps) == 1:
+            cases.extend((node, (x,)) for x in edges(ps[0]))
+        else:
+            cases.extend((node, (a, b)) for a in edges(ps[0])
+                         for b in edges(ps[1]))
+    return cases
+
+
+def _pick_pair(node, xs, dev, days: int = 4, day: int = 2):
+    """(kernel, twin): a pick of ``node`` on counts ``xs``, each side into
+    tables of its own on ``dev`` made here, so that a call launches the
+    pick alone; each returns (the day's picks row, the tally, the problem
+    bits), as one call leaves them."""
+    from ..core import daygraph
+    counts = [torch.tensor(x, dtype=torch.int32, device=dev) for x in xs]
+    col = step.PICK_COLS.index(node.name)
+    n = 2 if isinstance(node, step.If) else len(node.keys())
+
+    def side(fn):
+        table = torch.full((days, len(step.PICK_COLS)), -1,
+                           dtype=torch.int32, device=dev)
+        tally = torch.zeros(n, dtype=torch.int32, device=dev)
+        problem = torch.full((), 4, dtype=torch.int32, device=dev)
+        counter = torch.full((), day, dtype=torch.int64, device=dev)
+
+        def run():
+            fn(counts, node.picks, table, counter, col, tally, problem)
+            return table[day], tally, problem
+        return run
+
+    return side(daygraph.pick), side(daygraph.pick_twin)
+
+
+def pick_check(dev) -> Check:
+    """The pick kernel against its twin at every branch of every pick of
+    the default engine config's tracing day (``pick_cases``), exact: the
+    picks row, the branch tally and the problem bits; timed on the slot
+    pick of 4,000 new infections (HUS's order of a day's), below its cap,
+    where it reads the count (4 B), the day counter (8 B) and one tally
+    entry (4 B) and writes one picks entry and that tally entry (8 B)."""
+    cfg = step.EngineConfig()
+    cases = pick_cases(cfg)
+    slot = [n for n, _ in cases if n.name == step.LAST_SPAN][0]
+    kernel, twin = _pick_pair(slot, (4000,), dev)
+    return Check(
+        "daygraph.pick", "cuda", "reina_tpu_torch/kernels/csrc/daygraph.cu",
+        f"{_STEP}:1344", kernel, twin, n=1, read_bytes=4 + 8 + 4,
+        write_bytes=4 + 4,
+        library_note="none: a conditional node is set from a kernel only",
+        extra=[_pick_pair(node, xs, dev) for node, xs in cases])
+
+
 def compare(got, want, float_ulp: int):
     """(mismatches, max_abs_err, max_ulp) over paired outputs."""
     mism, err, ulp = 0, 0.0, 0
@@ -899,8 +975,10 @@ def _nbytes(ts) -> int:
 def bound_ms(c: Check, outputs, n: int):
     """(least time in ms, "bytes" or "operations") for the function of
     ``c`` on its inputs, given the outputs it wrote."""
-    moved = (c.read_bytes if c.read_bytes is not None
-             else _nbytes(c.inputs)) + _nbytes(outputs)
+    moved = ((c.read_bytes if c.read_bytes is not None
+              else _nbytes(c.inputs))
+             + (c.write_bytes if c.write_bytes is not None
+                else _nbytes(outputs)))
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     if c.name in INT32_BOUND:
         ops = (c.int_ops if c.int_ops is not None

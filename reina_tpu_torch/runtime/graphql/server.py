@@ -267,11 +267,13 @@ def warmup_serving_program(device="cuda") -> None:
     ``simulate_individuals`` resolves, and step it through one 7-day
     chunk (the streaming interval) and one 1-day chunk (the tail of any
     ``simulation_days`` whose steps do not divide by 7), which also
-    compiles the Triton bodies. The first client run of the default
-    variables is then a build-cache hit."""
+    compiles the Triton bodies; on a card, then build the day graph of
+    every host key of its days (core/graphs.py) without stepping them.
+    The first client run of the default variables is then a build-cache
+    hit whose graph set holds every day graph it needs."""
     import torch
 
-    from ...core.engine import run_days
+    from ...core.engine import build_graphs, run_days
     from ...simulation import BUILD_CACHE, resolve_device, simulate_individuals
     from ...utils.memoize import resolved_variables
 
@@ -283,6 +285,7 @@ def warmup_serving_program(device="cuda") -> None:
     run = BUILD_CACHE.get(variables, dev)
     out, _, _, _ = run_days(run, n_days=1 + 7 + 1, chunk_days=7)
     if dev.type == "cuda":
+        build_graphs(run)
         torch.cuda.synchronize(dev)
     if out.by_group.shape[0] != 9:
         raise RuntimeError(f"warm-up ran {out.by_group.shape[0]} rows, want 9")

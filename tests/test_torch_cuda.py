@@ -86,7 +86,9 @@ def test_synthetic_run_on_cuda():
     # every kernel of the one-card path, and none of the sharded forms
     assert all(v > 0 for k, v in counts.items() if k not in SHARDED), counts
     assert all(counts[k] == 0 for k in SHARDED), counts
-    assert counts["fused_map.prologue"] == 13
+    # one a stepped day, beside the day graphs' warm-ups
+    warm = kernels.warmups()
+    assert counts["fused_map.prologue"] == 13 + warm["fused_map.prologue"]
     susceptible = out.by_group[:, 0].sum(axis=1)
     all_infected = out.by_group[:, 3].sum(axis=1)
     np.testing.assert_array_equal(susceptible + all_infected, 20000)
@@ -564,11 +566,13 @@ STEP_IVS = [
 
 def test_graphed_run_equals_eager():
     """25 days of the step calendar (tracing, vaccination and import
-    days among them) as captured CUDA graphs and with the plain day
-    step: every output row, the final state and the final carry equal bit
-    for bit, every kernel launched as often (the replays' tallies), the
-    tracing spans captured, and the second run of the build replays
-    without capturing."""
+    days among them) as day graphs and with the plain day step: every
+    output row, the final state and the final carry equal bit for bit,
+    the device's picks equal the host's, every kernel launched as often
+    (the spans' and branches' tallies, one pick launch a conditional
+    run) beside the warm-ups' launches, one day-graph launch and no host
+    read a day, the tracing spans
+    captured, and the second run of the build captures nothing."""
     _need_cuda()
     from reina_tpu_torch import convert
     from reina_tpu_torch.core import graphs, step
@@ -577,17 +581,29 @@ def test_graphed_run_equals_eager():
     run = build_synthetic_run("cuda", n_agents=20000, days=25, seed=3,
                               interventions=STEP_IVS)
     kernels.reset_launches()
-    want = run_days(run, chunk_days=8, graphs=False)
+    host_picks = []
+    want = run_days(run, chunk_days=8, graphs=False, picks=host_picks)
     eager_launches = kernels.launches()
+    picked = int((np.array(host_picks) >= 0).sum())   # a pick a column
     graphs.drop_idle()
     for captures in (True, False):
         kernels.reset_launches()
         step.reset_stats()
-        got = run_days(run, chunk_days=8)
+        dev_picks = []
+        got = run_days(run, chunk_days=8, picks=dev_picks)
         st = dict(step.STATS)
-        assert kernels.launches() == eager_launches
+        np.testing.assert_array_equal(np.array(dev_picks),
+                                      np.array(host_picks))
+        launches = kernels.launches()
+        assert launches.pop("daygraph.pick") == picked
+        # the day graphs' warm-ups launch eagerly and count apart too
+        warm = kernels.warmups()
+        assert bool(warm) == captures
+        assert launches == {k: v + warm.get(k, 0)
+                            for k, v in eager_launches.items()
+                            if k != "daygraph.pick"}
         assert (st.get("captures", 0) > 0) == captures, st
-        assert st["replays"] > 0, st
+        assert st["launches"] == st["days"] == 24 and "reads" not in st
         for name, a, b in zip(want[0]._fields, want[0], got[0]):
             np.testing.assert_array_equal(a, b, err_msg=name)
         for w, g in ((want[1], got[1]), (want[2], got[2])):
@@ -596,7 +612,7 @@ def test_graphed_run_equals_eager():
                 np.testing.assert_array_equal(w[k], g[k], err_msg=k)
     gs = graphs._IDLE[-1]
     assert {"A", "T1", "T2", "T3", "T4", "B", "AB", "C"} <= {
-        name for name, _ in gs.entries}
+        name for name, _ in gs.bodies}
 
 
 def test_device_key_draws_match_twins():
@@ -621,8 +637,8 @@ def test_device_key_draws_match_twins():
 
 def test_capture_failure_raises():
     """A span that reads a device value on the host cannot be captured:
-    the graph runner raises, naming the span and its key, after the
-    span's eager first run; the card stays usable."""
+    the graph runner raises, naming the span and its key; the card stays
+    usable."""
     _need_cuda()
     from reina_tpu_torch.core import graphs
     from reina_tpu_torch.testing import build_synthetic_run
@@ -634,6 +650,82 @@ def test_capture_failure_raises():
         return {"y": x * float(x.sum())}
 
     with pytest.raises(graphs.GraphError, match=r"span X \(7,\)"):
-        gs.span("X", (7,), host_read)
+        gs.capture("X", (7,), host_read)
     torch.cuda.synchronize()
     assert float(torch.ones(4, device="cuda").sum()) == 4.0
+
+
+def test_pick_kernel_matches_twin():
+    """The day graph's pick kernel against its twin at every branch of
+    every pick of a tracing day and past each cap (checks.pick_check):
+    the picks row, the branch tally and the problem bits (with the
+    overflow bits), exact; one launch a pick."""
+    _need_cuda()
+    from reina_tpu_torch.core import step
+    from reina_tpu_torch.kernels import checks
+    cases = checks.pick_cases(step.EngineConfig())
+    for name in step.PICK_COLS:
+        node = [n for n, _ in cases if n.name == name][0]
+        n = 2 if isinstance(node, step.If) else len(node.keys())
+        branches = set()
+        for nd, xs in cases:
+            if nd.name == name:
+                b = 0
+                for p, x in zip(nd.picks, xs):
+                    b = b * len(p.ends) + step.tier_branch(p, x)
+                branches.add(b)
+        assert branches == set(range(n)), name
+    c = checks.pick_check("cuda")
+    before = kernels.launches()["daygraph.pick"]
+    r = checks.run_check(c, timing=False)
+    assert kernels.launches()["daygraph.pick"] - before == 1 + len(cases)
+    assert r.ok, r
+
+
+@pytest.mark.parametrize("day", [10, 18], ids=["plain_day", "tracing_day"])
+def test_day_graph_equals_plain_step(day):
+    """One day graph launch from the plain step's state before ``day``
+    (day 10: no contact tracing, AB then the slot switch; day 18: A, the
+    tracing if with its four switches, B, the slot switch) equals the
+    plain day step's day bit for bit: outputs, state, carry, picks; no
+    host read."""
+    _need_cuda()
+    from reina_tpu_torch import convert
+    from reina_tpu_torch.core import graphs, step
+    from reina_tpu_torch.core.engine import sched_row
+    from reina_tpu_torch.core.schedule import Schedules
+    from reina_tpu_torch.ops import prng
+    from reina_tpu_torch.testing import build_synthetic_run
+    run = build_synthetic_run("cuda", n_agents=20000, days=25, seed=3,
+                              interventions=STEP_IVS)
+    cfg = run.cfg
+    host = Schedules(*(x.cpu().numpy() for x in run.schedules))
+    key = prng.PRNGKey(run.random_seed)
+    state = run.init_state
+    carry = run.init_carry._replace(bkt_dst=run.init_carry.bkt_dst.clone())
+    for d in range(day + 1):
+        if d == day:
+            before = (state, carry._replace(bkt_dst=carry.bkt_dst.clone()))
+        picks = []
+        dk = step.derive_day_keys(cfg, key, [d]).day(0)
+        state, carry, out = step.day_step(cfg, run.arrays,
+                                          sched_row(run.schedules, host, d),
+                                          state, carry, dk, picks=picks)
+    gs = graphs.GraphSet(cfg, run.arrays, run.schedules, "cuda")
+    plans = gs.prepare(host, key, day, 1, before[1].weekly_leftover,
+                       state.age.shape[0])
+    assert plans[0].ct_active == (day == 18)
+    gs.start(*before, day, plans)
+    step.reset_stats()
+    gs.step(plans)
+    torch.cuda.synchronize()
+    assert step.STATS["launches"] == 1 and "reads" not in step.STATS
+    st, cr = gs.state_carry(day + 1, plans[0].leftover, plans[0].problem,
+                            clone=True)
+    got = step.DayOutputs(*(x[0] for x in gs.outputs(day, day + 1, plans)))
+    np.testing.assert_array_equal(gs.picks[day].cpu().numpy(), picks[0])
+    for what, w, g in (("state", state, st), ("carry", carry, cr),
+                       ("out", out, got)):
+        w, g = convert.to_numpy(w), convert.to_numpy(g)
+        for k in w:
+            np.testing.assert_array_equal(w[k], g[k], err_msg=f"{what}.{k}")

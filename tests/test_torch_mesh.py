@@ -89,6 +89,9 @@ def _child(rank: int, world: int, work: str) -> None:
               run_ensemble(run, SEEDS, mesh=both))
         _save(f"{work}/sweep_{rank}.npz", _sweep(both))
     print(f"rank {rank} of {world}: {M.stats()}", flush=True)
+    # join gloo's threads now: left to the interpreter's exit, they can
+    # end the process in std::terminate (seen under a loaded host)
+    torch.distributed.destroy_process_group()
 
 
 def _spawn(world: int, work: str):

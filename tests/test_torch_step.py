@@ -200,6 +200,7 @@ def test_24_days_in_distribution(report):
 def test_runs_without_jax(tmp_path):
     """With jax, the JAX package and pandas all unimportable, the port
     builds and runs a synthetic run with a checkpoint, resumes from it,
+    runs it through the day-graph model,
     its CLI simulates a small area and samples the explorer on the CPU,
     its GraphQL server answers an area and an explorer query, and it
     runs an ensemble (also on a mesh of one rank over torch.distributed),
@@ -223,6 +224,10 @@ def test_runs_without_jax(tmp_path):
         "assert out.by_group.shape == (3, 13, 9), out.by_group.shape\n"
         "again, _, _, t = run_days(run, checkpoint_dir=d)\n"
         "assert t == [] and (again.by_group == out.by_group).all()\n"
+        "from reina_tpu_torch.core import daygraph, graphs\n"
+        "picks = []\n"
+        "g = run_days(run, graphs=True, picks=picks)[0]\n"
+        "assert (g.by_group == out.by_group).all() and len(picks) == 2\n"
         "assert cli.main(['simulate', '--area', 'Alavieska', '--days', '4',"
         " '--quiet', '--device', 'cpu']) == 0\n"
         "assert cli.main(['sample', '--what', 'symptom_severity', '--age',"
