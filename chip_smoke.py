@@ -39,8 +39,24 @@ Run from the repository root on a machine with a CUDA device. It
      and a graphed run must launch one day graph and read nothing on the
      host a day; it prints the spans captured (span and key), the day
      graphs, the capture and assembly seconds, launches and host reads a
-     day, ms/day and peak device memory of each mode;
-  4c. Turku (the turku override set with its astra-zeneca scenario, the
+     day, ms/day and peak device memory of each mode, and what the set's
+     static copies of a build (model arrays, schedule tables) hold;
+  4d. new builds of the main path's shapes on its graph set (graph sets
+     are keyed by config, device and shapes, core/graphs.py:set_key):
+     the four preset scenarios (mitigation, summer-boogie,
+     hammer-and-dance, looser-restrictions-to-start-with), then a build
+     with other beds, ICU units and infectiousness and a mobility limit
+     moved by a week; each 365 days graphed and with the plain day step,
+     equal bit for bit with every kernel's launches exact, on the main
+     path's set, building only the spans and day graphs of host keys the
+     set lacks (none, where it holds them all);
+  4c. Varsinais-Suomi (479,861 agents, 480,256 padded; after step 7):
+     every kernel of step 2 against its twin at that agent count, the
+     draws and samplers on its run's day-100 inputs, the pick kernel;
+     its 365 days graphed and with the plain day step, equal bit for bit,
+     picks equal on every day, launches exact; then the CLI's calibrate
+     against its observed cases (two points, 60 days);
+     Turku (the turku override set with its astra-zeneca scenario, the
      only vaccination in the set, 565 days, 192,962 agents): graphed
      and with the plain day step, equal bit for bit, with every kernel's
      launches exact and a one-hot vaccination sum on each vaccination
@@ -79,8 +95,10 @@ Run from the repository root on a machine with a CUDA device. It
      starts and polls over HTTP with the web UI's own documents. Run W,
      a fresh session's default run, must be served by the warm-up's
      build; it is timed to its first partial result and cancelled. Two
-     365-day HUS runs follow: run A (seed 0, a build-cache miss) must stream
-     partial results and equal step 3's daily all_infected and
+     365-day HUS runs follow: run A (seed 0, a build-cache miss, whose
+     build fits the warm-up's graph set and so must build no span and no
+     day graph; polled every 0.05 s until its first partial result) must
+     stream partial results and equal step 3's daily all_infected and
      susceptible exactly, and export its 365 days as a workbook; run B
      (seed 1) must be a reseed of A's build and end inside the same
      outcome band; the explorer's severity counts through the server
@@ -94,10 +112,12 @@ Run from the repository root on a machine with a CUDA device. It
 runs only step 7's ranks, for 2 and K ranks (NCCL with K cards), after
 the 31 days of step 3 and the ensemble of step 6 that they are held to.
 
-Each of steps 3, 4c, 5, 8, the ensemble, the grid and the CLI run of 6,
-the agent-sharded run of 7 (in each rank) and each served run of 9 sets the
-kernels' launch counts to 0 just before it and reads them just after. It prints one
-JSON line of kernel results before the last line, and as the last line
+Each of steps 3, 4c, 4d, 5, 8, the ensemble, the grid and the CLI's
+calibrate runs of 4c and 6, the agent-sharded run of 7 (in each rank)
+and each served run of 9 sets the kernels' launch counts to 0 just
+before it and reads them just after. It prints one JSON line of kernel
+results (step 2's and the main path's launches) before the last line,
+and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero.
 Without a CUDA device, or outside the repository, it exits non-zero and
 prints no result. Nothing runs on the CPU in its place.
@@ -123,6 +143,18 @@ MESH_DAYS = 31
 MESH_SEEDS = [0, 1, 2]
 CLI_GRID = [0.45, 0.65]
 POLL_S = 0.5
+# run A's poll until its first partial result: finer than the web UI's
+FINE_POLL_S = 0.05
+# the preset scenarios besides the default (config/scenarios.py)
+PRESETS = ("mitigation", "summer-boogie", "hammer-and-dance",
+           "looser-restrictions-to-start-with")
+# a HUS build of the default's shapes with other values: beds, ICU
+# units, infectiousness, and a mobility limit moved by a week
+OTHER_VALUES = {"hospital_beds": 2000, "icu_units": 250,
+                "infectiousness_multiplier": 0.5}
+MOVED = (["limit-mobility", "2020-03-15", 80, 0, 70, "other"],
+         ["limit-mobility", "2020-03-22", 80, 0, 70, "other"])
+VS_AREA = "Varsinais-Suomi"
 WEBUI_POLL = ("query($id: ID!){ simulationResults(runId:$id) {\n"
               "      finished phase predictedMetrics { dates metrics { type "
               "intValues floatValues } } } }")
@@ -144,6 +176,25 @@ CAPTURE_DAY = 100
 def fail(msg: str) -> None:
     print(f"FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def hold(cs, results: dict, label: str = "") -> None:
+    """Each check's kernel against its twin (timed), into ``results`` by
+    name; fails if any disagrees."""
+    from reina_tpu_torch.kernels import checks
+    for c in cs:
+        r = checks.run_check(c)
+        results[c.name] = (c, r)
+        lib = "none" if r.library_ms is None else f"{r.library_ms:.4f} ms"
+        print(f"{label}kernel {r.name:22s} ok={r.ok} "
+              f"mismatches={r.mismatches} max_abs_err={r.max_abs_err:.3g} "
+              f"max_ulp={r.max_ulp} kernel {r.ms:.4f} ms  twin "
+              f"{r.plain_ms:.4f} ms  library {lib}  bound {r.bound_ms:.4f} "
+              f"ms ({r.bound_by})"
+              + ("" if c.library_note == "" else f"  [{c.library_note}]"))
+    bad = [n for n, (_, r) in results.items() if not r.ok]
+    if bad:
+        fail(f"{label}kernels disagree with their twins: {bad}")
 
 
 def check_launched(launches: dict, want: dict, phase: str) -> None:
@@ -222,10 +273,15 @@ def graphs_phase(run, out, state, carry, wall: float, stats: dict,
     from reina_tpu_torch.core.engine import run_days
 
     steps = DAYS - 1
-    gs = graphs.acquire(run.cfg, run.arrays, run.schedules, run.device)
+    [gs] = graphs.idle()
     captured = sorted(gs.bodies)
     day_graphs = sorted(gs.days)
-    graphs.release(gs)
+    arrays_b = sum(x.numel() * x.element_size() for x in gs.arrays)
+    tables_b = sum(x.numel() * x.element_size()
+                   for x in (gs.mobility, gs.mask_p))
+    print(f"graphs: the set's static copies of a build: model arrays "
+          f"{arrays_b / 2**30:.4f} GiB, schedule tables "
+          f"{tables_b / 2**30:.4f} GiB ({gs.rows} days)")
     print(f"graphs: {stats.get('captures', 0)} spans captured in "
           f"{stats.get('capture_s', 0.0):.3f} s (span, key): {captured}; "
           f"{len(day_graphs)} day graphs (ct_active, vacc, "
@@ -293,6 +349,71 @@ def graphs_phase(run, out, state, carry, wall: float, stats: dict,
           "carry")
 
 
+def modes_equal(run, label: str, snapshots: int):
+    """``run`` graphed, then with the plain day step: every kernel of
+    each launched exactly as often as the days ran it (the pick once a
+    conditional node that ran; one day-graph launch and no host read a
+    graphed day), agents conserved, the device's picks equal to the
+    host's on every day, and the outputs, final state and carry equal bit
+    for bit. Returns (the graphed outputs, {mode: figures})."""
+    import numpy as np
+    import torch
+    from reina_tpu_torch import convert, kernels
+    from reina_tpu_torch.core import step
+    from reina_tpu_torch.core.engine import run_days
+
+    steps = run.days - 1
+    res, info = {}, {}
+    for mode, graphed in (("graphed", True), ("plain", False)):
+        kernels.reset_launches()
+        step.reset_stats()
+        picks = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res[mode] = run_days(run, chunk_days=52, graphs=graphed, picks=picks)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = kernels.launches()
+        st = dict(step.STATS)
+        out = res[mode][0]
+        check_runs_launched(launches, steps, snapshots, f"{label} {mode}")
+        if graphed:
+            picked = sum(int((row >= 0).sum()) for row in picks)
+            if launches.get("daygraph.pick", 0) != picked:
+                fail(f"{label}: daygraph.pick launched "
+                     f"{launches.get('daygraph.pick', 0)} times, want "
+                     f"{picked}")
+            if st.get("launches") != steps or st.get("reads", 0):
+                fail(f"{label}: the graphed run did not launch one day "
+                     "graph and read nothing a day")
+        cons = out.by_group[:, 0].sum(1) + out.by_group[:, 3].sum(1)
+        if not (cons == run.n_agents).all():
+            fail(f"{label} {mode}: agents not conserved")
+        res[mode + " picks"] = picks
+        info[mode] = dict(
+            secs=secs, ms_day=secs / steps * 1000, launches=launches,
+            peak=torch.cuda.max_memory_allocated(),
+            captures=st.get("captures", 0),
+            day_graphs=st.get("day_graphs", 0),
+            final=int(out.by_group[-1, 3].sum()))
+    bad = np.flatnonzero((np.array(res["graphed picks"])
+                          != np.array(res["plain picks"])).any(axis=1))
+    if len(res["plain picks"]) != steps or bad.size:
+        fail(f"{label}: the device's picks differ from the host's on days "
+             f"{bad[:10].tolist()}")
+    (go, gst, gcr), (eo, est, ecr) = (res["graphed"][:3], res["plain"][:3])
+    for name, a, b in zip(go._fields, go, eo):
+        if a.shape != b.shape or not np.array_equal(a, b):
+            fail(f"{label}: outputs.{name} differ")
+    for what, w, g in (("state", est, gst), ("carry", ecr, gcr)):
+        w, g = convert.to_numpy(w), convert.to_numpy(g)
+        for k in w:
+            if not np.array_equal(w[k], g[k]):
+                fail(f"{label}: {what}.{k} differs")
+    return go, info
+
+
 def turku_phase() -> None:
     """The turku override set (config/override_sets.json: Turku, 900
     beds, 55 ICU units, its calendar) with its astra-zeneca scenario,
@@ -302,13 +423,9 @@ def turku_phase() -> None:
     day."""
     import copy
 
-    import numpy as np
-    import torch
-    from reina_tpu_torch import convert, kernels
     from reina_tpu_torch.config.variables import (VARIABLE_DEFAULTS,
                                                   VARIABLE_OVERRIDE_SETS)
-    from reina_tpu_torch.core import step
-    from reina_tpu_torch.core.engine import build_run, run_days
+    from reina_tpu_torch.core.engine import build_run
 
     v = dict(VARIABLE_DEFAULTS)
     v.update(copy.deepcopy(VARIABLE_OVERRIDE_SETS["turku"]))
@@ -319,49 +436,132 @@ def turku_phase() -> None:
     steps = run.days - 1
     vacc_nr = run.schedules.vacc_nr.cpu().numpy()
     vacc_days = int((vacc_nr[:steps].sum(axis=1) >= 1.0).sum())
-    res = {}
-    for mode, graphed in (("graphed", True), ("eager", False)):
-        kernels.reset_launches()
-        step.reset_stats()
-        picks = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res[mode] = run_days(run, chunk_days=52, graphs=graphed, picks=picks)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = kernels.launches()
-        st = dict(step.STATS)
-        out = res[mode][0]
+    out, info = modes_equal(run, "turku", 1 + vacc_days)
+    for mode, m in info.items():
         print(f"turku {mode}: {run.n_agents} agents, {steps} days in "
-              f"{secs:.3f} s ({secs / steps * 1000:.2f} ms/day, build "
-              f"{build_s:.3f} s), {st.get('captures', 0)} captures, "
-              f"{st.get('launches', 0) / steps:.2f} day-graph launches and "
-              f"{st.get('reads', 0) / steps:.2f} host reads a day; "
-              f"vaccination days {vacc_days}, fused_onehot_sum launched "
-              f"{launches['fused_onehot_sum']}; final all_infected "
-              f"{int(out.by_group[-1, 3].sum())}, vaccinated "
-              f"{int(out.by_group[-1, 1].sum())}")
-        res[mode + " picks"] = picks
-        check_runs_launched(launches, steps, 1 + vacc_days, f"turku {mode}")
-        cons = out.by_group[:, 0].sum(1) + out.by_group[:, 3].sum(1)
-        if not (cons == run.n_agents).all():
-            fail(f"turku {mode}: agents not conserved")
-    if vacc_days == 0 or int(res["graphed"][0].by_group[-1, 1].sum()) == 0:
+              f"{m['secs']:.3f} s ({m['ms_day']:.2f} ms/day, build "
+              f"{build_s:.3f} s), {m['captures']} captures; vaccination "
+              f"days {vacc_days}, fused_onehot_sum launched "
+              f"{m['launches']['fused_onehot_sum']}; final all_infected "
+              f"{m['final']}, vaccinated {int(out.by_group[-1, 1].sum())}")
+    if vacc_days == 0 or int(out.by_group[-1, 1].sum()) == 0:
         fail("turku: no vaccination ran")
-    if not np.array_equal(np.array(res["graphed picks"]),
-                          np.array(res["eager picks"])):
-        fail("turku: the device's picks differ from the host's")
-    (go, gst, gcr), (eo, est, ecr) = (res["graphed"][:3], res["eager"][:3])
-    for name, a, b in zip(go._fields, go, eo):
-        if a.shape != b.shape or not np.array_equal(a, b):
-            fail(f"turku: outputs.{name} differ")
-    for what, w, g in (("state", est, gst), ("carry", ecr, gcr)):
-        w, g = convert.to_numpy(w), convert.to_numpy(g)
-        for k in w:
-            if not np.array_equal(w[k], g[k]):
-                fail(f"turku: {what}.{k} differs")
     print("turku: the graphed run equals the plain day step bit for bit "
           "(outputs, final state and carry, picks)")
+
+
+def reuse_phase() -> None:
+    """New builds of the main path's shapes on its graph set: the four
+    preset scenarios, then a build with other values (OTHER_VALUES, a
+    mobility limit moved by a week), each 365 days graphed and with the
+    plain day step, equal bit for bit. Each must take the main path's
+    idle set and build only the spans and day graphs of host keys the
+    set lacks (none, for a build whose host keys it holds)."""
+    from reina_tpu_torch.config import scenarios
+    from reina_tpu_torch.config.variables import (VARIABLE_DEFAULTS,
+                                                  session_store)
+    from reina_tpu_torch.core import graphs
+    from reina_tpu_torch.core.engine import build_run
+
+    builds = []
+    for sid in PRESETS:
+        with session_store() as store:
+            scenarios.get_scenario(sid).apply()
+            store.set("simulation_days", DAYS)
+            builds.append((sid, store.copy_all()))
+    v = dict(VARIABLE_DEFAULTS, simulation_days=DAYS, **OTHER_VALUES)
+    ivs = [list(iv) for iv in v["interventions"]]
+    ivs[ivs.index(MOVED[0])] = MOVED[1]
+    v["interventions"] = ivs
+    builds.append(("other values", v))
+    for label, v in builds:
+        idle = graphs.idle()
+        if len(idle) != 1:
+            fail(f"reuse {label}: {len(idle)} idle graph sets, want the "
+                 "main path's")
+        gs = idle[0]
+        bodies, days = set(gs.bodies), set(gs.days)
+        t0 = time.perf_counter()
+        run = build_run(v, "cuda")
+        build_s = time.perf_counter() - t0
+        _, info = modes_equal(run, f"reuse {label}", 1)
+        g, e = info["graphed"], info["plain"]
+        new_bodies, new_days = set(gs.bodies) - bodies, set(gs.days) - days
+        print(f"reuse {label}: build {build_s:.3f} s; graphed "
+              f"{g['ms_day']:.2f} ms/day on the main path's set, "
+              f"{g['captures']} spans and {g['day_graphs']} day graphs "
+              f"built (host keys new to the set: {sorted(new_days)}); plain "
+              f"{e['ms_day']:.2f} ms/day; final all_infected {g['final']}; "
+              f"equal bit for bit, picks equal on all {run.days - 1} days")
+        if graphs.idle() != [gs]:
+            fail(f"reuse {label}: the run did not take the main path's set")
+        if (g["captures"], g["day_graphs"]) != (len(new_bodies),
+                                                len(new_days)):
+            fail(f"reuse {label}: built {g['captures']} spans and "
+                 f"{g['day_graphs']} day graphs, want {len(new_bodies)} and "
+                 f"{len(new_days)} (the set's missing host keys only)")
+        del run
+
+
+def vs_phase() -> None:
+    """Varsinais-Suomi (VARIABLE_DEFAULTS with its area: 479,861 agents,
+    480,256 padded): every kernel of the path against its twin at its
+    agent count (the draws and samplers on its run's day-100 inputs),
+    its 365 days graphed and with the plain day step, equal bit for bit,
+    then the CLI's calibrate against its observed cases."""
+    import torch
+    from reina_tpu_torch import cli, kernels
+    from reina_tpu_torch.config.variables import VARIABLE_DEFAULTS
+    from reina_tpu_torch.core.engine import build_run
+    from reina_tpu_torch.kernels import checks
+
+    results = {}
+    hold(checks.checks(checks.VS_N, 0, "cuda"), results, "VS ")
+    v = dict(VARIABLE_DEFAULTS, area_name=VS_AREA, simulation_days=DAYS)
+    t0 = time.perf_counter()
+    run = build_run(v, "cuda")
+    build_s = time.perf_counter() - t0
+    n_pad = run.init_state.age.shape[0]
+    print(f"VS build_run: {build_s:.3f} s, agents={run.n_agents}, "
+          f"padded={n_pad}")
+    if (run.n_agents, n_pad) != (checks.VS_AGENTS, checks.VS_N):
+        fail(f"VS: {run.n_agents} agents padded to {n_pad}, want "
+             f"{checks.VS_AGENTS} and {checks.VS_N}")
+    captured = checks.capture_samplers(run, CAPTURE_DAY)
+    torch.cuda.synchronize()
+    print(f"VS day {CAPTURE_DAY}'s sampler inputs: binomial_fixed lanes "
+          f"{[int(n.numel()) for n, _ in captured['binomial']]}, "
+          f"gamma_fixed (kappa, shape) {captured['gamma']}")
+    hold(checks.draw_checks(0, "cuda", captured, checks.VS_N), results,
+         "VS ")
+    del captured
+    hold([checks.pick_check("cuda")], results, "VS ")
+    _, info = modes_equal(run, "VS", 1)
+    for mode, m in info.items():
+        print(f"VS {mode}: {run.days - 1} days in {m['secs']:.3f} s "
+              f"({m['ms_day']:.2f} ms/day, "
+              f"{run.n_agents * (run.days - 1) / m['secs']:.1f} "
+              f"agent-days/s), {m['captures']} spans and "
+              f"{m['day_graphs']} day graphs built, peak device memory "
+              f"{m['peak'] / 2**30:.2f} GiB; final all_infected "
+              f"{m['final']}; launches={m['launches']}")
+    print("VS: the graphed run equals the plain day step bit for bit "
+          "(outputs, final state and carry), the device's picks equal the "
+          f"host's on all {run.days - 1} days, launches exact")
+    del run
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["calibrate", "--area", VS_AREA, "--grid", json.dumps(
+        {"infectiousness_multiplier": CLI_GRID}), "--days",
+        str(ENS_DAYS)])
+    wall = time.perf_counter() - t0
+    print(f"VS cli calibrate: exit {rc}, {wall:.3f} s for {len(CLI_GRID)} "
+          f"points x {ENS_DAYS - 1} days, {wall / len(CLI_GRID):.3f} s per "
+          f"point (build + days); launches={kernels.launches()}")
+    if rc != 0:
+        fail(f"VS cli calibrate: exit code {rc}")
+    check_runs_launched(kernels.launches(), len(CLI_GRID) * (ENS_DAYS - 1),
+                        len(CLI_GRID), "VS cli calibrate")
 
 
 def check_runs_launched(launches: dict, steps: int, runs: int,
@@ -729,13 +929,18 @@ class Client:
         return out["data"]
 
 
-def served_run(client: Client, name: str, seed_arg: str, want: str):
-    """Start a run as the web UI does and poll it every POLL_S until it
-    has finished; returns (run id, final results, launches, timings)."""
+def served_run(client: Client, name: str, seed_arg: str, want: str,
+               first_poll: float = POLL_S):
+    """Start a run as the web UI does and poll it every ``first_poll``
+    until its first partial result, then every POLL_S until it has
+    finished; returns (run id, final results, the graph runner's
+    counters of the run)."""
     from reina_tpu_torch import kernels
+    from reina_tpu_torch.core import step
     from reina_tpu_torch.simulation import BUILD_CACHE
 
     kernels.reset_launches()
+    step.reset_stats()
     t0 = time.perf_counter()
     run_id = client.post(f"mutation {{ runSimulation{seed_arg} "
                          "{ runId } }")["runSimulation"]["runId"]
@@ -755,16 +960,19 @@ def served_run(client: Client, name: str, seed_arg: str, want: str):
             break
         if time.perf_counter() > deadline:
             fail(f"serve: run {name} did not finish in 900 s")
-        time.sleep(POLL_S)
+        time.sleep(first_poll if t_partial is None else POLL_S)
     t_done = time.perf_counter() - t0
     launches = kernels.launches()
+    st = dict(step.STATS)
     outcome, build_s = BUILD_CACHE.last
     print(f"serve run {name}: build {outcome} {build_s:.3f} s; "
           f"phase running at {t_running:.3f} s, first partial at "
-          f"{t_partial:.3f} s, finished at {t_done:.3f} s (polled every "
-          f"{POLL_S} s), {t_done / (DAYS - 1) * 1000:.2f} ms/day; "
-          f"{len(set(lengths))} distinct date counts over {len(lengths)} "
-          f"polls; launches={launches}")
+          f"{t_partial:.3f} s (polled every {first_poll} s until then), "
+          f"finished at {t_done:.3f} s (polled every {POLL_S} s), "
+          f"{t_done / (DAYS - 1) * 1000:.2f} ms/day; "
+          f"{st.get('captures', 0)} spans and {st.get('day_graphs', 0)} day "
+          f"graphs built; {len(set(lengths))} distinct date counts over "
+          f"{len(lengths)} polls; launches={launches}")
     if outcome != want:
         fail(f"serve run {name}: build {outcome}, want {want}")
     if lengths != sorted(lengths) or len(set(lengths)) < 3:
@@ -774,7 +982,7 @@ def served_run(client: Client, name: str, seed_arg: str, want: str):
     steps = DAYS - 1
     check_launched(launches, day_launches(steps, 1), f"serve {name}")
     metrics = {m["type"]: m for m in res["predictedMetrics"]["metrics"]}
-    return run_id, metrics
+    return run_id, metrics, st
 
 
 def poll(client: Client, run_id: str) -> dict:
@@ -927,7 +1135,10 @@ def serving_phase(main_all_infected, main_susceptible) -> None:
         client = Client(base)
         client.post(f"mutation {{ setSimulationDays(days: {DAYS}) {{ ok }} }}")
 
-        run_a, a = served_run(client, "A", "", "built")
+        run_a, a, st = served_run(client, "A", "", "built", FINE_POLL_S)
+        if st.get("captures", 0) or st.get("day_graphs", 0):
+            fail("serve run A: a build of the warm-up's key built spans or "
+                 "day graphs")
         for name, want in (("all_infected", main_all_infected),
                            ("susceptible", main_susceptible)):
             if a[name]["intValues"] != [int(x) for x in want]:
@@ -941,7 +1152,7 @@ def serving_phase(main_all_infected, main_susceptible) -> None:
         if sheet.count(b"<row>") != DAYS + 1:
             fail(f"serve: the export has {sheet.count(b'<row>')} rows")
 
-        _, b = served_run(client, "B", "(randomSeed: 1)", "reseeded")
+        _, b, _ = served_run(client, "B", "(randomSeed: 1)", "reseeded")
         final_b = b["all_infected"]["intValues"][-1]
         lo, hi = MC_MEAN - 4 * MC_STD, MC_MEAN + 4 * MC_STD
         print(f"serve run B: final all_infected {final_b}")
@@ -1008,24 +1219,7 @@ def main() -> None:
 
     # ---- kernels against their twins at HUS shapes
     results = {}
-
-    def hold(cs):
-        for c in cs:
-            r = checks.run_check(c)
-            results[c.name] = (c, r)
-            lib = ("none" if r.library_ms is None
-                   else f"{r.library_ms:.4f} ms")
-            print(f"kernel {r.name:22s} ok={r.ok} mismatches={r.mismatches} "
-                  f"max_abs_err={r.max_abs_err:.3g} max_ulp={r.max_ulp} "
-                  f"kernel {r.ms:.4f} ms  twin {r.plain_ms:.4f} ms  "
-                  f"library {lib}  bound {r.bound_ms:.4f} ms ({r.bound_by})"
-                  + ("" if c.library_note == ""
-                     else f"  [{c.library_note}]"))
-        bad = [n for n, (_, r) in results.items() if not r.ok]
-        if bad:
-            fail(f"kernels disagree with their twins: {bad}")
-
-    hold(checks.checks(checks.HUS_N, 0, "cuda"))
+    hold(checks.checks(checks.HUS_N, 0, "cuda"), results)
     print("per-launch ms (cold L2, median of 7): "
           + json.dumps(checks.launch_times(checks.HUS_N, 0, "cuda")))
 
@@ -1055,9 +1249,9 @@ def main() -> None:
           f"{[int(n.numel()) for n, _ in captured['binomial']]}, "
           f"gamma_fixed (kappa, shape) {captured['gamma']}; clock for the "
           f"INT32 bound {checks.sm_clock_hz() / 1e6:.0f} MHz")
-    hold(checks.draw_checks(0, "cuda", captured))
+    hold(checks.draw_checks(0, "cuda", captured), results)
     del captured
-    hold([checks.pick_check("cuda")])
+    hold([checks.pick_check("cuda")], results)
 
     from reina_tpu_torch.core import step
     torch.cuda.reset_peak_memory_stats()
@@ -1107,6 +1301,7 @@ def main() -> None:
 
     graphs_phase(run, out, state, carry, wall, graph_stats, peak,
                  dev_picks)
+    reuse_phase()
     with tempfile.TemporaryDirectory(dir=here) as scratch:
         resume_phase(run, out, state, scratch)
     ens, ens_ms_day = ensemble_phase(run, v, out, peak - mem0, run_bytes)
@@ -1115,6 +1310,7 @@ def main() -> None:
     main_all_infected = out.by_group[:, 3].sum(1)
     main_susceptible = out.by_group[:, 0].sum(1)
     del run, out, state, carry
+    vs_phase()
     turku_phase()
     cli_phase()
     serving_phase(main_all_infected, main_susceptible)

@@ -417,10 +417,10 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
     gs, plans, day0, bits = None, [], day, 0
     leftover = carry.weekly_leftover
     if graphs and steps_left > 0:
-        gs = G.acquire(cfg, arrays, schedules, device)
+        gs = G.acquire(cfg, arrays, schedules, state, carry, device)
         plans = gs.prepare(host_sched, base_key, day, steps_left, leftover,
                            state.age.shape[0])
-        gs.start(state, carry, day, plans)
+        gs.start(cfg, arrays, schedules, state, carry, day, plans)
     synced = day
 
     def sync():
@@ -511,17 +511,19 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
 
 def build_graphs(run: CompiledRun) -> None:
     """Build the day graph of every host key of ``run``'s days
-    (core/graphs.py) into an idle graph set of its build on its card, so
-    that a later graphed run of the build builds none; nothing is
-    stepped."""
+    (core/graphs.py) into an idle graph set of its key on its card, so
+    that a later graphed run of any build of that key, of up to as many
+    days, builds none of them; nothing is stepped."""
     from . import graphs as G
     host_sched = Schedules(*(x.cpu().numpy() for x in run.schedules))
-    gs = G.acquire(run.cfg, run.arrays, run.schedules, run.device)
+    build = (run.cfg, run.arrays, run.schedules, run.init_state,
+             run.init_carry)
+    gs = G.acquire(*build, run.device)
     plans = gs.prepare(host_sched, prng.PRNGKey(run.random_seed), 0,
                        run.days - 1,
                        run.init_carry.weekly_leftover,
                        run.init_state.age.shape[0])
-    gs.start(run.init_state, run.init_carry, 0, plans)
+    gs.start(*build, 0, plans)
     G.release(gs)
 
 

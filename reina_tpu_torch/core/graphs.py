@@ -3,14 +3,26 @@ package's compiled day chunk (reina_tpu/core/engine.py:run_chunk, a
 ``lax.scan`` over the days of a chunk, compiled once, that picks every
 tier on the device).
 
-A :class:`GraphSet` runs the days of one build (model arrays, schedules,
-engine config) on one device. A day is ``step.day_program``: spans, and
-tier picks between them. For each host key (contact tracing on, a
-vaccination day, imports: what the schedule says) the set holds a day
-graph (core/daygraph.py) in which each span is its captured
-``torch.cuda.CUDAGraph`` and each pick a kernel that sets the
-conditional node after it; a day is one launch of its key's day graph,
-and the host reads nothing until the run loop's next sync point.
+A :class:`GraphSet` runs the days of the builds of one key on one
+device. The key is what its captured graphs depend on, as the JAX
+package's jitted ``run_chunk`` is keyed by its static ``cfg`` and
+``chunk_len`` and the shapes of its traced arguments: the engine config,
+the device, and the shapes and dtypes of the model arrays, of the
+schedules less their day axis, of the state and of the carry
+(:func:`set_key`); never a build's identity or values. The set owns
+static copies of everything the spans read of a build (its model arrays
+and the schedules' (day, A, P) tables), into which each run copies its
+build's, as it copies its state and carry; so a new build of the same
+key (a reseeded, served or swept run, another scenario, other beds or
+parameters) reuses the graphs, for a run of up to the set's days.
+
+A day is ``step.day_program``: spans, and tier picks between them. For
+each host key (contact tracing on, a vaccination day, imports: what the
+schedule says) the set holds a day graph (core/daygraph.py) in which
+each span is its captured ``torch.cuda.CUDAGraph`` and each pick a
+kernel that sets the conditional node after it; a day is one launch of
+its key's day graph, and the host reads nothing until the run loop's
+next sync point.
 
 Every branch exists before a day needs it: when a run starts, every host
 key of its days that the set lacks is built. Each (span, key) variant of
@@ -19,8 +31,10 @@ the static buffers (its warm-up: it allocates the span's handoff buffers
 and compiles its kernels), is captured, and the day graph is assembled;
 only then are the run's state and carry loaded into the static buffers.
 For that, everything a span reads lies at an address that does not
-change from day to day:
+change from day to day or from build to build:
 
+  * the build: the set's copies of the model arrays and of the
+    schedules' mobility and mask tables, which a run's start fills;
   * the day row (``step.DayIn``): tables of the run's day rows and key
     words are uploaded once a run; the first span of a day copies row
     ``counter`` (a device day counter) into the static day row, the last
@@ -43,9 +57,10 @@ past its end, so one graph's temporaries may reuse another's memory, and
 any branch may follow any other. Captures hold a process-wide lock and
 use the thread-local capture mode, so a served run's capture is not
 broken by another worker thread's work; each run takes a set of its own
-(``acquire``/``release``), and a build's idle sets serve its later runs
-(ensemble members, reseeded and served runs). A capture, assembly or
-launch that fails raises GraphError naming the span or host key; nothing
+(``acquire``/``release``), and the idle sets of a key serve its later
+builds' runs; a build of another key gets a set of its own, which frees
+the device's idle sets. A capture, assembly or launch that fails, or a
+build that does not fit the set it is given, raises GraphError; nothing
 runs the day eagerly in its place.
 
 Launch counts (``kernels.LAUNCHES``): a capture's launches go into the
@@ -53,8 +68,9 @@ span's tally; each launch of a day graph adds the tallies of the spans it
 always runs, and each sync point those of the branches that ran, from
 the device's branch tallies, with one pick launch a tally count. The
 warm-ups launch their kernels eagerly and count them there, each also
-in ``kernels.WARMUPS``. ``step.STATS`` counts the captures, their and
-the assemblies' seconds and the day-graph launches beside the days.
+in ``kernels.WARMUPS``. ``step.STATS`` counts the captures, the day
+graphs built, their seconds and the day-graph launches beside the
+days.
 
 On the CPU a GraphSet is a model of the same machinery for the tests:
 each (span, key) records its body (the span and the copies around it) at
@@ -67,7 +83,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import Counter
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
@@ -78,7 +94,8 @@ from .schedule import Schedules
 from .state import AgentState, DayCarry
 from .. import kernels
 
-__all__ = ["GraphError", "GraphSet", "acquire", "release", "drop_idle"]
+__all__ = ["GraphError", "GraphSet", "acquire", "release", "drop_idle",
+           "idle", "set_key"]
 
 _CAPTURE_LOCK = threading.Lock()
 _IDLE_LOCK = threading.Lock()
@@ -93,6 +110,18 @@ DEVICE_CARRY = tuple(f for f in DayCarry._fields
 class _Entry(NamedTuple):
     run: object            # the CUDAGraph, or on the CPU the body
     tally: Counter         # launches of one run
+
+
+def set_key(cfg: S.EngineConfig, arrays: S.ModelArrays,
+            schedules: Schedules, state: AgentState, carry: DayCarry,
+            device) -> tuple:
+    """What a set's graphs depend on: the engine config, the device, and
+    the shapes and dtypes of the model arrays, the schedules less their
+    day axis, the state and the carry's device fields."""
+    def sig(ts, lead=0):
+        return tuple((tuple(t.shape[lead:]), t.dtype) for t in ts)
+    return (cfg, torch.device(device), sig(arrays), sig(schedules, 1),
+            sig(state), sig(getattr(carry, f) for f in DEVICE_CARRY))
 
 
 def host_key(plan: S.DayPlan) -> tuple:
@@ -114,15 +143,26 @@ def _variants(nodes):
 
 
 class GraphSet:
-    """The static buffers, captured spans and day graphs of one build on
-    one device."""
+    """The static buffers, captured spans and day graphs of the builds of
+    one key (:func:`set_key`) on one device, for runs of up to ``rows``
+    days."""
 
     def __init__(self, cfg: S.EngineConfig, arrays: S.ModelArrays,
-                 schedules: Schedules, device):
-        self.cfg, self.arrays, self.schedules = cfg, arrays, schedules
+                 schedules: Schedules, state: AgentState, carry: DayCarry,
+                 device):
+        self.key = set_key(cfg, arrays, schedules, state, carry, device)
+        self.cfg = cfg
         self.device = torch.device(device)
         self.model = self.device.type != "cuda"
         days, A, P = schedules.mobility.shape
+        self.rows = days
+        # the static copies of a build that the spans read (start fills
+        # them with each run's); the warm-ups run on the first build's
+        self.arrays = S.ModelArrays(*(x.clone() for x in arrays))
+        self.mobility = schedules.mobility.clone()
+        self.mask_p = schedules.mask_p.clone()
+        self.state = AgentState(*(x.clone() for x in state))
+        self.carry = {f: getattr(carry, f).clone() for f in DEVICE_CARRY}
         V = cfg.nr_variants
         dev = self.device
         ni, nf = S.I_CUM_IMP + V, S.F_VACC + cfg.vacc_slots
@@ -142,8 +182,6 @@ class GraphSet:
         self.out_i = self.out_f = None
         self.int_shapes = []
         self.counter = torch.zeros((), dtype=torch.int64, device=dev)
-        self.state: Optional[AgentState] = None
-        self.carry: Dict[str, torch.Tensor] = {}
         self.handoff: Dict[str, torch.Tensor] = {}
         self.bodies: Dict[tuple, _Entry] = {}
         self.days: Dict[tuple, object] = {}
@@ -167,23 +205,27 @@ class GraphSet:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(dev)
 
-    def matches(self, cfg, arrays, schedules, device) -> bool:
-        return (self.arrays is arrays and self.schedules is schedules
-                and self.cfg == cfg and self.device == torch.device(device))
+    def fits(self, key: tuple, rows: int) -> bool:
+        """Whether a build of ``key`` with ``rows`` schedule rows can run
+        on this set."""
+        return key == self.key and rows <= self.rows
 
     # ---- a run
 
     def prepare(self, host: Schedules, base_key, day0: int, steps: int,
                 leftover, n_agents: int) -> List[S.DayPlan]:
-        """The plans of days [day0, day0 + steps) and their rows and keys
-        in the device tables (one upload a run); their picks unset."""
+        """The plans of days [day0, day0 + steps) of a build whose host
+        schedules are ``host``, and their rows and keys in the device
+        tables (one upload a run); their picks unset."""
         from .engine import sched_row
+        if day0 + steps > self.rows:
+            raise GraphError(f"days [{day0}, {day0 + steps}) on a set of "
+                             f"{self.rows} days")
         days = day0 + np.arange(steps)
         dks = S.derive_day_keys(self.cfg, base_key, days)
         plans = []
         for i, d in enumerate(days):
-            plan = S.plan_day(self.cfg, sched_row(self.schedules, host,
-                                                  int(d)),
+            plan = S.plan_day(self.cfg, sched_row(host, host, int(d)),
                               leftover, int(d), dks.day(i), n_agents)
             leftover = plan.leftover
             plans.append(plan)
@@ -198,14 +240,26 @@ class GraphSet:
             self.picks[rows].fill_(-1)
         return plans
 
-    def start(self, state: AgentState, carry: DayCarry, day: int,
-              plans: List[S.DayPlan]) -> None:
-        """Build the day graphs ``plans`` need that the set lacks, then
-        take a run's state and carry into the static buffers, from
-        ``day``."""
-        if self.state is None:
-            self.state = AgentState(*(x.clone() for x in state))
-            self.carry = {f: getattr(carry, f).clone() for f in DEVICE_CARRY}
+    def start(self, cfg: S.EngineConfig, arrays: S.ModelArrays,
+              schedules: Schedules, state: AgentState, carry: DayCarry,
+              day: int, plans: List[S.DayPlan]) -> None:
+        """Take a run of a build of the set's key: copy its arrays and
+        schedule tables into the set's, build the day graphs ``plans``
+        need that the set lacks, then take the run's state and carry
+        into the static buffers, from ``day``."""
+        key = set_key(cfg, arrays, schedules, state, carry, self.device)
+        rows = schedules.mobility.shape[0]
+        if not self.fits(key, rows):
+            parts = ("config", "device", "model arrays", "schedules",
+                     "state", "carry")
+            differ = [p for p, a, b in zip(parts, key, self.key) if a != b]
+            why = (f"its {', '.join(differ)} differ" if differ
+                   else f"{rows} days on a set of {self.rows}")
+            raise GraphError(f"a build does not fit the set: {why}")
+        for dst, src in zip(self.arrays, arrays):
+            dst.copy_(src)
+        self.mobility[:rows].copy_(schedules.mobility)
+        self.mask_p[:rows].copy_(schedules.mask_p)
         for plan in plans:
             hkey = host_key(plan)
             if hkey not in self.days:
@@ -310,6 +364,7 @@ class GraphSet:
                 raise GraphError(f"day graph {hkey}: warm-up of span {name} "
                                  f"{key} failed: {e}") from e
             self.bodies[(name, key)] = self.capture(name, key, body)
+        S.STATS["day_graphs"] += 1
         if self.model:
             self.days[hkey] = nodes
             return
@@ -332,8 +387,8 @@ class GraphSet:
         self.din.ints.copy_(self.tab_i.index_select(0, i)[0])
         self.din.floats.copy_(self.tab_f.index_select(0, i)[0])
         self.key_words.copy_(self.tab_k.index_select(0, i)[0])
-        self.din.mobility.copy_(self.schedules.mobility.index_select(0, i)[0])
-        self.din.mask_p.copy_(self.schedules.mask_p.index_select(0, i)[0])
+        self.din.mobility.copy_(self.mobility.index_select(0, i)[0])
+        self.din.mask_p.copy_(self.mask_p.index_select(0, i)[0])
 
     def _commit(self, name: str, outs: dict) -> None:
         """Copy a span's results where the next spans (and days) read
@@ -423,22 +478,30 @@ def _copy(dst: torch.Tensor, src: torch.Tensor, what: str) -> None:
     dst.copy_(src)
 
 
-def acquire(cfg, arrays, schedules, device) -> GraphSet:
-    """An idle GraphSet of this build on ``device``, or a new one; making
-    a new one frees the idle sets of other builds on the device."""
-    device = torch.device(device)
+def acquire(cfg, arrays, schedules, state, carry, device) -> GraphSet:
+    """An idle GraphSet that a build (its config, arrays, schedules,
+    state and carry on ``device``) fits, or a new one; making a new one
+    frees the device's idle sets."""
+    key = set_key(cfg, arrays, schedules, state, carry, device)
+    rows = schedules.mobility.shape[0]
     with _IDLE_LOCK:
         for i, gs in enumerate(_IDLE):
-            if gs.matches(cfg, arrays, schedules, device):
+            if gs.fits(key, rows):
                 return _IDLE.pop(i)
-        _IDLE[:] = [gs for gs in _IDLE if gs.device != device]
-    return GraphSet(cfg, arrays, schedules, device)
+        _IDLE[:] = [gs for gs in _IDLE if gs.device != key[1]]
+    return GraphSet(cfg, arrays, schedules, state, carry, device)
 
 
 def release(gs: GraphSet) -> None:
     """Return a set whose run has ended for a later run of its build."""
     with _IDLE_LOCK:
         _IDLE.append(gs)
+
+
+def idle() -> List[GraphSet]:
+    """The idle sets, in the order acquire tries them."""
+    with _IDLE_LOCK:
+        return list(_IDLE)
 
 
 def drop_idle() -> None:

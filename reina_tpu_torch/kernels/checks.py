@@ -65,6 +65,10 @@ from . import fused_bodies
 
 HUS_N = 1686528          # the HUS run's padded agent count
 HUS_AGENTS = 1685983
+VS_N = 480256            # Varsinais-Suomi's, padded to a multiple of 1024
+VS_AGENTS = 479861
+# the real agents of a run's padded count (the rest are padding)
+REAL_AGENTS = {HUS_N: HUS_AGENTS, VS_N: VS_AGENTS}
 V, T, B, G, A = 2, 21, 9, 10, 101
 VTS = V * T * 2
 
@@ -187,7 +191,7 @@ def _histogram_streams(r, n, t):
     (``np.repeat(arange(101), counts)``, padding last with group code
     G), a gate of ~3% exposers, a vts code for every agent, int32
     contact counts <= 128 (0 off the gate)."""
-    n_real = HUS_AGENTS if n == HUS_N else n - n // 300
+    n_real = REAL_AGENTS.get(n, n - n // 300)
     ages = np.sort(r.integers(0, A, n)).astype(np.int32)
     grp = np.minimum(ages // 10, G - 1).astype(np.int32)
     grp[n_real:] = G
@@ -674,14 +678,14 @@ def _binomial_cases(seed: int, dev):
     return t(n), t(p)
 
 
-def dev_key_pairs(seed: int, dev) -> list:
+def dev_key_pairs(seed: int, dev, n: int = HUS_N) -> list:
     """(name, kernel, twin) triples of the draw and sampler kernels
     given their keys in device memory (prng.DevKey, as the day step's
     key table gives them), each against its twin on the host key, at the
-    day step's kinds of calls."""
+    day step's kinds of calls for ``n`` agents."""
     from ..core import constants as C
     keys = prng.split(prng.PRNGKey(seed + 19), 6)
-    N, half = HUS_N, HUS_N // 2
+    N, half = n, n // 2
     dk = [prng.dev_key(k, dev) for k in keys[:4]]
     gk = samplers.dev_key(keys[4], dev, samplers.gamma_words,
                           step.GAMMA_ROUNDS)
@@ -712,18 +716,19 @@ def dev_key_pairs(seed: int, dev) -> list:
     ]
 
 
-def draw_checks(seed: int, dev, captured=None) -> List[Check]:
-    """The draw kernel at the day step's shapes (a 1-D uniform of N
-    timed; normal and bits of N, each from start 0 and from the second
-    slab's start N/2, odd sizes and starts, a uniform from 1e-37, the
-    tracing tables' 2-D shapes, the imports' 3-D one, gumbel of
-    (m, 101)); gamma_fixed at every slot tier for both kappas;
-    binomial_fixed at ``captured``'s HUS inputs (capture_samplers; made
-    up at the darts' shape without it) and made-up edges. Each against
-    its twin on the same device."""
+def draw_checks(seed: int, dev, captured=None,
+                n: int = HUS_N) -> List[Check]:
+    """The draw kernel at the day step's shapes for N = ``n`` agents (a
+    1-D uniform of N timed; normal and bits of N, each from start 0 and
+    from the second slab's start N/2, odd sizes and starts, a uniform
+    from 1e-37, the tracing tables' 2-D shapes, the imports' 3-D one,
+    gumbel of (m, 101)); gamma_fixed at every slot tier for both kappas;
+    binomial_fixed at ``captured``'s inputs of a run (capture_samplers;
+    made up at the darts' shape without it) and made-up edges. Each
+    against its twin on the same device."""
     from ..core import constants as C
     keys = prng.split(prng.PRNGKey(seed + 9), 12)
-    N, half = HUS_N, HUS_N // 2
+    N, half = n, n // 2
 
     def pair(fn, twin, *args, **kw):
         return (lambda: (fn(*args, **kw),), lambda: (twin(*args, **kw),))
@@ -749,7 +754,7 @@ def draw_checks(seed: int, dev, captured=None) -> List[Check]:
     ]
     # the same kernels with their keys in device memory
     by_kernel = {"gamma": [], "binomial": []}
-    for name, k, t in dev_key_pairs(seed, dev):
+    for name, k, t in dev_key_pairs(seed, dev, n):
         by_kernel.get(name, draws).append((k, t))
     kappas = (1.0 / C.INCUBATION_CV ** 2, 1.0 / C.ONSET_TO_REMOVED_CV ** 2)
     ends = [lo + seg for lo, seg in step.tier_bounds(512, 65536)]

@@ -104,14 +104,15 @@ def main(argv=None) -> int:
     # a set of its own in place of the run's, so that the window's
     # builds are measured
     graphs.drop_idle()
-    gs = graphs.GraphSet(run.cfg, run.arrays, run.schedules, run.device)
+    build = (run.cfg, run.arrays, run.schedules)
+    gs = graphs.GraphSet(*build, state, carry, run.device)
 
     def window(graphed: bool):
         """The window's wall seconds and graph counters."""
         if graphed:
             plans = gs.prepare(host, key, args.start, d,
                                carry.weekly_leftover, state.age.shape[0])
-            gs.start(state, carry, args.start, plans)
+            gs.start(*build, state, carry, args.start, plans)
         else:
             # the day step updates the bucket table in place: each
             # window starts from its own copy
@@ -134,7 +135,7 @@ def main(argv=None) -> int:
         if graphed:
             step.reset_stats()
             t0 = time.perf_counter()
-            gs.start(state, carry, args.start, gs.prepare(
+            gs.start(*build, state, carry, args.start, gs.prepare(
                 host, key, args.start, d, carry.weekly_leftover,
                 state.age.shape[0]))
             torch.cuda.synchronize()

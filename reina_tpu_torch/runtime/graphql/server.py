@@ -270,7 +270,9 @@ def warmup_serving_program(device="cuda") -> None:
     compiles the Triton bodies; on a card, then build the day graph of
     every host key of its days (core/graphs.py) without stepping them.
     The first client run of the default variables is then a build-cache
-    hit whose graph set holds every day graph it needs."""
+    hit whose graph set holds every day graph it needs; so is a build of
+    the same shapes (another seed, preset scenario or parameters of the
+    area, up to as many days), whose run takes the same set."""
     import torch
 
     from ...core.engine import build_graphs, run_days

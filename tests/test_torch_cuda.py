@@ -643,7 +643,8 @@ def test_capture_failure_raises():
     from reina_tpu_torch.core import graphs
     from reina_tpu_torch.testing import build_synthetic_run
     run = build_synthetic_run("cuda", n_agents=8192, days=3, seed=1)
-    gs = graphs.GraphSet(run.cfg, run.arrays, run.schedules, "cuda")
+    gs = graphs.GraphSet(run.cfg, run.arrays, run.schedules, run.init_state,
+                         run.init_carry, "cuda")
 
     def host_read():
         x = torch.ones(8, device="cuda")
@@ -711,11 +712,11 @@ def test_day_graph_equals_plain_step(day):
         state, carry, out = step.day_step(cfg, run.arrays,
                                           sched_row(run.schedules, host, d),
                                           state, carry, dk, picks=picks)
-    gs = graphs.GraphSet(cfg, run.arrays, run.schedules, "cuda")
+    gs = graphs.GraphSet(cfg, run.arrays, run.schedules, *before, "cuda")
     plans = gs.prepare(host, key, day, 1, before[1].weekly_leftover,
                        state.age.shape[0])
     assert plans[0].ct_active == (day == 18)
-    gs.start(*before, day, plans)
+    gs.start(cfg, run.arrays, run.schedules, *before, day, plans)
     step.reset_stats()
     gs.step(plans)
     torch.cuda.synchronize()

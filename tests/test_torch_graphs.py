@@ -31,7 +31,11 @@ stepped days. Checks, all exact (bit for bit):
   * (e) the pick twin against the JAX package's searchsorted with the
     switch's clamp at the edges of both tier families, with the overflow
     bits; the overflow bits the model sets equal the plain step's on a
-    config whose buffers overflow; a day graph without a branch raises.
+    config whose buffers overflow; a day graph without a branch raises;
+  * (f) a build of the same shapes with other values takes the first
+    build's idle set, builds nothing and equals its own plain step day
+    by day; builds of another N or more days get sets of their own, and
+    a set refuses them.
 """
 import numpy as np
 import pytest
@@ -109,6 +113,13 @@ def _assert_day_equal(want, got, day):
                                       err_msg=f"day {day}: {k}")
 
 
+def _build(run):
+    """What a graph set is made from and started with: a run's config,
+    arrays, schedules, initial state and carry."""
+    return (run.cfg, run.arrays, run.schedules, run.init_state,
+            run.init_carry)
+
+
 def _plain(run, days):
     """The plain day step, day by day: (per-day records, the state and
     carry before each day, the host's picks rows)."""
@@ -137,7 +148,7 @@ def _model(gs, run, day0, state, carry, days):
     plans = gs.prepare(host, key, day0, days - day0, carry.weekly_leftover,
                        run.init_state.age.shape[0])
     gs.log = []
-    gs.start(state, carry, day0, plans)
+    gs.start(run.cfg, run.arrays, run.schedules, state, carry, day0, plans)
     res = dict(start_log=gs.log, days=[], logs=[], rows=[], counts=[])
     S.reset_stats()
     bits = 0
@@ -166,7 +177,7 @@ def runs():
     run = build_synthetic_run("cpu", n_agents=20000, days=DAYS, seed=3,
                               interventions=IVS)
     ref, ref_states, ref_picks = _plain(run, DAYS - 1)
-    gs = Spy(run.cfg, run.arrays, run.schedules, "cpu")
+    gs = Spy(*_build(run), "cpu")
     first = _model(gs, run, 0, run.init_state, run.init_carry, DAYS - 1)
     again = _model(gs, run, RESTART, *ref_states[RESTART], DAYS - 1)
     return dict(run=run, ref=ref, ref_picks=ref_picks, first=first,
@@ -394,7 +405,7 @@ def test_overflow_bits_match_plain_step():
                               cfg_overrides=dict(infection_buffer=24,
                                                  infection_head=4))
     ref, _, ref_picks = _plain(run, 7)
-    gs = graphs.GraphSet(run.cfg, run.arrays, run.schedules, "cpu")
+    gs = graphs.GraphSet(*_build(run), "cpu")
     got = _model(gs, run, 0, run.init_state, run.init_carry, 7)
     assert got["reads"] == 0
     for d, (want, day) in enumerate(zip(ref, got["days"])):
@@ -414,11 +425,11 @@ def test_missing_branch_raises():
     run = build_synthetic_run("cpu", n_agents=3000, days=5, seed=5,
                               interventions=IVS[:2])
     host = Schedules(*(x.numpy() for x in run.schedules))
-    gs = graphs.GraphSet(run.cfg, run.arrays, run.schedules, "cpu")
+    gs = graphs.GraphSet(*_build(run), "cpu")
     plans = gs.prepare(host, prng.PRNGKey(run.random_seed), 0, 4,
                        run.init_carry.weekly_leftover,
                        run.init_state.age.shape[0])
-    gs.start(run.init_state, run.init_carry, 0, plans)
+    gs.start(*_build(run), 0, plans)
     gs.step(plans[:1])
     del gs.bodies[("C", (run.cfg.infection_head,))]
     with pytest.raises(graphs.GraphError, match=r"no capture of span C"):
@@ -431,7 +442,7 @@ def test_missing_branch_raises():
     with pytest.raises(graphs.GraphError,
                        match=r"day graph \(False, True, (True|False)\): "
                              r"warm-up of span AB .*n_new"):
-        gs.start(run.init_state, run.init_carry, 2, [other])
+        gs.start(*_build(run), 2, [other])
 
 
 def test_build_graphs_leaves_nothing_to_build():
@@ -484,3 +495,83 @@ def test_warmup_launches_are_counted():
     assert tally == {"prng.draw": 1}
     kernels.reset_launches()
     assert kernels.warmups() == {}
+
+
+# a second build of the same shapes with other values: other beds and
+# ICU units, another infectiousness, the mobility limit a week earlier
+OTHER_IVS = [iv if iv[0] != "limit-mobility" else
+             ["limit-mobility", "2020-02-23", 30] for iv in IVS]
+REUSE_DAYS = 9
+
+
+def _reuse_run(days=REUSE_DAYS, n_agents=4096, **kw):
+    return build_synthetic_run("cpu", n_agents=n_agents, days=days, seed=3,
+                               **kw)
+
+
+def test_same_shape_build_reuses_the_set():
+    """A build of the same config and shapes with other values (beds,
+    ICU units, infectiousness, an intervention moved by a week) acquires
+    the first build's idle set, builds no span and no day graph, and
+    equals its own plain day step day by day: the set reads the new
+    build's arrays and schedule tables from its static copies, never
+    the first build's."""
+    first = _reuse_run(interventions=IVS)
+    other = _reuse_run(interventions=OTHER_IVS, hospital_beds=35,
+                       icu_units=4, infectiousness_multiplier=0.9)
+    assert graphs.set_key(*_build(first), "cpu") == \
+        graphs.set_key(*_build(other), "cpu")
+    graphs.drop_idle()
+    gs = Spy(*_build(first), "cpu")
+    seen = _model(gs, first, 0, first.init_state, first.init_carry,
+                  REUSE_DAYS - 1)
+    assert [e for e in seen["start_log"] if e[0] == "capture"]
+    graphs.release(gs)
+    assert graphs.acquire(*_build(other), "cpu") is gs
+    S.reset_stats()
+    got = _model(gs, other, 0, other.init_state, other.init_carry,
+                 REUSE_DAYS - 1)
+    assert got["start_log"] == [] and got["reads"] == 0
+    assert "captures" not in S.STATS and "day_graphs" not in S.STATS
+    ref, _, ref_picks = _plain(other, REUSE_DAYS - 1)
+    for d, (want, day) in enumerate(zip(ref, got["days"])):
+        _assert_day_equal(want, day, d)
+    np.testing.assert_array_equal(np.array(got["rows"]), np.array(ref_picks))
+    # the values reached the run: its curve is not the first build's
+    assert not np.array_equal(ref[-1]["out.by_group"],
+                              seen["days"][-1]["out.by_group"])
+    graphs.release(gs)
+    graphs.drop_idle()
+
+
+def test_other_build_keys_get_sets_of_their_own():
+    """A build of another agent count gets a new set (which frees the
+    device's idle sets); a build with more days than a set holds gets a
+    new set from acquire, and the set itself refuses it, as it refuses
+    a build of another key and days past its tables."""
+    run = _reuse_run(interventions=IVS[:2])
+    graphs.drop_idle()
+    gs = graphs.acquire(*_build(run), "cpu")
+    graphs.release(gs)
+    wider = _reuse_run(n_agents=6000, interventions=IVS[:2])
+    assert graphs.set_key(*_build(wider), "cpu") != gs.key
+    other = graphs.acquire(*_build(wider), "cpu")
+    assert other is not gs and graphs.idle() == []
+    with pytest.raises(graphs.GraphError, match=r"its model arrays, state, "
+                                                r"carry differ"):
+        gs.start(*_build(wider), 0, [])
+    graphs.release(gs)
+    longer = _reuse_run(days=REUSE_DAYS + 5, interventions=IVS[:2])
+    assert graphs.set_key(*_build(longer), "cpu") == gs.key
+    assert graphs.acquire(*_build(longer), "cpu") is not gs
+    with pytest.raises(graphs.GraphError,
+                       match=rf"{REUSE_DAYS + 5} days on a set of "
+                             rf"{REUSE_DAYS}"):
+        gs.start(*_build(longer), 0, [])
+    host = Schedules(*(x.numpy() for x in longer.schedules))
+    with pytest.raises(graphs.GraphError, match=r"days \[4, 12\) on a set "
+                                                rf"of {REUSE_DAYS} days"):
+        gs.prepare(host, prng.PRNGKey(3), 4, 8,
+                   longer.init_carry.weekly_leftover,
+                   longer.init_state.age.shape[0])
+    graphs.drop_idle()

@@ -200,7 +200,8 @@ def test_24_days_in_distribution(report):
 def test_runs_without_jax(tmp_path):
     """With jax, the JAX package and pandas all unimportable, the port
     builds and runs a synthetic run with a checkpoint, resumes from it,
-    runs it through the day-graph model,
+    runs it through the day-graph model (and a second build of its shapes
+    on the same graph set),
     its CLI simulates a small area and samples the explorer on the CPU,
     its GraphQL server answers an area and an explorer query, and it
     runs an ensemble (also on a mesh of one rank over torch.distributed),
@@ -228,6 +229,13 @@ def test_runs_without_jax(tmp_path):
         "picks = []\n"
         "g = run_days(run, graphs=True, picks=picks)[0]\n"
         "assert (g.by_group == out.by_group).all() and len(picks) == 2\n"
+        # a build of the same shapes with other values reuses the set
+        "run2 = build_synthetic_run('cpu', n_agents=3000, days=3, seed=2,"
+        " hospital_beds=70)\n"
+        "[gs] = graphs.idle()\n"
+        "g2 = run_days(run2, graphs=True)[0]\n"
+        "assert graphs.idle() == [gs]\n"
+        "assert (g2.by_group == run_days(run2)[0].by_group).all()\n"
         "assert cli.main(['simulate', '--area', 'Alavieska', '--days', '4',"
         " '--quiet', '--device', 'cpu']) == 0\n"
         "assert cli.main(['sample', '--what', 'symptom_severity', '--age',"
