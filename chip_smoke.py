@@ -18,8 +18,11 @@ Run from the repository root on a machine with a CUDA device. It
      days, 1,685,983 agents) on "cuda"; first the draw kernels
      (threefry.cu, samplers.cu) against their twins at the day step's
      shapes, with their keys by value and from device memory (the day
-     step's key table), binomial_fixed on the inputs its two calls get
-     on day 100 of this run (run_days to day 100 records them); then
+     step's key table), gamma_fixed_pair (the day's two gamma draws in
+     one launch) and binomial_fixed on the inputs their calls get on
+     day 100 of this run (run_days to day 100 records them), and both
+     samplers at their edges (the kappa fallback, a mean of exactly 10,
+     the flip, n = 0, a NaN mean); then
      run_days, which steps the days as captured CUDA graphs
      as one CUDA graph launch a day with its tier picks on the device
      (reina_tpu_torch/core/graphs.py, core/daygraph.py: each pick a
@@ -99,8 +102,12 @@ Run from the repository root on a machine with a CUDA device. It
      build fits the warm-up's graph set and so must build no span and no
      day graph; polled every 0.05 s until its first partial result) must
      stream partial results and equal step 3's daily all_infected and
-     susceptible exactly, and export its 365 days as a workbook; run B
-     (seed 1) must be a reseed of A's build and end inside the same
+     susceptible exactly, and export its 365 days as a workbook; it runs
+     five times, with empty result and memo caches and its build dropped
+     from the build cache before each, and the median of its first partials
+     and build seconds is printed with the build's split into host
+     compile and upload; run B (seed 1) must be a reseed of A's build
+     and end inside the same
      outcome band; the explorer's severity counts through the server
      must equal the port's on the CPU. Last, 30-day runs from sessions
      of their own, one alone, then 2, 4, 8 and 16 at once, time the
@@ -145,6 +152,8 @@ CLI_GRID = [0.45, 0.65]
 POLL_S = 0.5
 # run A's poll until its first partial result: finer than the web UI's
 FINE_POLL_S = 0.05
+# run A's builds timed, each a build-cache miss
+RUN_A_TIMES = 5
 # the preset scenarios besides the default (config/scenarios.py)
 PRESETS = ("mitigation", "summer-boogie", "hammer-and-dance",
            "looser-restrictions-to-start-with")
@@ -160,15 +169,16 @@ WEBUI_POLL = ("query($id: ID!){ simulationResults(runId:$id) {\n"
               "intValues floatValues } } } }")
 
 
-# kernels launched once a stepped day (the prefix twice or more a day,
-# the snapshot one-hot sums once a run), the samplers twice a day, the
+# kernels launched once a stepped day (the gamma sampler draws the day's
+# two samples in one launch; the prefix twice or more a day, the
+# snapshot one-hot sums once a run), binomial_fixed twice a day, the
 # draw kernel seven times or more a day (the contact normal, the three
 # receiver uniforms, the attribution's gumbel and uniform, the
 # severity uniform; tracing, imports and vaccination draw more)
 DAILY = ("fused_map.prologue", "fused_map.recv_front", "fused_map.post",
          "fused_map.finalize", "ledger_scan", "fused_fn_onehot_sum",
-         "fused_bihistogram")
-TWICE = ("random.gamma_fixed", "random.binomial_fixed")
+         "fused_bihistogram", "random.gamma_fixed")
+TWICE = ("random.binomial_fixed",)
 DRAWS_A_DAY = 7
 CAPTURE_DAY = 100
 
@@ -531,7 +541,7 @@ def vs_phase() -> None:
     torch.cuda.synchronize()
     print(f"VS day {CAPTURE_DAY}'s sampler inputs: binomial_fixed lanes "
           f"{[int(n.numel()) for n, _ in captured['binomial']]}, "
-          f"gamma_fixed (kappa, shape) {captured['gamma']}")
+          f"gamma_fixed_pair (kappa1, kappa2, shape) {captured['gamma']}")
     hold(checks.draw_checks(0, "cuda", captured, checks.VS_N), results,
          "VS ")
     del captured
@@ -567,7 +577,7 @@ def vs_phase() -> None:
 def check_runs_launched(launches: dict, steps: int, runs: int,
                         phase: str) -> None:
     """Exactly one launch of each DAILY kernel a stepped day, two of
-    each sampler and one of the snapshot one-hot sums a run, beside the
+    each TWICE kernel and one of the snapshot one-hot sums a run, beside the
     graph warm-ups' launches counted since the counts were reset
     (kernels.WARMUPS); at least two prefix calls and DRAWS_A_DAY draws a
     day."""
@@ -934,7 +944,8 @@ def served_run(client: Client, name: str, seed_arg: str, want: str,
     """Start a run as the web UI does and poll it every ``first_poll``
     until its first partial result, then every POLL_S until it has
     finished; returns (run id, final results, the graph runner's
-    counters of the run)."""
+    counters of the run, (seconds to its first partial result, its build
+    seconds))."""
     from reina_tpu_torch import kernels
     from reina_tpu_torch.core import step
     from reina_tpu_torch.simulation import BUILD_CACHE
@@ -982,7 +993,7 @@ def served_run(client: Client, name: str, seed_arg: str, want: str,
     steps = DAYS - 1
     check_launched(launches, day_launches(steps, 1), f"serve {name}")
     metrics = {m["type"]: m for m in res["predictedMetrics"]["metrics"]}
-    return run_id, metrics, st
+    return run_id, metrics, st, (t_partial, build_s)
 
 
 def poll(client: Client, run_id: str) -> dict:
@@ -1031,11 +1042,8 @@ def warm_hit_run(base: str) -> None:
           f"launches={launches}")
     if outcome != "cached":
         fail(f"serve run W: build {outcome}, want cached (the warm-up's)")
-    check_launched(launches, {k: 1 for k in (
-        "fused_map.prologue", "fused_map.recv_front", "fused_map.post",
-        "fused_map.finalize", "ledger_scan", "fused_concat_prefix",
-        "fused_onehot_sum", "fused_fn_onehot_sum", "fused_bihistogram",
-        "prng.draw") + TWICE}, "serve W")
+    check_launched(launches, {k: 1 for k in DAILY + TWICE + (
+        "fused_concat_prefix", "fused_onehot_sum", "prng.draw")}, "serve W")
 
 
 def concurrent_runs(base: str) -> None:
@@ -1101,6 +1109,39 @@ def concurrent_runs(base: str) -> None:
                  "another run's curve")
 
 
+def build_split(a_times) -> None:
+    """Run A's first partials and builds (each a build-cache miss): their
+    medians, the build's share, and one build of the same variables split
+    into the host compile and the upload to the card."""
+    import numpy as np
+    import torch
+    from reina_tpu_torch import convert
+    from reina_tpu_torch.config.variables import VARIABLE_DEFAULTS
+    from reina_tpu_torch.core.engine import host_compile
+
+    partial, build = (np.array(x) for x in zip(*a_times))
+    print(f"serve run A x{len(a_times)}: first partial "
+          f"{[round(float(x), 3) for x in partial]} s, median "
+          f"{np.median(partial):.3f} s; build "
+          f"{[round(float(x), 3) for x in build]} s, median "
+          f"{np.median(build):.3f} s, the build "
+          f"{np.median(build / partial) * 100:.1f}% of the first partial "
+          f"(median); the rest {np.median(partial - build):.3f} s")
+    v = dict(VARIABLE_DEFAULTS, simulation_days=DAYS)
+    t0 = time.perf_counter()
+    _, arrays, sched, state, carry, _ = host_compile(v)
+    t1 = time.perf_counter()
+    up = (convert.model_arrays(arrays, "cuda"), convert.schedules(sched,
+                                                                  "cuda"),
+          convert.agent_state(state, "cuda"), convert.day_carry(carry,
+                                                                "cuda"))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"serve run A's build split: host compile {t1 - t0:.3f} s, "
+          f"upload {t2 - t1:.3f} s")
+    del up
+
+
 def serving_phase(main_all_infected, main_susceptible) -> None:
     """The serving path on the card: warm-up through the build cache,
     two runs through the GraphQL server, the export and the explorer."""
@@ -1115,6 +1156,7 @@ def serving_phase(main_all_infected, main_susceptible) -> None:
         serve, warmup_serving_program)
     from reina_tpu_torch.sampling import sample_distribution
     from reina_tpu_torch.simulation import BUILD_CACHE, simulate_individuals
+    from reina_tpu_torch.utils import memoize
     from reina_tpu_torch.utils.memoize import resolved_variables
 
     t0 = time.perf_counter()
@@ -1135,16 +1177,27 @@ def serving_phase(main_all_infected, main_susceptible) -> None:
         client = Client(base)
         client.post(f"mutation {{ setSimulationDays(days: {DAYS}) {{ ok }} }}")
 
-        run_a, a, st = served_run(client, "A", "", "built", FINE_POLL_S)
-        if st.get("captures", 0) or st.get("day_graphs", 0):
-            fail("serve run A: a build of the warm-up's key built spans or "
-                 "day graphs")
-        for name, want in (("all_infected", main_all_infected),
-                           ("susceptible", main_susceptible)):
-            if a[name]["intValues"] != [int(x) for x in want]:
-                fail(f"serve run A: {name} differs from the main path")
+        a_times = []
+        for k in range(RUN_A_TIMES):
+            if k:
+                # the next run A misses the result, memo and build caches
+                cache.init_backend("memory")
+                memoize.clear_cache()
+                with BUILD_CACHE._lock:
+                    BUILD_CACHE._runs.clear()
+            run_a, a, st, times = served_run(client, "A", "", "built",
+                                             FINE_POLL_S)
+            a_times.append(times)
+            if st.get("captures", 0) or st.get("day_graphs", 0):
+                fail("serve run A: a build of the warm-up's key built spans "
+                     "or day graphs")
+            for name, want in (("all_infected", main_all_infected),
+                               ("susceptible", main_susceptible)):
+                if a[name]["intValues"] != [int(x) for x in want]:
+                    fail(f"serve run A: {name} differs from the main path")
         print("serve run A: all_infected and susceptible equal the main "
-              "path's day by day")
+              f"path's day by day in all {RUN_A_TIMES} runs")
+        build_split(a_times)
         with urllib.request.urlopen(f"{base}/export.xlsx?run={run_a}",
                                     timeout=120) as resp:
             sheet = zipfile.ZipFile(io.BytesIO(resp.read())).read(
@@ -1152,7 +1205,7 @@ def serving_phase(main_all_infected, main_susceptible) -> None:
         if sheet.count(b"<row>") != DAYS + 1:
             fail(f"serve: the export has {sheet.count(b'<row>')} rows")
 
-        _, b, _ = served_run(client, "B", "(randomSeed: 1)", "reseeded")
+        _, b, _, _ = served_run(client, "B", "(randomSeed: 1)", "reseeded")
         final_b = b["all_infected"]["intValues"][-1]
         lo, hi = MC_MEAN - 4 * MC_STD, MC_MEAN + 4 * MC_STD
         print(f"serve run B: final all_infected {final_b}")
@@ -1247,7 +1300,8 @@ def main() -> None:
     print(f"day {CAPTURE_DAY}'s sampler inputs in "
           f"{time.perf_counter() - t0:.2f} s: binomial_fixed lanes "
           f"{[int(n.numel()) for n, _ in captured['binomial']]}, "
-          f"gamma_fixed (kappa, shape) {captured['gamma']}; clock for the "
+          f"gamma_fixed_pair (kappa1, kappa2, shape) {captured['gamma']}; "
+          f"clock for the "
           f"INT32 bound {checks.sm_clock_hz() / 1e6:.0f} MHz")
     hold(checks.draw_checks(0, "cuda", captured), results)
     del captured

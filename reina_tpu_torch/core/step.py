@@ -83,7 +83,7 @@ from ..ops.fusedmap import (fused_bihistogram, fused_concat_prefix,
                             fused_fn_onehot_sum, fused_map,
                             fused_onehot_sum, sharded_concat_prefix)
 from ..ops import random as samplers
-from ..ops.random import binomial_fixed, gamma_fixed, searchsorted
+from ..ops.random import binomial_fixed, gamma_fixed_pair, searchsorted
 
 I8, I16, I32, I64 = torch.int8, torch.int16, torch.int32, torch.int64
 F32 = torch.float32
@@ -1122,8 +1122,8 @@ def span_c(cfg, arrays, din, state, carry, env, end: int, shard=None):
     ok = (hi_c > lo_c) & contact_p
     infector_new = torch.where(ok, src, -1).to(I32)
     tr_slot = ok & _look(shard, [state.traceable], src)[0]
-    g1 = gamma_fixed(kd["gam1"], kappa_inc, (end,), dev, GAMMA_ROUNDS)
-    g2 = gamma_fixed(kd["gam2"], kappa_o2r, (end,), dev, GAMMA_ROUNDS)
+    g1, g2 = gamma_fixed_pair(kd["gam1"], kappa_inc, kd["gam2"], kappa_o2r,
+                              (end,), dev, GAMMA_ROUNDS)
     sev_slot, outside_slot = severity_draw_slots(kd["sev"], arrays, v_i,
                                                  age_i, dov_b, day)
     theta_inc = (C.INCUBATION_CV ** 2) * arrays.mu_incub[v_i]

@@ -24,6 +24,14 @@ order other, this, this, other (``--rounds`` times); without
     masks by the group code (agents sorted by age, padding in the last
     group); ``onehot_random_ms``: the same masks by random codes;
     ``onehot_vacc_ms``: at the vaccination call, one mask by age;
+  * the samplers at the day step's calls on day 100 of the HUS run
+    (``checks.capture_samplers``), with their keys in device memory as
+    the day's key table gives them: ``gamma_ms`` the day's two gamma
+    draws (``gamma_fixed_pair`` where the tree has it, else two
+    ``gamma_fixed`` calls), ``gamma_one_ms`` one ``gamma_fixed`` call of
+    the same shape, ``binomial_ms`` both ``binomial_fixed`` calls (the
+    darts and the per-place exposures), ``binomial_darts_ms`` the
+    darts' call alone;
   * ``device_us``: device time per call by kernel name, and
     ``kernels_per_call``: device operations (kernels, memsets, copies)
     per call, both from torch.profiler over 20 back-to-back calls of
@@ -64,6 +72,29 @@ b, f = s["b"], s["f"]
 po = ([s["st"], s["sev"], s["var"], s["o2r"], s["dl"]] + b[:2] + [f[2]]
       + b[2:14])
 elig = s["fields"][0] & (s["ages"] >= 16) & (s["ages"] <= 79) & b[13]
+from reina_tpu_torch.config.variables import VARIABLE_DEFAULTS
+from reina_tpu_torch.core.engine import build_run
+from reina_tpu_torch.ops import prng
+from reina_tpu_torch.ops import random as samplers
+run = build_run(dict(VARIABLE_DEFAULTS, simulation_days=365), "cuda")
+cap = checks.capture_samplers(run, 100)
+del run
+kg = [samplers.dev_key(k, "cuda", samplers.gamma_words, step.GAMMA_ROUNDS)
+      for k in prng.split(prng.PRNGKey(5), 2)]
+kb = [samplers.dev_key(k, "cuda", samplers.binomial_words,
+                       step.BINOMIAL_ROUNDS)
+      for k in prng.split(prng.PRNGKey(6), 2)]
+if hasattr(samplers, "gamma_fixed_pair"):
+    kap1, kap2, g_shape = cap["gamma"]
+    gamma = lambda: samplers.gamma_fixed_pair(kg[0], kap1, kg[1], kap2,
+                                              g_shape, "cuda")
+else:
+    (kap1, g_shape), (kap2, _) = cap["gamma"]
+    gamma = lambda: (samplers.gamma_fixed(kg[0], kap1, g_shape, "cuda"),
+                     samplers.gamma_fixed(kg[1], kap2, g_shape, "cuda"))
+(nb, pb), (nx, px) = cap["binomial"]
+out = {"sampler_lanes": {"gamma": list(g_shape),
+                         "binomial": [nb.numel(), nx.numel()]}}
 fns = {
     "prefix": lambda: (fusedmap.fused_concat_prefix(s["newly"], None, 1),
                        fusedmap.fused_concat_prefix(s["w"], codes, checks.V)),
@@ -79,8 +110,13 @@ fns = {
     "onehot_random": lambda: fusedmap.fused_onehot_sum(b[:13], s["code"],
                                                        G + 1),
     "onehot_vacc": lambda: fusedmap.fused_onehot_sum([elig], s["ages"], A),
+    "gamma": gamma,
+    "gamma_one": lambda: samplers.gamma_fixed(kg[0], kap1, g_shape, "cuda"),
+    "binomial": lambda: (samplers.binomial_fixed(kb[0], nb, pb),
+                         samplers.binomial_fixed(kb[1], nx, px)),
+    "binomial_darts": lambda: samplers.binomial_fixed(kb[0], nb, pb),
 }
-out = {k + "_ms": checks.time_ms(f) for k, f in fns.items()}
+out |= {k + "_ms": checks.time_ms(f) for k, f in fns.items()}
 out["device_us"], out["kernels_per_call"] = {}, {}
 for k, f in fns.items():
     f()

@@ -61,7 +61,7 @@ _SIGNATURES = {
     "reina_prefix_row_totals": [_P, _P, _P, _L, _I, _P, _P],
     "reina_prefix_emit_slab": [_P] * 6 + [_L, _L, _L, _I, _I, _P, _P],
     "reina_draw": [_P, _L, _L, _U, _U, _P, _I, _F, _F, _P],
-    "reina_gamma_fixed": [_P, _L, _P, _P, _I, _F, _F, _F, _P, _P],
+    "reina_gamma_fixed": [_P, _L, _I, _P, _P, _I, _P, _P, _P],
     "reina_binomial_fixed": [_P, _P, _P, _L, _P, _P, _I, _P, _P],
     "reina_pick": _PICK + [_P],
     "reina_dg_create": [_PP],

@@ -37,13 +37,14 @@ the SM clock that ``nvidia-smi --query-gpu=clocks.max.sm`` reports):
 ``OPS_PER_AGENT`` counts their threefry hashes, ~72 INT32 operations
 each (20 rounds of add, funnel shift and xor, and the key injections).
 ``prng.draw`` is one hash an element. ``random.gamma_fixed`` is two a
-lane (the normal and the uniform of the first round; the few lanes that
-reject and run later rounds are not counted). ``random.binomial_fixed``
-is one for a lane that the CDF inversion takes (n·p ≤ 10) and two for a
-BTRS lane (its first round), counted from the lanes' n and p
-(:func:`binomial_int_ops`). Their float arithmetic, a few dozen
-operations a round on other units, is not counted: the bound stays a
-lower bound.
+lane of each sample (the normal and the uniform of the first round; the
+few lanes that reject and run later rounds are not counted; the day
+step's call draws two samples). ``random.binomial_fixed`` is one for a
+lane that the CDF inversion takes (n·p ≤ 10, n and p non-zero), none for
+a lane with n = 0 or p = 0 there, and two for a BTRS lane (its first
+round), counted from the lanes' n and p (:func:`binomial_int_ops`).
+Their float arithmetic, a few dozen operations a round on other units,
+is not counted: the bound stays a lower bound.
 """
 from __future__ import annotations
 
@@ -613,12 +614,16 @@ _DRAW_NOTE = ("none: torch.rand is Philox and torch.binomial another "
 
 def binomial_int_ops(n, p) -> int:
     """INT32 operations of the first-round hashes of binomial_fixed on
-    lanes n, p: one a lane for the inversion (n·p_eff <= 10), two a lane
-    for BTRS."""
+    lanes n, p: one a lane for the inversion (n·p_eff <= 10), none where
+    n or p_eff is 0 there (settled without a draw), two a lane for
+    BTRS."""
+    n = n.to(torch.float32)
     p = torch.clamp(p.to(torch.float32), 0.0, 1.0)
     p_eff = torch.where(p > 0.5, 1.0 - p, p)
-    small = int((n.to(torch.float32) * p_eff <= 10.0).sum())
-    return HASH_OPS * (small + 2 * (n.numel() - small))
+    small_m = n * p_eff <= 10.0
+    small = int(small_m.sum())
+    drawn = int((small_m & (n != 0) & (p_eff != 0)).sum())
+    return HASH_OPS * (drawn + 2 * (n.numel() - small))
 
 
 @contextmanager
@@ -641,16 +646,17 @@ def capture_samplers(run, day: int) -> dict:
     """The arguments of the day step's sampler calls on ``day`` of
     ``run`` (run_days to that day): ``binomial`` the (n, p) of its two
     binomial_fixed calls, the darts' (A, V, T, S, B) and the per-place
-    exposures' (A, P), flattened; ``gamma`` the (kappa, shape) of its two
-    gamma_fixed calls."""
+    exposures' (A, P), flattened; ``gamma`` the (kappa1, kappa2, shape)
+    of its gamma_fixed_pair call."""
     from ..core.engine import run_days
-    binom, gamma = deque(maxlen=2), deque(maxlen=2)
+    binom, gamma = deque(maxlen=2), deque(maxlen=1)
     with _recording(step, "binomial_fixed", binom), \
-            _recording(step, "gamma_fixed", gamma):
+            _recording(step, "gamma_fixed_pair", gamma):
         # the plain day step: a replayed graph calls no Python
         run_days(run, n_days=day + 1, chunk_days=day + 1, graphs=False)
+    (_, kappa1, _, kappa2, shape, *_), = gamma
     return {"binomial": [(a[1], a[2]) for a in binom],
-            "gamma": [(a[1], tuple(a[2])) for a in gamma]}
+            "gamma": (kappa1, kappa2, tuple(shape))}
 
 
 def _binomial_cases(seed: int, dev):
@@ -678,18 +684,74 @@ def _binomial_cases(seed: int, dev):
     return t(n), t(p)
 
 
+def binomial_edges(dev):
+    """(n, p) lanes at binomial_fixed's edges, 4 CTAs of the kernel
+    mixing them: n = 0 (with p 0, 0.3, 0.7, 1 and NaN), a mean of
+    exactly 10.0 (n·p_eff, also after the flip), p > 0.5 (the flip) on
+    both sides of 10, p_eff = 0 (p 0 and 1), a NaN mean (NaN p, inf n at
+    p 0), large n, and lanes whose counts come near the inversion's
+    horizon of 48."""
+    nan, inf = np.nan, np.inf
+    edges = [
+        (0, 0.0), (0, 0.3), (0, 0.7), (0, 1.0), (0, nan),
+        (20, 0.5), (40, 0.25), (80, 0.125), (160, 0.0625), (1000, 0.01),
+        (20, 0.5), (40, 0.75), (80, 0.875), (10, 1.0), (10, 0.0),
+        (21, 0.5), (19, 0.5), (30, 0.7), (30, 0.6), (200, 0.96),
+        (5, nan), (12, 0.9), (inf, 0.0), (3, 0.5), (1e7, 1e-6),
+        (3e5, 0.5), (1e5, 1e-4), (48, 0.2), (60, 0.16), (100, 0.1),
+        (2000, 0.005), (7, 0.99)]
+    perm = np.random.default_rng(13).permutation(16 * len(edges))
+    n = np.tile([e[0] for e in edges], 16)[perm]
+    p = np.tile([e[1] for e in edges], 16)[perm]
+
+    def t(x):
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+    return t(n), t(p)
+
+
+def gamma_edges(seed: int, dev) -> list:
+    """(kernel, twin) pairs of gamma_fixed and gamma_fixed_pair at their
+    edges: one round at a kappa near 1, where many lanes reject every
+    round and take kappa; 2, 3, 5 and 8 rounds (groups of 2, 4 and 8
+    threads a lane); lane counts that are no multiple of a group, a warp
+    or a CTA; keys by value and in device memory for each sample."""
+    keys = prng.split(prng.PRNGKey(seed + 29), 4)
+
+    def pair(k1, kap1, k2, kap2, shape, rounds):
+        return (lambda: samplers.gamma_fixed_pair(k1, kap1, k2, kap2, shape,
+                                                  dev, rounds),
+                lambda: (samplers.gamma_fixed_twin(prng.host_key(k1), kap1,
+                                                   shape, dev, rounds),
+                         samplers.gamma_fixed_twin(prng.host_key(k2), kap2,
+                                                   shape, dev, rounds)))
+
+    def one(k, kappa, shape, rounds):
+        return (lambda: (samplers.gamma_fixed(k, kappa, shape, dev,
+                                              rounds),),
+                lambda: (samplers.gamma_fixed_twin(prng.host_key(k), kappa,
+                                                   shape, dev, rounds),))
+
+    dk = samplers.dev_key(keys[2], dev, samplers.gamma_words, 1)
+    return [pair(keys[0], 1.01, keys[1], 1.2, (4097,), 1),
+            pair(dk, 1.01, keys[1], 1.05, (33,), 1),
+            one(keys[0], 1.01, (100003,), 1),
+            one(keys[1], 1.5, (777,), 2), one(keys[2], 1.5, (31, 3), 3),
+            pair(keys[3], 2.5, keys[0], 9.0, (1025,), 5),
+            one(keys[1], 1.1, (4608,), 8), one(keys[3], 3.0, (1,), 4)]
+
+
 def dev_key_pairs(seed: int, dev, n: int = HUS_N) -> list:
     """(name, kernel, twin) triples of the draw and sampler kernels
     given their keys in device memory (prng.DevKey, as the day step's
     key table gives them), each against its twin on the host key, at the
     day step's kinds of calls for ``n`` agents."""
     from ..core import constants as C
-    keys = prng.split(prng.PRNGKey(seed + 19), 6)
+    keys = prng.split(prng.PRNGKey(seed + 19), 7)
     N, half = n, n // 2
     dk = [prng.dev_key(k, dev) for k in keys[:4]]
-    gk = samplers.dev_key(keys[4], dev, samplers.gamma_words,
-                          step.GAMMA_ROUNDS)
-    bk = samplers.dev_key(keys[5], dev, samplers.binomial_words,
+    gk, gk2 = (samplers.dev_key(k, dev, samplers.gamma_words,
+                                step.GAMMA_ROUNDS) for k in keys[4:6])
+    bk = samplers.dev_key(keys[6], dev, samplers.binomial_words,
                           step.BINOMIAL_ROUNDS)
     n_b, p_b = _binomial_cases(seed, dev)
 
@@ -698,6 +760,7 @@ def dev_key_pairs(seed: int, dev, n: int = HUS_N) -> list:
                 lambda: (twin(prng.host_key(key), *args, **kw),))
 
     kappa = 1.0 / C.INCUBATION_CV ** 2
+    kappa2 = 1.0 / C.ONSET_TO_REMOVED_CV ** 2
     return [
         pair("uniform", prng.uniform, prng.uniform_twin, dk[0], (N,), dev),
         pair("uniform slab", prng.uniform, prng.uniform_twin, dk[0],
@@ -709,6 +772,11 @@ def dev_key_pairs(seed: int, dev, n: int = HUS_N) -> list:
         pair("gumbel", prng.gumbel, prng.gumbel_twin, dk[3], (4608, A), dev),
         pair("gamma", samplers.gamma_fixed, samplers.gamma_fixed_twin, gk,
              kappa, (4608,), dev, step.GAMMA_ROUNDS),
+        ("gamma pair", lambda: samplers.gamma_fixed_pair(
+            gk, kappa, gk2, kappa2, (4608,), dev, step.GAMMA_ROUNDS),
+         lambda: tuple(samplers.gamma_fixed_twin(
+             prng.host_key(k), kap, (4608,), dev, step.GAMMA_ROUNDS)
+             for k, kap in ((gk, kappa), (gk2, kappa2)))),
         ("binomial", lambda: (samplers.binomial_fixed(
             bk, n_b, p_b, step.BINOMIAL_ROUNDS),),
          lambda: (samplers.binomial_fixed_twin(
@@ -722,10 +790,13 @@ def draw_checks(seed: int, dev, captured=None,
     1-D uniform of N timed; normal and bits of N, each from start 0 and
     from the second slab's start N/2, odd sizes and starts, a uniform
     from 1e-37, the tracing tables' 2-D shapes, the imports' 3-D one,
-    gumbel of (m, 101)); gamma_fixed at every slot tier for both kappas;
-    binomial_fixed at ``captured``'s inputs of a run (capture_samplers;
-    made up at the darts' shape without it) and made-up edges. Each
-    against its twin on the same device."""
+    gumbel of (m, 101)); gamma_fixed_pair at ``captured``'s call of a
+    run (timed; the day step's two kappas at 4,608 lanes without it),
+    gamma_fixed and the pair at every slot tier for both kappas and at
+    their edges (gamma_edges); binomial_fixed at ``captured``'s inputs
+    of a run (capture_samplers; made up at the darts' shape without it),
+    made-up lanes and edges (binomial_edges). Each against its twin on
+    the same device."""
     from ..core import constants as C
     keys = prng.split(prng.PRNGKey(seed + 9), 12)
     N, half = n, n // 2
@@ -755,13 +826,24 @@ def draw_checks(seed: int, dev, captured=None,
     # the same kernels with their keys in device memory
     by_kernel = {"gamma": [], "binomial": []}
     for name, k, t in dev_key_pairs(seed, dev, n):
-        by_kernel.get(name, draws).append((k, t))
+        by_kernel.get(name.split()[0], draws).append((k, t))
     kappas = (1.0 / C.INCUBATION_CV ** 2, 1.0 / C.ONSET_TO_REMOVED_CV ** 2)
     ends = [lo + seg for lo, seg in step.tier_bounds(512, 65536)]
-    gamma = [pair(samplers.gamma_fixed, samplers.gamma_fixed_twin, keys[8],
-                  kappa, (e,), dev) for e in ends for kappa in kappas]
-    g_kappa, g_shape = (captured["gamma"][0] if captured
-                        else (kappas[0], (4608,)))
+
+    def gamma_pair(kappa1, kappa2, shape):
+        return (lambda: samplers.gamma_fixed_pair(
+                    keys[9], kappa1, keys[8], kappa2, shape, dev),
+                lambda: (samplers.gamma_fixed_twin(keys[9], kappa1, shape,
+                                                   dev),
+                         samplers.gamma_fixed_twin(keys[8], kappa2, shape,
+                                                   dev)))
+
+    gamma = ([pair(samplers.gamma_fixed, samplers.gamma_fixed_twin, keys[8],
+                   kappa, (e,), dev) for e in ends for kappa in kappas]
+             + [gamma_pair(*kappas, (e,)) for e in ends]
+             + gamma_edges(seed, dev))
+    g_kappa1, g_kappa2, g_shape = (captured["gamma"] if captured
+                                   else (*kappas, (4608,)))
     if captured:
         (n_b, p_b), (n_x, p_x) = captured["binomial"]
     else:
@@ -779,16 +861,17 @@ def draw_checks(seed: int, dev, captured=None,
               library_note=_DRAW_NOTE, extra=draws),
         Check("random.gamma_fixed", "cuda",
               "reina_tpu_torch/kernels/csrc/samplers.cu", f"{_RND}:29",
-              *pair(samplers.gamma_fixed, samplers.gamma_fixed_twin, keys[9],
-                    g_kappa, g_shape, dev), n=math.prod(g_shape),
-              library_note=_DRAW_NOTE, extra=gamma + by_kernel["gamma"]),
+              *gamma_pair(g_kappa1, g_kappa2, g_shape),
+              n=2 * math.prod(g_shape), library_note=_DRAW_NOTE,
+              extra=gamma + by_kernel["gamma"]),
         Check("random.binomial_fixed", "cuda",
               "reina_tpu_torch/kernels/csrc/samplers.cu", f"{_RND}:159",
               *binom(keys[10], n_b, p_b), inputs=[n_b, p_b],
               int_ops=binomial_int_ops(n_b, p_b),
               library_note=_DRAW_NOTE,
               extra=[binom(keys[11], n_x, p_x), binom(keys[10], n_e, p_e),
-                     binom(keys[11], n_e[:7], p_e[:7])]
+                     binom(keys[11], n_e[:7], p_e[:7]),
+                     binom(keys[11], *binomial_edges(dev))]
               + by_kernel["binomial"]),
     ]
 

@@ -10,13 +10,16 @@ bisects of the JAX package existed for its toolchain's gather cost;
 here they are ``torch.searchsorted``, exact on sorted input.
 
 On CUDA each sampler call is one launch of ``kernels/csrc/samplers.cu``
-(a lane a thread, only the branch it keeps, stopping at the round where
-it settles); on the CPU the twins (``gamma_fixed_twin``,
-``binomial_fixed_twin``) run every round on every lane as eager ops.
-Both give the same samples from the same keys. The kernel takes the
-keys split on the host (``gamma_words``, ``binomial_words``) by value,
-or from device memory for a ``prng.DevKey`` made with the same words
-(the day step's key table, read by a captured graph at replay).
+(gamma: a lane's rounds side by side, one thread a round; binomial: a
+thread a lane, the lanes of a CTA laid out by branch; only the branch a
+lane keeps, up to the round where it settles), and ``gamma_fixed_pair``
+draws two gamma samples of one shape in one launch; on the CPU the
+twins (``gamma_fixed_twin``, ``binomial_fixed_twin``) run every round
+on every lane as eager ops. Both give the same samples from the same
+keys. The kernel takes the keys split on the host (``gamma_words``,
+``binomial_words``) by value, or from device memory for a
+``prng.DevKey`` made with the same words (the day step's key table,
+read by a captured graph at replay).
 """
 from __future__ import annotations
 
@@ -117,12 +120,11 @@ def binomial_words(key, rounds: int = 6) -> np.ndarray:
 
 
 def _kernel_words(key, words_of, rounds: int, device, what: str):
-    """The key words of a sampler launch: (C array, None) for a host
-    key; (None, device pointer) for a prng.DevKey made by
+    """The key words of a sampler launch: (words, None) for a host key;
+    (None, device pointer) for a prng.DevKey made by
     ``dev_key(…, words_of)`` for these rounds."""
     if not isinstance(key, prng.DevKey):
-        w = words_of(prng.host_key(key), rounds)
-        return (ctypes.c_uint * w.size)(*w.tolist()), None
+        return words_of(prng.host_key(key), rounds), None
     size = words_of(np.zeros(2, np.uint32), rounds).size
     w = key.words
     if key.rounds != rounds or w.shape != (2 + size,) \
@@ -141,29 +143,69 @@ def dev_key(key, device, words_of, rounds: int) -> prng.DevKey:
                         rounds)
 
 
+def gamma_args(samples, rounds: int, device, what: str):
+    """samplers.cu's reina_gamma_fixed arguments for ``samples``, a list
+    of one or two (key, kappa): (key words, device key pointers, d c
+    kappa of each) as C arrays."""
+    size = 4 * MAX_ROUNDS
+    words = (ctypes.c_uint * (size * len(samples)))()
+    devs = (ctypes.c_void_p * len(samples))()
+    dck = (ctypes.c_float * (3 * len(samples)))()
+    for h, (key, kappa) in enumerate(samples):
+        d, c = _gamma_scalars(kappa)
+        w, devs[h] = _kernel_words(key, gamma_words, rounds, device, what)
+        if w is not None:
+            words[h * size:(h + 1) * size] = w.tolist()
+        dck[3 * h:3 * h + 3] = [float(np.float32(d)), c,
+                                float(np.float32(kappa))]
+    return words, devs, dck
+
+
+def _gamma_kernel(samples, shape, device, rounds: int, what: str):
+    """One launch of samplers.cu's gamma kernel for ``samples``, a list
+    of one or two (key, kappa): a sample of ``shape`` for each."""
+    _check_rounds(rounds)
+    shape, n = prng._draw_shape(shape, 0)
+    out = torch.empty((len(samples),) + shape, dtype=F32, device=device)
+    words, devs, dck = gamma_args(samples, rounds, out.device, what)
+    if n == 0:
+        return tuple(out)
+    from ..kernels import build
+    build.check(build.lib().reina_gamma_fixed(
+        out.data_ptr(), n, len(samples), words, devs, rounds, dck,
+        _affines(), build.stream_of(out)), what)
+    kernels.launched("random.gamma_fixed")
+    return tuple(out)
+
+
+def _cuda_device(device, what: str) -> torch.device:
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {device}")
+    return device
+
+
 def gamma_fixed(key, kappa: float, shape, device, rounds: int = 4):
     """gamma_fixed_twin's samples: its twin on the CPU; on CUDA one
     launch of kernels/csrc/samplers.cu."""
-    device = torch.device(device)
-    if device.type == "cpu":
+    if torch.device(device).type == "cpu":
         return gamma_fixed_twin(key, kappa, shape, device, rounds)
-    if device.type != "cuda":
-        raise ValueError(f"gamma_fixed: unsupported device {device}")
-    d, c = _gamma_scalars(kappa)
-    _check_rounds(rounds)
-    shape, n = prng._draw_shape(shape, 0)
-    out = torch.empty(shape, dtype=F32, device=device)
-    if n == 0:
-        return out
-    words, words_dev = _kernel_words(key, gamma_words, rounds, out.device,
-                                     "gamma_fixed")
-    from ..kernels import build
-    build.check(build.lib().reina_gamma_fixed(
-        out.data_ptr(), n, words, words_dev, rounds, float(np.float32(d)), c,
-        float(np.float32(kappa)), _affines(), build.stream_of(out)),
-        "gamma_fixed")
-    kernels.launched("random.gamma_fixed")
-    return out
+    device = _cuda_device(device, "gamma_fixed")
+    return _gamma_kernel([(key, kappa)], shape, device, rounds,
+                         "gamma_fixed")[0]
+
+
+def gamma_fixed_pair(key1, kappa1: float, key2, kappa2: float, shape,
+                     device, rounds: int = 4):
+    """(gamma_fixed(key1, kappa1, …), gamma_fixed(key2, kappa2, …)) of
+    one shape: the two twins on the CPU; on CUDA both in one launch of
+    kernels/csrc/samplers.cu."""
+    if torch.device(device).type == "cpu":
+        return (gamma_fixed_twin(key1, kappa1, shape, device, rounds),
+                gamma_fixed_twin(key2, kappa2, shape, device, rounds))
+    device = _cuda_device(device, "gamma_fixed_pair")
+    return _gamma_kernel([(key1, kappa1), (key2, kappa2)], shape, device,
+                         rounds, "gamma_fixed_pair")
 
 
 def _binomial_inversion(key, n, p, max_count: int = 48):
@@ -284,8 +326,9 @@ def binomial_fixed(key, n, p, rounds: int = 6):
     out = torch.empty(n.shape, dtype=F32, device=n.device)
     if count == 0:
         return out
-    words, words_dev = _kernel_words(key, binomial_words, rounds, n.device,
-                                     "binomial_fixed")
+    w, words_dev = _kernel_words(key, binomial_words, rounds, n.device,
+                                 "binomial_fixed")
+    words = None if w is None else (ctypes.c_uint * w.size)(*w.tolist())
     from ..kernels import build
     build.check(build.lib().reina_binomial_fixed(
         out.data_ptr(), n32.data_ptr(), p32.data_ptr(), count, words,

@@ -53,8 +53,11 @@ def test_kernel_matches_twin(name, n):
 def test_draw_kernel_matches_twin(name):
     """Each draw kernel against its twin on the card, bit for bit: 1-D
     draws of odd sizes from start 0 and from non-zero starts, 2-D and 3-D
-    shapes, gumbel, gamma at every slot tier, binomial on made-up
-    day-step lanes and edges (checks.draw_checks)."""
+    shapes, gumbel, gamma and the gamma pair at every slot tier and at
+    their edges (the kappa fallback, groups of 1 to 8 threads, odd lane
+    counts), binomial on made-up day-step lanes and at its edges (n = 0,
+    means of exactly 10, the flip, p_eff = 0, NaN means)
+    (checks.draw_checks)."""
     _need_cuda()
     from reina_tpu_torch.kernels import checks
     c = {c.name: c for c in checks.draw_checks(0, "cuda")}[name]
@@ -62,6 +65,26 @@ def test_draw_kernel_matches_twin(name):
     r = checks.run_check(c, timing=False)
     assert kernels.launches()[name] > before
     assert r.ok, r
+
+
+def test_gamma_pair_is_one_launch():
+    """The day step's two gamma samples in one launch, each equal to its
+    twin bit for bit, at every slot tier; one launch each."""
+    _need_cuda()
+    from reina_tpu_torch.core import constants as C
+    from reina_tpu_torch.core import step
+    from reina_tpu_torch.ops import prng
+    from reina_tpu_torch.ops import random as trandom
+    k1, k2 = prng.split(prng.PRNGKey(5), 2)
+    kappas = (1.0 / C.INCUBATION_CV ** 2, 1.0 / C.ONSET_TO_REMOVED_CV ** 2)
+    for lo, seg in step.tier_bounds(512, 65536):
+        before = kernels.launches()["random.gamma_fixed"]
+        got = trandom.gamma_fixed_pair(k1, kappas[0], k2, kappas[1],
+                                       (lo + seg,), "cuda")
+        assert kernels.launches()["random.gamma_fixed"] == before + 1
+        for g, key, kappa in zip(got, (k1, k2), kappas):
+            want = trandom.gamma_fixed_twin(key, kappa, (lo + seg,), "cuda")
+            assert torch.equal(g.view(torch.int32), want.view(torch.int32))
 
 
 def test_uniform_bits_on_cuda_match_cpu():
@@ -630,7 +653,8 @@ def test_device_key_draws_match_twins():
                                if w.is_floating_point() else w), name
     after = kernels.launches()
     assert after["prng.draw"] - before["prng.draw"] == 5
-    assert after["random.gamma_fixed"] - before["random.gamma_fixed"] == 1
+    # one launch the single sample, one the pair
+    assert after["random.gamma_fixed"] - before["random.gamma_fixed"] == 2
     assert (after["random.binomial_fixed"]
             - before["random.binomial_fixed"]) == 1
 

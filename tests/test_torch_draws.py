@@ -5,12 +5,17 @@ No card here: each model is the loop its CUDA kernel runs, written out
 in Python. The hash model groups elements by thread as threefry.cu does
 (ELEMS and THREADS read from its source) and is held bit for bit to
 ``jax.random.bits``/``uniform`` for odd sizes and non-zero starts. The
-sampler models run one lane at a time, only the branch the twin keeps,
-stopping at the round or step where the lane settles, with the
-kernel's rounding: float32 arithmetic in numpy (each op rounded on its
-own, as the kernel's __fmul_rn/__fadd_rn), the transcendental functions
-through torch on the CPU as the twins call them (torch's CPU kernels
-give an element the same value whatever its position in a tensor). They
+sampler models map threads to lanes as samplers.cu does (GAMMA_THREADS,
+BIN_THREADS, MAX_COUNT and the reciprocal table read from its source):
+gamma a group of threads a lane, one round each, the group's first
+accepting round kept, the samples of a launch side by side; binomial
+the lanes of a CTA laid out by branch, a thread a lane. Each lane runs
+only the branch the twin keeps, stopping at the round or step where it
+settles, with the kernel's rounding: float32 arithmetic in numpy (each
+op rounded on its own, as the kernel's __fmul_rn/__fadd_rn), the
+transcendental functions through torch on the CPU as the twins call them
+(torch's CPU kernels give an element the same value whatever its
+position in a tensor). They
 must equal the twins bit for bit on every lane, and the JAX package's
 samplers from the same keys within ROADMAP.md queue 3's bounds (at
 least 99.9% of binomials equal; gammas within 1e-5 relative). The card
@@ -50,6 +55,13 @@ ELEMS = _constexpr("threefry.cu", "ELEMS")
 THREADS = _constexpr("threefry.cu", "THREADS")
 MAX_ROUNDS = _constexpr("samplers.cu", "MAX_ROUNDS")
 MAX_COUNT = _constexpr("samplers.cu", "MAX_COUNT")
+MAX_SAMPLES = _constexpr("samplers.cu", "MAX_SAMPLES")
+GAMMA_THREADS = _constexpr("samplers.cu", "GAMMA_THREADS")
+BIN_THREADS = _constexpr("samplers.cu", "BIN_THREADS")
+# the inversion's table of float32 reciprocals, as the source writes it
+RECIP = [np.float32(x) for x in re.findall(
+    r"([\d.e-]+)f", re.search(r"RECIP\[MAX_COUNT\] = \{(.*?)\};",
+                              SOURCES["samplers.cu"], re.S).group(1))]
 
 
 def _torch_fn(fn):
@@ -153,32 +165,67 @@ def test_hash_kernel_model(shape, start):
 # the samplers, one lane at a time
 
 # the JAX package's samplers as its day step runs them, under jit
-_jax_gamma = jax.jit(jrandom.gamma_fixed, static_argnums=(1, 2))
+_jax_gamma = jax.jit(jrandom.gamma_fixed, static_argnums=(1, 2, 3))
 _jax_binomial = jax.jit(jrandom.binomial_fixed)
 
 
-def _gamma_lane(i, kx, ku, rounds, d, c, kappa):
-    """gamma_kernel's loop for lane i."""
-    for r in range(rounds):
-        x = _normal(_bits(kx[r], i), *NORMAL)
-        t = F(1) + F(c) * x
-        v = t * (t * t)
-        if not v > F(0):
-            continue
-        u = _uniform(_bits(ku[r], i), *TINY)
-        rhs = F(0.5) * x * x + d
-        rhs = rhs - d * v
-        rhs = rhs + d * log(_clamp_min(v, F(1e-37)))
-        if log(u) < rhs:
-            return d * v
-    return F(kappa)
+def _lane_bits(key, n: int):
+    """The hash of counters 0..n-1 under ``key``: each lane's draw."""
+    b1, b2 = prng._threefry_np(key[0], key[1], 0,
+                               np.arange(n, dtype=np.uint32))
+    return b1 ^ b2
 
 
-def _gamma_model(key, kappa, n, rounds=4):
-    d, c = trandom._gamma_scalars(kappa)
-    kxu = prng.split(prng.split(key, rounds))
-    return np.array([_gamma_lane(i, kxu[:, 0], kxu[:, 1], rounds, F(d), c,
-                                 kappa) for i in range(n)], np.float32)
+def _gamma_round(bx, bu, d, c):
+    """gamma_round of a lane from its round's two hashes: (accepts, d·v)."""
+    x = _normal(int(bx), *NORMAL)
+    t = F(1) + F(c) * x
+    v = t * (t * t)
+    if not v > F(0):
+        return False, d * v
+    u = _uniform(int(bu), *TINY)
+    rhs = F(0.5) * x * x + d
+    rhs = rhs - d * v
+    rhs = rhs + d * log(_clamp_min(v, F(1e-37)))
+    return bool(log(u) < rhs), d * v
+
+
+def _gamma_model(samples, n, rounds=4):
+    """gamma_kernel's grid for ``samples``, a list of (key, kappa):
+    thread t of sample h (the grid's y) runs round t & (width - 1) of
+    lane t >> shift, width = 1 << shift the least power of two >= rounds;
+    in each warp the ballot of accepting rounds gives each group its
+    first, whose thread writes d·v, or the group's first thread kappa
+    where none accepts. Returns (samples, n)."""
+    assert 1 <= len(samples) <= MAX_SAMPLES and 1 <= rounds <= MAX_ROUNDS
+    shift = max(rounds - 1, 0).bit_length()
+    width = 1 << shift
+    assert GAMMA_THREADS % 32 == 0 and width <= 32
+    threads = -(-(n << shift) // GAMMA_THREADS) * GAMMA_THREADS
+    out = np.zeros((len(samples), n), np.float32)
+    written = np.zeros((len(samples), n), np.int32)
+    for h, (key, kappa) in enumerate(samples):
+        d, c = trandom._gamma_scalars(kappa)
+        kxu = prng.split(prng.split(key, rounds))
+        bx = [_lane_bits(kxu[r, 0], n) for r in range(rounds)]
+        bu = [_lane_bits(kxu[r, 1], n) for r in range(rounds)]
+        for w0 in range(0, threads, 32):
+            t = np.arange(w0, w0 + 32)
+            lane, rnd = t >> shift, t & (width - 1)
+            res = [_gamma_round(bx[r][i], bu[r][i], F(d), c)
+                   if i < n and r < rounds else (False, F(0))
+                   for i, r in zip(lane, rnd)]
+            vote = sum(1 << j for j, (ok, _) in enumerate(res) if ok)
+            for j in range(32):
+                if lane[j] >= n:
+                    continue
+                group = (vote >> (j & ~(width - 1))) & ((1 << width) - 1)
+                first = (group & -group).bit_length() - 1 if group else 0
+                if rnd[j] == first:
+                    out[h, lane[j]] = res[j][1] if group else F(kappa)
+                    written[h, lane[j]] += 1
+    assert (written == 1).all()
+    return out
 
 
 def _inversion_lane(i, key, n, p):
@@ -191,7 +238,7 @@ def _inversion_lane(i, key, n, p):
     if u < f:
         return F(0)
     for k in range(MAX_COUNT):
-        f = f * (n - F(k)) * (F(1) / F(k + 1))
+        f = f * (n - F(k)) * RECIP[k]
         f = _clamp_min(f * ratio, F(0))
         cdf = cdf + f
         if u < cdf:
@@ -241,25 +288,56 @@ def _btrs_lane(i, ku, kv, rounds, n, p):
     return np.rint(n * p)
 
 
+def _lane_kind(n, p):
+    """binomial_kernel's Lane: (kind, n, p_eff, flip, mean), kind 0 for a
+    lane settled without a draw, 1 the inversion, 2 BTRS."""
+    pc = _clamp_min(_clamp_max(F(p), F(1)), F(0))
+    flip = pc > F(0.5)
+    p_eff = F(1) - pc if flip else pc
+    with np.errstate(invalid="ignore"):          # inf · 0 is NaN
+        mean = F(n) * p_eff
+    if not mean <= F(10):
+        kind = 2                                 # a NaN mean too
+    else:
+        kind = 0 if F(n) == 0 or p_eff == 0 else 1
+    return kind, F(n), p_eff, flip, mean
+
+
 def _binomial_model(key, n, p, rounds=6):
-    """binomial_kernel's loop, lane by lane: only the kept branch."""
+    """binomial_kernel's CTAs, BIN_THREADS lanes each: settled lanes
+    written at once, the others laid out by the warps' ballots,
+    inversion lanes first, then BTRS lanes, each in thread order; thread
+    j computes the lane at place j, only its branch. Also checks that
+    every warp but one a CTA runs one branch."""
     k_inv, k_btrs = prng.split(key)
     kuv = prng.split(prng.split(k_btrs, rounds))
-    out = np.empty(len(n), np.float32)
-    for i, (ni, pi) in enumerate(zip(n, p)):
-        pc = _clamp_min(_clamp_max(F(pi), F(1)), F(0))
-        flip = pc > F(0.5)
-        p_eff = F(1) - pc if flip else pc
-        mean = F(ni) * p_eff
-        if mean <= F(10):
-            cnt = _inversion_lane(i, k_inv, F(ni), p_eff)
-        else:
-            big = mean > F(10)
-            cnt = _btrs_lane(i, kuv[:, 0], kuv[:, 1], rounds,
-                             F(ni) if big else F(100),
-                             p_eff if big else F(0.2))
-        cnt = _minimum(_clamp_min(cnt, F(0)), F(ni))
-        out[i] = F(ni) - cnt if flip else cnt
+    out = np.zeros(len(n), np.float32)
+    written = np.zeros(len(n), np.int32)
+    mixed = 0
+    for base in range(0, len(n), BIN_THREADS):
+        lanes = {t: _lane_kind(n[base + t], p[base + t])
+                 for t in range(min(BIN_THREADS, len(n) - base))}
+        order = ([t for t, l in lanes.items() if l[0] == 1]
+                 + [t for t, l in lanes.items() if l[0] == 2])
+        for j0 in range(0, len(order), 32):
+            mixed += len({lanes[t][0] for t in order[j0:j0 + 32]}) > 1
+        for t in [t for t, l in lanes.items() if l[0] == 0] + order:
+            kind, ni, p_eff, flip, mean = lanes[t]
+            i = base + t
+            if kind == 0:
+                cnt = F(0)
+            elif kind == 1:
+                cnt = _inversion_lane(i, k_inv, ni, p_eff)
+            else:
+                big = mean > F(10)
+                cnt = _btrs_lane(i, kuv[:, 0], kuv[:, 1], rounds,
+                                 ni if big else F(100),
+                                 p_eff if big else F(0.2))
+            cnt = _minimum(_clamp_min(cnt, F(0)), ni)
+            out[i] = ni - cnt if flip else cnt
+            written[i] += 1
+    assert (written == 1).all()
+    assert mixed <= -(-len(n) // BIN_THREADS)
     return out
 
 
@@ -281,20 +359,46 @@ def _binomial_lanes(seed: int):
     return n, p
 
 
-@pytest.mark.parametrize("kappa", [1.0 / 0.86 ** 2, 1.0 / 0.45 ** 2])
-def test_gamma_lane_model(kappa):
-    lanes = 384
-    key = prng.PRNGKey(3)
-    model = _gamma_model(key, kappa, lanes)
-    twin = trandom.gamma_fixed_twin(key, kappa, (lanes,), "cpu").numpy()
-    np.testing.assert_array_equal(model.view(np.int32), twin.view(np.int32))
-    want = np.asarray(_jax_gamma(jr.PRNGKey(3), kappa, (lanes,)))
-    np.testing.assert_allclose(model, want, rtol=1e-5, atol=0)
+KAPPAS = (1.0 / 0.86 ** 2, 1.0 / 0.45 ** 2)
 
 
-@pytest.mark.parametrize("seed", [4, 5])
+@pytest.mark.parametrize("kappas,rounds,lanes", [
+    (KAPPAS, 4, 384), (KAPPAS[::-1], 4, 389), ((1.01, 1.2), 1, 389),
+    ((2.5, 1.05), 6, 101)])
+def test_gamma_lane_model(kappas, rounds, lanes):
+    """The pair's two samples, each a group of threads a lane with the
+    first accepting round chosen across the group, equal their twins bit
+    for bit and the one-sample launch; one round at a kappa near 1 takes
+    the kappa fallback on some lanes. Within 1e-5 of the JAX package."""
+    keys = prng.split(prng.PRNGKey(3), 2)
+    model = _gamma_model(list(zip(keys, kappas)), lanes, rounds)
+    one = _gamma_model([(keys[1], kappas[1])], lanes, rounds)
+    np.testing.assert_array_equal(one[0].view(np.int32),
+                                  model[1].view(np.int32))
+    for h, (key, kappa) in enumerate(zip(keys, kappas)):
+        twin = trandom.gamma_fixed_twin(key, kappa, (lanes,), "cpu",
+                                        rounds).numpy()
+        np.testing.assert_array_equal(model[h].view(np.int32),
+                                      twin.view(np.int32))
+        want = np.asarray(_jax_gamma(jnp.asarray(key), kappa, (lanes,),
+                                     rounds))
+        np.testing.assert_allclose(model[h], want, rtol=1e-5, atol=0)
+    if rounds == 1:
+        assert (model[0] == F(kappas[0])).sum() > 0
+
+
+@pytest.mark.parametrize("seed", [4, 5, "edges"])
 def test_binomial_lane_model(seed):
-    n, p = _binomial_lanes(seed)
+    """The CTAs' branch partition, the settled lanes and the reciprocal
+    table against the twin bit for bit, on made-up lanes and on
+    kernels/checks.py's edges; at least 99.9% equal to the JAX
+    package's samples."""
+    if seed == "edges":
+        from reina_tpu_torch.kernels import checks
+        n, p = (x.numpy() for x in checks.binomial_edges("cpu"))
+        seed = 6
+    else:
+        n, p = _binomial_lanes(seed)
     key = prng.PRNGKey(seed)
     model = _binomial_model(key, n, p)
     twin = trandom.binomial_fixed_twin(key, torch.from_numpy(n),
@@ -304,6 +408,26 @@ def test_binomial_lane_model(seed):
     want = np.asarray(_jax_binomial(jr.PRNGKey(seed), jnp.asarray(n),
                                     jnp.asarray(p)))
     assert (model == want).mean() >= 0.999, np.flatnonzero(model != want)
+
+
+def test_gamma_fixed_pair_on_cpu_is_two_twins():
+    """gamma_fixed_pair on the CPU: the two twin calls, bit for bit, for
+    keys by value and in (CPU) memory, and no launch."""
+    before = kernels.launches()
+    k1, k2 = prng.split(prng.PRNGKey(8), 2)
+    for shape, rounds in (((4608,), 4), ((7, 3), 1), ((1,), 6)):
+        dk = trandom.dev_key(k2, "cpu", trandom.gamma_words, rounds)
+        for key2 in (k2, dk):
+            got = trandom.gamma_fixed_pair(k1, KAPPAS[0], key2, KAPPAS[1],
+                                           shape, "cpu", rounds)
+            assert len(got) == 2
+            for g, key, kappa in zip(got, (k1, k2), KAPPAS):
+                want = trandom.gamma_fixed_twin(key, kappa, shape, "cpu",
+                                                rounds)
+                assert g.shape == want.shape
+                assert torch.equal(g.view(torch.int32),
+                                   want.view(torch.int32))
+    assert kernels.launches() == before
 
 
 def test_wrappers_on_cpu_run_twins_and_launch_nothing():
@@ -324,6 +448,10 @@ def test_wrappers_on_cpu_run_twins_and_launch_nothing():
          prng.gumbel_twin(key, (4, 6), "cpu")),
         (trandom.gamma_fixed(key, 2.5, (17,), "cpu"),
          trandom.gamma_fixed_twin(key, 2.5, (17,), "cpu")),
+        (torch.stack(trandom.gamma_fixed_pair(key, 2.5, key, 1.5, (17,),
+                                              "cpu")),
+         torch.stack([trandom.gamma_fixed_twin(key, 2.5, (17,), "cpu"),
+                      trandom.gamma_fixed_twin(key, 1.5, (17,), "cpu")])),
         (trandom.binomial_fixed(key, n, p),
          trandom.binomial_fixed_twin(key, n, p)),
     ]
@@ -334,6 +462,8 @@ def test_wrappers_on_cpu_run_twins_and_launch_nothing():
         prng.uniform(key, (4,), "meta")
     with pytest.raises(ValueError, match="device"):
         trandom.gamma_fixed(key, 2.5, (4,), "meta")
+    with pytest.raises(ValueError, match="device"):
+        trandom.gamma_fixed_pair(key, 2.5, key, 1.5, (4,), "meta")
     with pytest.raises(ValueError, match="device"):
         trandom.binomial_fixed(key, n.to("meta"), p.to("meta"))
     assert kernels.launches() == before
@@ -372,3 +502,5 @@ def test_kernel_constants_are_the_twins():
     assert F(1.41421354) == F(prng._SQRT2)
     assert MAX_ROUNDS == trandom.MAX_ROUNDS
     assert MAX_COUNT == 48
+    # the inversion's reciprocals: the twin's float32 1 / (k + 1)
+    assert RECIP == [F(1) / F(k + 1) for k in range(MAX_COUNT)]
