@@ -25,15 +25,19 @@ Run from the repository root on a machine with a CUDA device. It
      the flip, n = 0, a NaN mean); then
      run_days, which steps the days as captured CUDA graphs
      as one CUDA graph launch a day with its tier picks on the device
-     (reina_tpu_torch/core/graphs.py, core/daygraph.py: each pick a
-     kernel of csrc/daygraph.cu that sets a conditional node), counting
-     every kernel's launches in that run (a launch adds its spans'
-     tallies, a sync point those of the branches that ran, from the
-     device's branch tallies); the pick kernel first against its twin at
-     every branch of every pick;
+     (reina_tpu_torch/core/graphs.py, core/daygraph.py: each pick made
+     inside the launch that produces its count, the prefix kernel of
+     csrc/prefix.cu or the reduce-and-pick of csrc/daygraph.cu, which
+     sets a conditional node; no pick node of its own), counting every
+     kernel's launches in that run (a launch adds its spans' tallies, a
+     sync point those of the branches that ran, from the device's branch
+     tallies); the fused picks first against their twins (the
+     producer's twin, then the picks' twin) at every branch of every
+     pick and past each cap;
   4. checks the outcome: finite outputs of the expected shape, agents
      conserved every day, every kernel launched exactly as often as the
-     days ran it, and the final all_infected inside the JAX package's
+     days ran it (each fused entry once a pick it made that opens its
+     fold: a picks-table entry), and the final all_infected inside the JAX package's
      1000-seed spread (373,466 ± 4 × 22,396, BENCH_MC.json);
   4b. the graphs: the same run with the plain day step (graphs=False)
      and again as graphs from the built set; both must equal step 3's
@@ -55,7 +59,8 @@ Run from the repository root on a machine with a CUDA device. It
      set lacks (none, where it holds them all);
   4c. Varsinais-Suomi (479,861 agents, 480,256 padded; after step 7):
      every kernel of step 2 against its twin at that agent count, the
-     draws and samplers on its run's day-100 inputs, the pick kernel;
+     draws and samplers on its run's day-100 inputs, the fused picks at
+     its agent count;
      its 365 days graphed and with the plain day step, equal bit for bit,
      picks equal on every day, launches exact; then the CLI's calibrate
      against its observed cases (two points, 60 days);
@@ -207,18 +212,43 @@ def hold(cs, results: dict, label: str = "") -> None:
         fail(f"{label}kernels disagree with their twins: {bad}")
 
 
+# the prefix kernel's launches: alone, and with the tier picks of its
+# count (a graphed day's compactions and its count of new infections)
+PREFIX = ("fused_concat_prefix", "fused_concat_prefix.pick")
+
+
 def check_launched(launches: dict, want: dict, phase: str) -> None:
+    """At least ``want[k]`` launches of each kernel ``k`` (a tuple of
+    names: of them together)."""
     for k, lo in want.items():
-        if launches.get(k, 0) < lo:
-            fail(f"{phase}: {k} launched {launches.get(k, 0)} times, "
-                 f"want ≥ {lo}")
+        got = sum(launches.get(x, 0) for x in (k if isinstance(k, tuple)
+                                                else (k,)))
+        if got < lo:
+            fail(f"{phase}: {k} launched {got} times, want ≥ {lo}")
+
+
+def check_picks_launched(launches: dict, picks, phase: str) -> None:
+    """A graphed run's picks against its launches, exactly: each fold
+    (core/daygraph.py:FOLDS) is one launch of its producer on each day
+    its first pick was made, an entry of the picks table (the prefix
+    with its picks for the slot pick, the tracing cond with T1 and T3;
+    the reduce-and-pick for T2 and T4, beside its warm-ups' launches,
+    which make no pick); no separate pick launch."""
+    from reina_tpu_torch import kernels
+    from reina_tpu_torch.core import daygraph
+    warm = kernels.warmups()
+    for k, n in daygraph.fold_launches(picks).items():
+        if launches.get(k, 0) != n + warm.get(k, 0):
+            fail(f"{phase}: {k} launched {launches.get(k, 0)} times, want "
+                 f"{n} (one a fold's first pick) and {warm.get(k, 0)} in "
+                 f"warm-ups")
 
 
 def day_launches(steps: int, snapshots: int) -> dict:
     """The least launches of ``steps`` stepped days and ``snapshots``
     day-0 snapshots."""
     return ({k: steps for k in DAILY} | {k: 2 * steps for k in TWICE}
-            | {"fused_concat_prefix": 2 * steps,
+            | {PREFIX: 2 * steps,
                "prng.draw": DRAWS_A_DAY * steps,
                "fused_onehot_sum": snapshots})
 
@@ -361,9 +391,9 @@ def graphs_phase(run, out, state, carry, wall: float, stats: dict,
 
 def modes_equal(run, label: str, snapshots: int):
     """``run`` graphed, then with the plain day step: every kernel of
-    each launched exactly as often as the days ran it (the pick once a
-    conditional node that ran; one day-graph launch and no host read a
-    graphed day), agents conserved, the device's picks equal to the
+    each launched exactly as often as the days ran it (a fold's producer
+    with its picks once a day its first pick was made; one day-graph
+    launch and no host read a graphed day), agents conserved, the device's picks equal to the
     host's on every day, and the outputs, final state and carry equal bit
     for bit. Returns (the graphed outputs, {mode: figures})."""
     import numpy as np
@@ -389,11 +419,7 @@ def modes_equal(run, label: str, snapshots: int):
         out = res[mode][0]
         check_runs_launched(launches, steps, snapshots, f"{label} {mode}")
         if graphed:
-            picked = sum(int((row >= 0).sum()) for row in picks)
-            if launches.get("daygraph.pick", 0) != picked:
-                fail(f"{label}: daygraph.pick launched "
-                     f"{launches.get('daygraph.pick', 0)} times, want "
-                     f"{picked}")
+            check_picks_launched(launches, picks, label)
             if st.get("launches") != steps or st.get("reads", 0):
                 fail(f"{label}: the graphed run did not launch one day "
                      "graph and read nothing a day")
@@ -545,7 +571,7 @@ def vs_phase() -> None:
     hold(checks.draw_checks(0, "cuda", captured, checks.VS_N), results,
          "VS ")
     del captured
-    hold([checks.pick_check("cuda")], results, "VS ")
+    hold(checks.fold_checks(checks.VS_N, 0, "cuda"), results, "VS ")
     _, info = modes_equal(run, "VS", 1)
     for mode, m in info.items():
         print(f"VS {mode}: {run.days - 1} days in {m['secs']:.3f} s "
@@ -588,7 +614,7 @@ def check_runs_launched(launches: dict, steps: int, runs: int,
         if launches.get(k, 0) != n + warm.get(k, 0):
             fail(f"{phase}: {k} launched {launches.get(k, 0)} times, "
                  f"want {n} and {warm.get(k, 0)} in warm-ups")
-    check_launched(launches, {"fused_concat_prefix": 2 * steps,
+    check_launched(launches, {PREFIX: 2 * steps,
                               "prng.draw": DRAWS_A_DAY * steps}, phase)
 
 
@@ -831,6 +857,7 @@ def mesh_phase(run, out, ens, ens_ms_day: float, world: int = 2) -> dict:
                        "concat_prefix_sharded.totals": 2 * steps,
                        "concat_prefix_sharded.emit": 2 * steps,
                        "ledger_scan": 0, "fused_concat_prefix": 0,
+                       "fused_concat_prefix.pick": 0,
                        "fused_onehot_sum": 1})
             for k, n in want.items():
                 if la.get(k, 0) != n:
@@ -1043,7 +1070,7 @@ def warm_hit_run(base: str) -> None:
     if outcome != "cached":
         fail(f"serve run W: build {outcome}, want cached (the warm-up's)")
     check_launched(launches, {k: 1 for k in DAILY + TWICE + (
-        "fused_concat_prefix", "fused_onehot_sum", "prng.draw")}, "serve W")
+        PREFIX, "fused_onehot_sum", "prng.draw")}, "serve W")
 
 
 def concurrent_runs(base: str) -> None:
@@ -1305,7 +1332,7 @@ def main() -> None:
           f"INT32 bound {checks.sm_clock_hz() / 1e6:.0f} MHz")
     hold(checks.draw_checks(0, "cuda", captured), results)
     del captured
-    hold([checks.pick_check("cuda")], results)
+    hold(checks.fold_checks(checks.HUS_N, 0, "cuda"), results)
 
     from reina_tpu_torch.core import step
     torch.cuda.reset_peak_memory_stats()
@@ -1344,11 +1371,7 @@ def main() -> None:
     if not (cons == run.n_agents).all():
         fail("agents not conserved (susceptible + all_infected)")
     check_runs_launched(launches, steps, 1, "main path")
-    # one pick a conditional node that ran: a picks-table entry each
-    picked = sum(int((row >= 0).sum()) for row in dev_picks)
-    if launches["daygraph.pick"] != picked:
-        fail(f"main path: daygraph.pick launched "
-             f"{launches['daygraph.pick']} times, want {picked}")
+    check_picks_launched(launches, dev_picks, "main path")
     lo, hi = MC_MEAN - 4 * MC_STD, MC_MEAN + 4 * MC_STD
     if not lo <= final <= hi:
         fail(f"final all_infected {final} outside [{lo:.0f}, {hi:.0f}]")

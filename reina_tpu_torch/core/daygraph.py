@@ -1,20 +1,31 @@
-"""The day as one CUDA graph with its tier picks on the device, and the
-pick kernel (reina_tpu_torch/kernels/csrc/daygraph.cu) with its twin.
+"""The day as one CUDA graph with its tier picks on the device, each made
+by the kernel that produces its count, and the picks' twin.
 
-A pick (``step.Pick``, one or two of them before each conditional span of
-``step.day_program``) reads its counts where the span before it left them
-and takes the JAX package's searchsorted into the tier ceilings, clamped
-to the last branch (``step.tier_branch`` on the host). On the card the
-pick kernel sets the conditional node that follows it; in both forms it
-writes the branch into row ``counter`` of the run's picks table, adds one
-to the branch's tally and ORs the overflow bits into the carry's problem
-bits, as the reference sets them on the device.
+A pick (``step.Pick``, one or two of them before each conditional node
+of ``step.day_program``) takes the JAX package's searchsorted of its
+counts into the tier ceilings, clamped to the last branch
+(``step.tier_branch`` on the host). On the card it is made inside the
+launch that produces its count (``FOLDS``, fixed pick by pick; a
+:class:`Fold` is the graph runner's site for one count): the prefix
+kernel that counts today's infections makes the slot pick, the one that
+compacts the drained agents the tracing cond and T1's switch, the
+frontier's T3's, and the reduce-and-pick ``ops/compact.py:count_max``
+T2's and T4's from the members' bucket fills (csrc/pick.cuh,
+csrc/prefix.cu, csrc/daygraph.cu). In both forms a pick sets the
+conditional node that follows its span, writes the branch into row
+``counter`` of the run's picks table, adds one to the branch's tally and
+ORs the overflow bits into the carry's problem bits, as the reference
+sets them on the device. The plain version of each fused entry is its
+producer's twin followed by :func:`pick_twin`.
 
 :class:`DayGraph` assembles a host key's day from the spans' captured
-graphs: a span the schedule fixes is a child-graph node; a pick is a
-kernel node followed by a conditional node: an if for the tracing cond,
-a switch over the tiers of a tiered span whose branch bodies are that
-span's captures at each tier. One launch runs the day.
+graphs: a memcpy node that fills the graph set's handle table with this
+graph's conditional handles (a producing kernel is captured before the
+day graphs exist and serves each of them, so it reads its handle there),
+then each span a child-graph node and each pick's conditional node after
+the span whose kernel set it: an if for the tracing cond, a switch over
+the tiers of a tiered span whose branch bodies are that span's captures
+at each tier. One launch runs the day.
 """
 from __future__ import annotations
 
@@ -24,15 +35,36 @@ from collections import Counter
 import torch
 
 from . import step as S
-from .. import kernels
 
 # node types a conditional body may hold (cudaGraphNodeType): kernel,
 # memcpy, memset, child graph, empty, conditional
 _BODY_NODES = {0: "kernel", 1: "memcpy", 2: "memset", 4: "graph",
                5: "empty", 13: "conditional"}
 _IF, _SWITCH = 0, 1
-# the most tier ceilings a pick's count has (csrc/daygraph.cu)
+# the most tier ceilings a pick's count has (csrc/pick.cuh)
 MAX_ENDS = 24
+# the conditionals whose picks each count's producer makes, in order; a
+# fold that starts with an If makes the rest only where it takes its
+# body. Every conditional of a tracing day's program is in one fold.
+FOLDS = {"n_new": ("C",), "n_d": ("T", "T1"), "fill_max": ("T2",),
+         "n_f": ("T3",), "fill2_max": ("T4",)}
+
+
+# the launch count of each fold's producer when it makes its picks
+FOLD_ENTRY = {name: "daygraph.max_pick" if name.startswith("fill")
+              else "fused_concat_prefix.pick" for name in FOLDS}
+
+
+def fold_launches(picks) -> Counter:
+    """The launches of the fused entries that a graphed run's rows of
+    picks imply: one of each fold's producer a day its first pick was
+    made (warm-ups, which make no pick, aside)."""
+    rows = [list(r) for r in picks]
+    out = Counter({k: 0 for k in FOLD_ENTRY.values()})
+    for name, cols in FOLDS.items():
+        col = S.PICK_COLS.index(cols[0])
+        out[FOLD_ENTRY[name]] += sum(1 for r in rows if r[col] >= 0)
+    return out
 
 
 class GraphError(RuntimeError):
@@ -40,7 +72,7 @@ class GraphError(RuntimeError):
 
 
 def pick_twin(counts, picks, table, counter, col: int, tally, problem):
-    """The pick kernel on tensors: ``counts`` the 0-d int32 count of each
+    """The pick on tensors: ``counts`` the 0-d int32 count of each
     ``step.Pick`` of ``picks``; writes the branch into
     ``table[counter, col]``, adds one to ``tally[branch]``, ORs the
     overflow bits into ``problem`` (0-d int32), all in place. Returns
@@ -64,6 +96,69 @@ def pick_twin(counts, picks, table, counter, col: int, tally, problem):
     return branch
 
 
+def fold_nodes(cfg, name: str):
+    """The conditional nodes of a tracing day's program whose picks
+    count ``name``'s producer makes (``FOLDS``), in order."""
+    nodes = {n.name: n for n in S.conditionals(
+        S.day_program(cfg, True, False, False))}
+    return [nodes[c] for c in FOLDS[name]]
+
+
+class Fold:
+    """A count's fold site (``kernels.fold_site``): where its producer
+    writes the count and the tier picks it makes in the same launch.
+
+    ``nodes``: the conditionals whose picks it makes, in order (an If
+    first: the rest only where the If takes its body); ``cols``,
+    ``tallies``: each one's picks-table column and branch tally (a
+    view); ``table``, ``counter``, ``problem``: the picks table, the day
+    counter and the problem bits; ``lookup(pick)``: the tensor of a count
+    that the producer does not hand over (a handoff buffer); ``handles``:
+    the device table of conditional handles, a slot a picks-table column
+    (None: no conditional to set); ``out``: where the count goes (None:
+    a tensor of the producer's); ``armed``: False in a warm-up, which
+    makes no pick."""
+
+    def __init__(self, nodes, cols, tallies, table, counter, problem,
+                 lookup=None, handles=None, out=None, armed=True):
+        self.nodes, self.cols, self.tallies = nodes, cols, tallies
+        self.table, self.counter, self.problem = table, counter, problem
+        self.lookup, self.handles = lookup, handles
+        self.out, self.armed = out, armed
+        self.gate = isinstance(nodes[0], S.If)
+
+    def _counts(self, node, counts):
+        return [counts[p.src] if p.src in counts else self.lookup(p)
+                for p in node.picks]
+
+    def args(self, counts):
+        """The kernel's Fold (csrc/pick.cuh) in host memory: ``counts``
+        {name: 0-d int32 on the device} the counts the producer hands
+        over (its own among them)."""
+        from ..kernels import build
+        lib = build.lib()
+        buf = ctypes.create_string_buffer(lib.reina_fold_bytes())
+        for i, (node, col, tally) in enumerate(zip(self.nodes, self.cols,
+                                                   self.tallies)):
+            args = _pick_args(self._counts(node, counts), node.picks,
+                              self.table, self.counter, col, tally,
+                              self.problem)
+            handle = (None if self.handles is None
+                      else self.handles[col:].data_ptr())
+            _check(lib.reina_fold_set(buf, i, int(self.gate), *args, handle),
+                   f"fold of {node.name}")
+        return buf
+
+    def twin(self, counts) -> None:
+        """The picks on tensors, in order (:func:`pick_twin`)."""
+        for i, (node, col, tally) in enumerate(zip(self.nodes, self.cols,
+                                                   self.tallies)):
+            b = pick_twin(self._counts(node, counts), node.picks, self.table,
+                          self.counter, col, tally, self.problem)
+            if i == 0 and self.gate and int(b) == 0:
+                return
+
+
 def _pick_args(counts, picks, table, counter, col, tally, problem):
     if not 1 <= len(picks) <= 2 or len(counts) != len(picks):
         raise ValueError("a pick reads one or two counts")
@@ -73,7 +168,7 @@ def _pick_args(counts, picks, table, counter, col, tally, problem):
             x, p = counts[k], picks[k]
             if len(p.ends) > MAX_ENDS:
                 raise ValueError(f"count {p.src}: {len(p.ends)} tiers, the "
-                                 f"pick kernel takes at most {MAX_ENDS}")
+                                 f"pick takes at most {MAX_ENDS}")
             if x.dtype != torch.int32 or x.numel() != 1:
                 raise ValueError(f"count {p.src}: {x.dtype} {tuple(x.shape)}"
                                  ", want one int32")
@@ -88,20 +183,6 @@ def _pick_args(counts, picks, table, counter, col, tally, problem):
                              f"contiguous {dt}")
     return args + [table.data_ptr(), counter.data_ptr(), table.shape[1], col,
                    tally.data_ptr(), problem.data_ptr()]
-
-
-def pick(counts, picks, table, counter, col: int, tally, problem):
-    """One pick outside a graph: the kernel on CUDA tensors (no
-    conditional to set; the check against the twin), the twin on the
-    CPU. Returns the branch as the twin does, or None from the kernel."""
-    if table.device.type != "cuda":
-        return pick_twin(counts, picks, table, counter, col, tally, problem)
-    from ..kernels import build
-    args = _pick_args(counts, picks, table, counter, col, tally, problem)
-    build.check(build.lib().reina_pick(*args, build.stream_of(table)),
-                "reina_pick")
-    kernels.launched("daygraph.pick")
-    return None
 
 
 def _check(err: int, what: str) -> None:
@@ -135,10 +216,20 @@ class DayGraph:
         # launches of the spans every launch runs (the branches' come
         # from the tallies)
         self.fixed = Counter()
+        # this graph's conditional handles, a slot a picks-table column,
+        # which its head copies into the set's table
+        handles = [0] * len(S.PICK_COLS)
+        self.handles = torch.zeros(len(S.PICK_COLS), dtype=torch.int64,
+                                   device=gs.device)
         g = ctypes.c_void_p()
         _check(self.lib.reina_dg_create(ctypes.byref(g)), self._what("create"))
         self.graph = g
-        self._add(g, nodes, gs)
+        head = ctypes.c_void_p()
+        _check(self.lib.reina_dg_memcpy(
+            g, None, gs.handles.data_ptr(), self.handles.data_ptr(),
+            8 * len(handles), ctypes.byref(head)), self._what("handle table"))
+        self._add(g, head, nodes, gs, handles)
+        self.handles.copy_(torch.tensor(handles, dtype=torch.int64))
         ex = ctypes.c_void_p()
         _check(self.lib.reina_dg_instantiate(g, ctypes.byref(ex)),
                self._what("instantiate"))
@@ -153,34 +244,29 @@ class DayGraph:
                                        ctypes.byref(node)), self._what(what))
         return node
 
-    def _add(self, graph, nodes, gs) -> None:
-        dep = None
+    def _add(self, graph, dep, nodes, gs, handles) -> None:
         for node in nodes:
             if isinstance(node, S.Span):
                 entry = gs.entry(self.hkey, node.name, node.key)
                 dep = self._child(graph, dep, entry, f"span {node.name}")
                 self.fixed.update(entry.tally)
                 continue
+            # the span before set this node's condition (FOLDS)
             col, slot, n = gs.layout[node.name]
             h = ctypes.c_ulonglong()
             _check(self.lib.reina_dg_handle(graph, ctypes.byref(h)),
                    self._what(f"handle of {node.name}"))
-            counts = [gs.count(p) for p in node.picks]
-            args = _pick_args(counts, node.picks, gs.picks, gs.counter, col,
-                              gs.tally[slot:slot + n], gs.carry["problem"])
-            pnode = ctypes.c_void_p()
-            _check(self.lib.reina_dg_pick(graph, dep, *args, h,
-                                          ctypes.byref(pnode)),
-                   self._what(f"pick of {node.name}"))
+            handles[col] = h.value
             size = 1 if isinstance(node, S.If) else n
             bodies = (ctypes.c_void_p * size)()
-            dep = ctypes.c_void_p()
+            cond = ctypes.c_void_p()
             _check(self.lib.reina_dg_cond(
-                graph, pnode, h, _IF if isinstance(node, S.If) else _SWITCH,
-                size, ctypes.byref(dep), bodies),
+                graph, dep, h, _IF if isinstance(node, S.If) else _SWITCH,
+                size, ctypes.byref(cond), bodies),
                 self._what(f"conditional {node.name}"))
+            dep = cond
             if isinstance(node, S.If):
-                self._add(bodies[0], node.body, gs)
+                self._add(bodies[0], None, node.body, gs, handles)
             else:
                 for b, key in enumerate(node.keys()):
                     self._child(bodies[b], None,

@@ -352,7 +352,8 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
     day step; the default on a CUDA device (one card); False runs the
     plain day step, which picks each tier on the host. On the CPU, True
     runs the graph runner's CPU model (recorded spans in place of
-    graphs, the pick kernel's twin in place of the kernel).
+    graphs, each fold's picks made by its twin inside the producer's
+    call).
 
     ``picks``: a list that takes the stepped days' rows of tier picks
     (``step.PICK_COLS``: the branch each conditional took, -1 where it

@@ -19,10 +19,15 @@ parameters) reuses the graphs, for a run of up to the set's days.
 A day is ``step.day_program``: spans, and tier picks between them. For
 each host key (contact tracing on, a vaccination day, imports: what the
 schedule says) the set holds a day graph (core/daygraph.py) in which
-each span is its captured ``torch.cuda.CUDAGraph`` and each pick a
-kernel that sets the conditional node after it; a day is one launch of
-its key's day graph, and the host reads nothing until the run loop's
-next sync point.
+each span is its captured ``torch.cuda.CUDAGraph`` and each pick is made
+by the kernel in a span that produces its count, which sets the
+conditional node after that span: while a span is built the set names
+the counts' fold sites (``kernels.folding``, core/daygraph.py:Fold), so
+that the producer writes the count straight into its static handoff
+buffer and makes the picks in the same launch, reading its conditional's
+handle from the set's handle table, which each day graph's head fills.
+A warm-up makes no pick. A day is one launch of its key's day graph,
+and the host reads nothing until the run loop's next sync point.
 
 Every branch exists before a day needs it: when a run starts, every host
 key of its days that the set lacks is built. Each (span, key) variant of
@@ -44,8 +49,8 @@ change from day to day or from build to build:
     it is never copied in a day);
   * what one span hands the next: a static buffer for each name,
     allocated in the first warm-up that gives it, into which every
-    capture of a span that gives that name copies it; the counts the
-    picks read are among them;
+    capture of a span that gives that name copies it (a count that a
+    producer writes into its buffer itself is not copied);
   * the outputs, picks and tallies: the last span writes the day's
     ``DayOutputs`` into row ``counter`` of a device table (the scan's
     stacked outputs), each pick its branch into row ``counter`` of the
@@ -66,7 +71,8 @@ runs the day eagerly in its place.
 Launch counts (``kernels.LAUNCHES``): a capture's launches go into the
 span's tally; each launch of a day graph adds the tallies of the spans it
 always runs, and each sync point those of the branches that ran, from
-the device's branch tallies, with one pick launch a tally count. The
+the device's branch tallies (the picks are inside the spans' launches:
+``fused_concat_prefix.pick``, ``daygraph.max_pick``). The
 warm-ups launch their kernels eagerly and count them there, each also
 in ``kernels.WARMUPS``. ``step.STATS`` counts the captures, the day
 graphs built, their seconds and the day-graph launches beside the
@@ -74,9 +80,9 @@ days.
 
 On the CPU a GraphSet is a model of the same machinery for the tests:
 each (span, key) records its body (the span and the copies around it) at
-its warm-up and calls it again on later days, and each pick is the pick
-kernel's twin, whose entry in the picks table names the branch that
-runs; the host reads no count.
+its warm-up and calls it again on later days, and each fold site makes
+its picks with the twin inside the producer's call, whose entry in the
+picks table names the branch that runs; the host reads no count.
 """
 from __future__ import annotations
 
@@ -89,7 +95,8 @@ import numpy as np
 import torch
 
 from . import step as S
-from .daygraph import DayGraph, GraphError, check_body_nodes, pick
+from .daygraph import (FOLDS, DayGraph, Fold, GraphError, check_body_nodes,
+                       fold_nodes)
 from .schedule import Schedules
 from .state import AgentState, DayCarry
 from .. import kernels
@@ -200,6 +207,17 @@ class GraphSet:
         self.picks = torch.full((days, len(S.PICK_COLS)), -1,
                                 dtype=torch.int32, device=dev)
         self.tally = torch.zeros(slot, dtype=torch.int32, device=dev)
+        # each conditional's handle in the running day graph, a slot a
+        # picks-table column (the day graph's head fills it)
+        self.handles = torch.zeros(len(S.PICK_COLS), dtype=torch.int64,
+                                   device=dev)
+        # each fold's conditionals, their picks-table columns and tallies
+        self.folds = {}
+        for name in FOLDS:
+            nodes = fold_nodes(cfg, name)
+            lay = [self.layout[node.name] for node in nodes]
+            self.folds[name] = (nodes, [c for c, _, _ in lay],
+                                [self.tally[s:s + n] for _, s, n in lay])
         self._tallied = np.zeros(slot, np.int64)
         if not self.model:
             self.pool = torch.cuda.graph_pool_handle()
@@ -321,7 +339,6 @@ class GraphSet:
                     if delta[slot + b]:
                         kernels.replayed(self.bodies[(name, keys[b])].tally,
                                          int(delta[slot + b]))
-            kernels.replayed({"daygraph.pick": int(delta.sum())})
         return int(tail[0]), tail[1 + n:].reshape(-1, len(S.PICK_COLS))
 
     def state_carry(self, day: int, leftover, bits: int, clone: bool):
@@ -378,9 +395,21 @@ class GraphSet:
         def body():
             if name in S.FIRST_SPANS:
                 self._load_day()
-            self._commit(name, fn(self.cfg, self.arrays, self.din,
-                                  self.state, carry, self.handoff, *key))
+            with kernels.folding(self._sites(not kernels.is_warming())):
+                outs = fn(self.cfg, self.arrays, self.din, self.state, carry,
+                          self.handoff, *key)
+            self._commit(name, outs)
         return body
+
+    def _sites(self, armed: bool) -> dict:
+        """The fold site of each count (``FOLDS``): its static handoff
+        buffer once a warm-up made it, the picks table, the tallies and
+        the problem bits; on a card the handle table."""
+        return {name: Fold(nodes, cols, tallies, self.picks, self.counter,
+                           self.carry["problem"], lookup=self.count,
+                           handles=None if self.model else self.handles,
+                           out=self.handoff.get(name), armed=armed)
+                for name, (nodes, cols, tallies) in self.folds.items()}
 
     def _load_day(self) -> None:
         i = self.counter.view(1)
@@ -448,16 +477,17 @@ class GraphSet:
 
     def _model_day(self, hkey: tuple, nodes) -> None:
         """The CPU model of a day graph's launch: recorded spans, and the
-        pick twin's branch in the picks table choosing each tier."""
+        branch that the producer's pick twin wrote into the picks table
+        choosing each tier."""
         for node in nodes:
             if isinstance(node, S.Span):
                 self.entry(hkey, node.name, node.key).run()
                 continue
-            col, slot, n = self.layout[node.name]
-            pick([self.count(p) for p in node.picks], node.picks, self.picks,
-                 self.counter, col, self.tally[slot:slot + n],
-                 self.carry["problem"])
+            col, _, _ = self.layout[node.name]
             branch = int(self.picks[int(self.counter), col])
+            if branch < 0:
+                raise GraphError(f"day graph {hkey}: no pick of {node.name} "
+                                 "was made before its node")
             if isinstance(node, S.If):
                 if branch:
                     self._model_day(hkey, node.body)

@@ -19,8 +19,8 @@ day is a program (``day_program``) of spans and of the tier picks
 between them, each pick reading a count that the span before it gave:
 
   A       day start: capacity builds, the drain, yesterday's bucket
-          appends; on a tracing day the drained agents' compaction and
-          the counts (ct_cases, n_d);
+          appends; on a tracing day the drained agents' count ct_cases
+          and their compaction to n_d;
   T       on a tracing day, T1-T4 if ct_cases > 0 (the JAX package's
           cond): level 1 at the member tier of n_d, then its buckets at
           the column tier of their fill and the frontier's compaction to
@@ -43,8 +43,10 @@ state, the carry and the tensors earlier spans handed on; host values
 reach it only through its key. The plain ``day_step`` (``run_day``)
 reads each pick's count on the host and runs the span it names; the
 graph runner (core/graphs.py) runs a day as one CUDA graph in which each
-pick is a kernel that sets a conditional node, so the host reads
-nothing.
+pick is made by the kernel that produces its count (core/daygraph.py:
+FOLDS: the counts' producers take a fold site, ``compact_indices``,
+``prefix_count`` and ``count_max``) and sets a conditional node, so the
+host reads nothing.
 Scatters with the JAX package's ``mode="drop"`` sentinels go to one
 spare slot past the end of a buffer. The four fused per-agent bodies
 below (``prologue``, ``recv_front``, ``post``, ``finalize``) are the
@@ -78,10 +80,11 @@ from . import constants as C
 from .state import AgentState, DayCarry
 from ..ops import prng
 from ..ops.clamped import clamped_counter_grants
-from ..ops.compact import compact_indices
+from ..ops.compact import compact_indices, count_max
 from ..ops.fusedmap import (fused_bihistogram, fused_concat_prefix,
                             fused_fn_onehot_sum, fused_map,
-                            fused_onehot_sum, sharded_concat_prefix)
+                            fused_onehot_sum, prefix_count,
+                            sharded_concat_prefix)
 from ..ops import random as samplers
 from ..ops.random import binomial_fixed, gamma_fixed_pair, searchsorted
 
@@ -701,12 +704,13 @@ def _add(shard, x, idx, vals):
     return _spare(x, 0).index_add_(0, shard.local(idx).long(), vals)[:n]
 
 
-def _compact(shard, mask, capacity: int):
+def _compact(shard, mask, capacity: int, name=None, given=None):
     """compact_indices over the whole agent axis: the first
     ``capacity`` set global indices (sentinel N) and the global count;
-    each rank's part of the global prefix, then a search for each slot."""
+    each rank's part of the global prefix, then a search for each slot.
+    ``name``, ``given``: the count's fold site (one card only)."""
     if shard is None:
-        return compact_indices(mask, capacity)
+        return compact_indices(mask, capacity, name, given)
     cum, ends = sharded_concat_prefix(mask.to(F32), None, 1, shard)
     count = ends[0].to(I32)
     slots = torch.arange(capacity, dtype=I32, device=mask.device)
@@ -733,7 +737,7 @@ def span_a(cfg: EngineConfig, arrays: ModelArrays, din: DayIn,
            shard=None):
     """Day start: capacity builds, the testing queue's drain (phase 3)
     and yesterday's pending bucket appends; with ``trace``, the
-    compaction of the drained agents and the counts (ct_cases, n_d)."""
+    compaction of the drained agents and its count n_d."""
     _, N, _, _ = _dims(state, shard)
     drained = state.queued
     drained_here = drained & state.active
@@ -754,8 +758,9 @@ def span_a(cfg: EngineConfig, arrays: ModelArrays, din: DayIn,
            else shard.local(carry.app_pos, CAPB))
     carry.bkt_dst.index_put_((app.long(),), carry.app_val)
     if trace:
-        dbuf, n_d = _compact(shard, drained_here, cfg.infection_buffer)
-        out.update(dbuf=dbuf, counts=torch.stack([ct_cases, n_d]))
+        dbuf, n_d = _compact(shard, drained_here, cfg.infection_buffer,
+                             "n_d", {"ct_cases": ct_cases})
+        out.update(dbuf=dbuf, n_d=n_d)
     return out
 
 
@@ -834,7 +839,7 @@ def span_t1(cfg, arrays, din, state, carry, env, end: int, shard=None):
     _, fill_m = _bucket_setup(cfg, state, carry, env["dbuf"],
                               state.is_infected, end, shard)
     return dict(eligible=eligible, r2_tab=r2_tab, hit1=hit1, hit_r2=hit_r2,
-                fill_max=fill_m.max())
+                fill_max=count_max(fill_m, "fill_max"))
 
 
 def span_t2(cfg, arrays, din, state, carry, env, end: int, jend: int,
@@ -849,7 +854,7 @@ def span_t2(cfg, arrays, din, state, carry, env, end: int, jend: int,
                  din.keys["e1"], hit, hit_r2, env["r2_tab"], shard)
     newq1 = env["eligible"] & hit[:n]
     frontier = newq1 & state.is_infected & (carry.bkt_fill > 0)
-    fbuf, n_f = _compact(shard, frontier, cfg.infection_buffer)
+    fbuf, n_f = _compact(shard, frontier, cfg.infection_buffer, "n_f")
     return dict(hit12=hit, hit_r2ab=hit_r2, fbuf=fbuf, n_f=n_f)
 
 
@@ -858,7 +863,7 @@ def span_t3(cfg, arrays, din, state, carry, env, end: int, shard=None):
     agents."""
     _, fill_m = _bucket_setup(cfg, state, carry, env["fbuf"], None, end,
                               shard)
-    return dict(fill2_max=fill_m.max())
+    return dict(fill2_max=count_max(fill_m, "fill2_max"))
 
 
 def span_t4(cfg, arrays, din, state, carry, env, end: int, jend: int,
@@ -1028,9 +1033,8 @@ def span_b(cfg, arrays, din, state, carry, env, vacc: bool, imports: bool,
     variant = state.variant.to(I32)
     c_s = torch.where(exposer, k_s.to(F32) * inf_base, 0.0)
     if shard is None:
-        cum_newly = fused_concat_prefix(newly.to(F32), None, 1)
+        cum_newly, n_new = prefix_count(newly.to(F32), "n_new")
         cum_cat = fused_concat_prefix(c_s, variant, V)
-        n_new = cum_newly[-1].to(I32)
     else:
         cum_newly, ends = sharded_concat_prefix(newly.to(F32), None, 1,
                                                 shard)
@@ -1312,7 +1316,7 @@ def day_program(cfg: EngineConfig, ct_active: bool, vacc: bool,
         "n_new", None, mem, Tcap, C.PROBLEM_INFECTION_BUFFER_OVERFLOW),))
     if not ct_active:
         return (Span("AB", span_ab, (vacc, imports)), slots)
-    n_d = Pick("counts", 1, mem, Tcap, C.PROBLEM_TRACING_BUFFER_OVERFLOW)
+    n_d = Pick("n_d", None, mem, Tcap, C.PROBLEM_TRACING_BUFFER_OVERFLOW)
     n_f = Pick("n_f", None, mem, Tcap, C.PROBLEM_TRACING_BUFFER_OVERFLOW)
     tracing = (
         Switch("T1", span_t1, (n_d,)),
@@ -1322,7 +1326,7 @@ def day_program(cfg: EngineConfig, ct_active: bool, vacc: bool,
         Switch("T4", span_t4, (n_f._replace(bit=0),
                                Pick("fill2_max", None, cols, None))))
     return (Span("A", span_a, (True,)),
-            If("T", (Pick("counts", 0, (0, 1), None),), tracing),
+            If("T", (Pick("ct_cases", None, (0, 1), None),), tracing),
             Span("B", span_b, (vacc, imports)), slots)
 
 
@@ -1338,7 +1342,7 @@ def conditionals(nodes):
 
 def tier_branch(p: Pick, x: int) -> int:
     """The branch pick ``p`` takes for the count ``x`` (the host's form
-    of the pick kernel, reina_tpu_torch/kernels/csrc/daygraph.cu)."""
+    of the picks the producing kernels make, kernels/csrc/pick.cuh)."""
     x = x if p.cap is None else min(x, p.cap)
     return min(bisect_left(p.ends, x), len(p.ends) - 1)
 

@@ -5,8 +5,9 @@ nvcc for sm_90a and bound with ctypes; the post-ledger pass of the day
 step among them, the ledger and the prefix also in a sharded form, the
 day's random draws: ``threefry.cu`` for each draw, ``samplers.cu`` for
 gamma_fixed and binomial_fixed, and ``daygraph.cu``: the day graph's
-tier picks and its assembly) and three Triton kernels (``fused_bodies``,
-the other fused per-agent passes).
+assembly and the reduce-and-pick of its tier picks; the other picks are
+made inside the prefix kernel's launch, ``pick.cuh``) and three Triton
+kernels (``fused_bodies``, the other fused per-agent passes).
 The wrappers that launch them live beside their plain PyTorch twins in
 ``reina_tpu_torch.ops`` and ``fused_bodies``; each wrapper calls
 :func:`launched` where it launches its kernel, and nowhere else, so a
@@ -15,10 +16,12 @@ a CUDA graph (core/graphs.py) its wrappers launch nothing: their counts
 go into the graph's tally instead, and every run of the graph adds
 that tally to ``LAUNCHES`` (core/graphs.py: a day graph's always-run
 spans at its launch, its branches from the device's branch tallies).
-Before a span is captured it runs once eagerly (its warm-up, inside
-:func:`warming`): those launches are real and go into ``LAUNCHES``
-like any other, and ``WARMUPS`` counts them again, so that a run's
-launches are its stepped days' plus its warm-ups'.
+While the graph runner builds a span it names, through :func:`folding`,
+the counts whose tier picks the span's producing kernels make
+(:func:`fold_site`). Before a span is captured it runs once eagerly
+(its warm-up, inside :func:`warming`): those launches are real and go
+into ``LAUNCHES`` like any other, and ``WARMUPS`` counts them again, so
+that a run's launches are its stepped days' plus its warm-ups'.
 """
 from __future__ import annotations
 
@@ -47,8 +50,11 @@ LAUNCHES = {
     "prng.draw": 0,
     "random.gamma_fixed": 0,
     "random.binomial_fixed": 0,
-    # the day graph's tier picks (core/daygraph.py)
-    "daygraph.pick": 0,
+    # the prefix launched with a count and tier picks to make (ops/
+    # fusedmap.py:prefix_count under core/daygraph.py's Fold), and the
+    # reduce-and-pick of a maximum count (ops/compact.py:count_max)
+    "fused_concat_prefix.pick": 0,
+    "daygraph.max_pick": 0,
 }
 
 
@@ -92,6 +98,29 @@ def capturing():
         yield tally
     finally:
         _capture.tally = None
+
+
+@contextmanager
+def folding(sites: dict):
+    """This thread's fold sites meanwhile: {count name: site}, each
+    naming where the count's producer writes it and which tier picks it
+    makes (core/daygraph.py:Fold)."""
+    _capture.sites = sites
+    try:
+        yield
+    finally:
+        _capture.sites = None
+
+
+def fold_site(name: str):
+    """The fold site of count ``name`` on this thread, or None."""
+    sites = getattr(_capture, "sites", None)
+    return None if sites is None else sites.get(name)
+
+
+def is_warming() -> bool:
+    """Whether this thread runs a span's warm-up."""
+    return getattr(_capture, "warming", False)
 
 
 def replayed(tally, times: int = 1) -> None:

@@ -14,6 +14,15 @@ order other, this, this, other (``--rounds`` times); without
   * ``prefix_ms``: ``fused_concat_prefix`` of ``newly`` (n_seg 1) and of
     the weights (n_seg 2), the pair the day step makes; ``cumsum_ms``:
     ``torch.cumsum`` of the same two, in the same process;
+  * ``prefix_one_ms``: ``fused_concat_prefix`` of ``newly`` alone, as
+    its callers without a pick make it;
+  * ``slot_pick_ms``: the prefix of ``newly``, its count and the slot
+    tier pick: in a tree with fused picks one launch of the prefix with
+    its fold (``fusedmap.prefix_count``), in an older tree the prefix,
+    ``cum[-1].to(int32)`` and the pick kernel; ``t2_pick_ms``: T2's pick
+    on the maximum of 1,536 bucket fills and a member count of 1,000,
+    the reduce-and-pick (``compact.count_max``) against torch's max and
+    the pick kernel;
   * ``ledger_ms``: ``clamped_counter_grants`` for both ledgers;
   * ``fn_onehot_ms``: ``fused_fn_onehot_sum`` of the phase-7 fields;
   * ``bihist_site_ms``: the day step's histogram call,
@@ -93,11 +102,45 @@ else:
     gamma = lambda: (samplers.gamma_fixed(kg[0], kap1, g_shape, "cuda"),
                      samplers.gamma_fixed(kg[1], kap2, g_shape, "cuda"))
 (nb, pb), (nx, px) = cap["binomial"]
+from reina_tpu_torch.core import daygraph
+nodes = {n.name: n for n in step.conditionals(step.day_program(
+    step.EngineConfig(), True, False, False))}
+i32 = dict(dtype=torch.int32, device="cuda")
+table = torch.full((4, len(step.PICK_COLS)), -1, **i32)
+counter = torch.full((), 2, dtype=torch.int64, device="cuda")
+problem = torch.zeros((), **i32)
+tally_c = torch.zeros(len(nodes["C"].keys()), **i32)
+tally_t2 = torch.zeros(len(nodes["T2"].keys()), **i32)
+gen = torch.Generator(device="cpu").manual_seed(7)
+fills = torch.randint(0, 38, (1536,), generator=gen).to(**i32)
+n_d = torch.tensor(1000, **i32)
+col_c, col_t2 = step.PICK_COLS.index("C"), step.PICK_COLS.index("T2")
+if hasattr(daygraph, "Fold"):
+    from reina_tpu_torch.ops import compact
+    fold_c = daygraph.Fold([nodes["C"]], [col_c], [tally_c], table, counter,
+                           problem)
+    fold_t2 = daygraph.Fold([nodes["T2"]], [col_t2], [tally_t2], table,
+                            counter, problem, lookup=lambda p: n_d)
+    slot_pick = lambda: fusedmap.prefix_count(s["newly"], "n_new",
+                                              site=fold_c)
+    t2_pick = lambda: compact.count_max(fills, "fill_max", site=fold_t2)
+else:
+    def slot_pick():
+        cum = fusedmap.fused_concat_prefix(s["newly"], None, 1)
+        daygraph.pick([cum[-1].to(torch.int32)], nodes["C"].picks, table,
+                      counter, col_c, tally_c, problem)
+
+    def t2_pick():
+        daygraph.pick([n_d, fills.max()], nodes["T2"].picks, table, counter,
+                      col_t2, tally_t2, problem)
 out = {"sampler_lanes": {"gamma": list(g_shape),
                          "binomial": [nb.numel(), nx.numel()]}}
 fns = {
     "prefix": lambda: (fusedmap.fused_concat_prefix(s["newly"], None, 1),
                        fusedmap.fused_concat_prefix(s["w"], codes, checks.V)),
+    "prefix_one": lambda: fusedmap.fused_concat_prefix(s["newly"], None, 1),
+    "slot_pick": slot_pick,
+    "t2_pick": t2_pick,
     "cumsum": lambda: (torch.cumsum(s["newly"], 0), torch.cumsum(cat, 0)),
     "ledger": lambda: clamped.clamped_counter_grants(s["rel"], s["req"],
                                                      init, s["offset"]),

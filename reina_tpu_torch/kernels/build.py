@@ -14,7 +14,7 @@ named by a hash of the sources, and is built at first use. It is loaded
 with ctypes: every pointer and the stream are ``c_void_p``, and each C
 entry point returns ``cudaGetLastError()`` after its launches, on which
 :func:`check` raises. Every kernel entry point but the draw's, the
-samplers' and the pick's also takes an optional array of CUDA events
+samplers' also takes an optional array of CUDA events
 that it records around each launch. ``daygraph.cu`` also has the entry
 points that assemble, launch and free a day graph (``reina_dg_*``, each
 returning its cudaError_t).
@@ -45,13 +45,13 @@ _F = ctypes.c_float
 _Q = ctypes.c_ulonglong
 _PP = ctypes.POINTER(ctypes.c_void_p)
 _IP = ctypes.POINTER(ctypes.c_int)
-# a pick's arguments (csrc/daygraph.cu: PICK_ARGS)
-_PICK = [_P, _IP, _I, _I, _I] * 2 + [_P, _P, _I, _I, _P, _P]
+# a pick's arguments (csrc/daygraph.cu: reina_fold_set)
+_PICK = [_P, _IP, _I, _I, _I] * 2 + [_P, _P, _I, _I, _P, _P, _P]
 
 # C entry points and their argument types (see the .cu files)
 _SIGNATURES = {
     "reina_ledger_grants": [_P] * 9 + [_L, _L, _P, _I, _P, _P],
-    "reina_concat_prefix": [_P, _P, _P, _P, _L, _I, _I, _P, _P],
+    "reina_concat_prefix": [_P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P],
     "reina_onehot_sum": [_P, _I, _P, _P, _P, _L, _I, _P, _P],
     "reina_fn_onehot_output_masks": [_P] * 12 + [_L] + [_I] * 5 + [_P, _P],
     "reina_bihistogram": [_P] * 3 + [_I] + [_P] * 3 + [_L, _I, _I, _P, _P],
@@ -63,11 +63,13 @@ _SIGNATURES = {
     "reina_draw": [_P, _L, _L, _U, _U, _P, _I, _F, _F, _P],
     "reina_gamma_fixed": [_P, _L, _I, _P, _P, _I, _P, _P, _P],
     "reina_binomial_fixed": [_P, _P, _P, _L, _P, _P, _I, _P, _P],
-    "reina_pick": _PICK + [_P],
+    "reina_fold_bytes": [],
+    "reina_fold_set": [_P, _I, _I] + _PICK,
+    "reina_max_pick": [_P, _L, _P, _P, _P, _P],
     "reina_dg_create": [_PP],
     "reina_dg_child": [_P, _P, _P, _PP],
     "reina_dg_handle": [_P, ctypes.POINTER(_Q)],
-    "reina_dg_pick": [_P, _P] + _PICK + [_Q, _PP],
+    "reina_dg_memcpy": [_P, _P, _P, _P, _L, _PP],
     "reina_dg_cond": [_P, _P, _Q, _I, _I, _PP, _PP],
     "reina_dg_instantiate": [_P, _PP],
     "reina_dg_launch": [_P, _P],

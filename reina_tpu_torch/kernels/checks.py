@@ -8,8 +8,8 @@ tolerance, and three device times (kernel, twin and, where one PyTorch
 call computes the same function, that call). The draw and sampler
 kernels are also held to their twins with their keys read from device
 memory (``dev_key_pairs``, as a captured day step passes them), and the
-day graph's pick kernel at every branch of every pick of the day
-(``pick_check``). Used by tests/test_torch_cuda.py and chip_smoke.py.
+day graph's tier picks, folded into the launches that produce their
+counts, at every branch of every pick of the day (``fold_checks``). Used by tests/test_torch_cuda.py and chip_smoke.py.
 
 Tolerances: the prefix sums, histograms and ledger outputs (grants and
 final balances) are exact, and so is the post body (integer and bool
@@ -90,9 +90,9 @@ OPS_PER_AGENT = {
     "ledger_sharded": 16, "concat_prefix_sharded": 60,
     "prng.draw": HASH_OPS, "random.gamma_fixed": 2 * HASH_OPS,
     "random.binomial_fixed": HASH_OPS,          # a BTRS lane: 2 * HASH_OPS
-    # one pick: a clamp, a search over at most 8 ceilings, the flat
-    # branch, the table, tally and problem writes
-    "daygraph.pick": 24,
+    # the prefix with a pick (a pick's few dozen operations are nothing
+    # beside N agents'); the maximum: a compare a fill value
+    "fused_concat_prefix.pick": 60, "daygraph.max_pick": 1,
 }
 INT32_BOUND = ("prng.draw", "random.gamma_fixed", "random.binomial_fixed")
 
@@ -877,12 +877,15 @@ def draw_checks(seed: int, dev, captured=None,
 
 
 # ---------------------------------------------------------------------------
-# the day graph's pick (csrc/daygraph.cu)
+# the day graph's tier picks, each folded into the launch that produces
+# its count (csrc/pick.cuh; core/daygraph.py:FOLDS)
 
-def pick_cases(cfg):
-    """(pick node, counts) at every branch of every pick of a tracing
-    day's program, and past each cap: each count at 0, 1, each ceiling
-    and the one above it, its cap + 1 and 10^6."""
+def fold_cases(cfg, n: int):
+    """(fold name, {count: value}) at every branch of every pick of each
+    fold of a tracing day's program and past each cap: each count at 0,
+    1, each ceiling and the one above it, its cap + 1 and 10^6 (a count a
+    prefix makes at most ``n``, its agents)."""
+    from ..core import daygraph
     cases = []
 
     def edges(p):
@@ -892,58 +895,123 @@ def pick_cases(cfg):
             xs |= {e, e + 1}
         return sorted(xs)
 
-    for node in step.conditionals(step.day_program(cfg, True, False, False)):
-        ps = node.picks
-        if len(ps) == 1:
-            cases.extend((node, (x,)) for x in edges(ps[0]))
-        else:
-            cases.extend((node, (a, b)) for a in edges(ps[0])
-                         for b in edges(ps[1]))
+    for name in daygraph.FOLDS:
+        first = {}
+        for node in daygraph.fold_nodes(cfg, name):
+            for p in node.picks:
+                first.setdefault(p.src, p)
+        srcs = list(first)
+        combos = [{}]
+        for src in srcs:
+            xs = [x for x in edges(first[src])
+                  if src != name or name.startswith("fill") or x <= n]
+            combos = [{**c, src: x} for c in combos for x in xs]
+        cases.extend((name, c) for c in combos)
     return cases
 
 
-def _pick_pair(node, xs, dev, days: int = 4, day: int = 2):
-    """(kernel, twin): a pick of ``node`` on counts ``xs``, each side into
-    tables of its own on ``dev`` made here, so that a call launches the
-    pick alone; each returns (the day's picks row, the tally, the problem
-    bits), as one call leaves them."""
+def _fold_pair(name, counts, n, dev, w=None, seed=0, days=4, day=2):
+    """(kernel, twin): the producer of count ``name`` with its fold, made
+    to produce ``counts[name]`` (a prefix over a 0/1 mask of ``n``
+    agents with that many set at random, or a maximum over ``n`` fill
+    values), the other counts given; each side into tables of its own on
+    ``dev`` made here. Each returns the producer's outputs, the day's
+    picks row, the picks' tallies and the problem bits, as one call
+    leaves them. ``w``: the prefix's weights instead of a mask."""
     from ..core import daygraph
-    counts = [torch.tensor(x, dtype=torch.int32, device=dev) for x in xs]
-    col = step.PICK_COLS.index(node.name)
-    n = 2 if isinstance(node, step.If) else len(node.keys())
+    from ..ops import compact
+    cfg = step.EngineConfig()
+    nodes = daygraph.fold_nodes(cfg, name)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = counts[name]
+    if name.startswith("fill"):
+        vals = torch.randint(0, max(x, 1), (n,), generator=g,
+                             dtype=torch.int32)
+        vals[int(torch.randint(0, n, (1,), generator=g))] = x
+        vals = vals.to(dev)
+    elif w is None:
+        w = torch.zeros(n, dtype=torch.float32)
+        w[torch.randperm(n, generator=g)[:x]] = 1.0
+        w = w.to(dev)
+    given = {k: torch.tensor(v, dtype=torch.int32, device=dev)
+             for k, v in counts.items() if k != name}
 
-    def side(fn):
+    def side(kernel):
         table = torch.full((days, len(step.PICK_COLS)), -1,
                            dtype=torch.int32, device=dev)
-        tally = torch.zeros(n, dtype=torch.int32, device=dev)
+        tallies = [torch.zeros(2 if isinstance(nd, step.If)
+                               else len(nd.keys()), dtype=torch.int32,
+                               device=dev) for nd in nodes]
         problem = torch.full((), 4, dtype=torch.int32, device=dev)
         counter = torch.full((), day, dtype=torch.int64, device=dev)
+        fold = daygraph.Fold(
+            nodes, [step.PICK_COLS.index(nd.name) for nd in nodes], tallies,
+            table, counter, problem, lookup=lambda p: given[p.src])
 
         def run():
-            fn(counts, node.picks, table, counter, col, tally, problem)
-            return table[day], tally, problem
+            if name.startswith("fill"):
+                if kernel:
+                    out = (compact.count_max(vals, name, site=fold),)
+                else:
+                    m = vals.max()
+                    fold.twin({name: m})
+                    out = (m,)
+            elif kernel:
+                out = fusedmap.prefix_count(w, name, given, site=fold)
+            else:
+                cum = fusedmap.concat_prefix_twin(w, None, 1)
+                cnt = cum[-1].to(torch.int32)
+                fold.twin({name: cnt, **given})
+                out = (cum, cnt)
+            return (*out, table[day], *tallies, problem)
         return run
 
-    return side(daygraph.pick), side(daygraph.pick_twin)
+    return side(True), side(False)
 
 
-def pick_check(dev) -> Check:
-    """The pick kernel against its twin at every branch of every pick of
-    the default engine config's tracing day (``pick_cases``), exact: the
-    picks row, the branch tally and the problem bits; timed on the slot
-    pick of 4,000 new infections (HUS's order of a day's), below its cap,
-    where it reads the count (4 B), the day counter (8 B) and one tally
-    entry (4 B) and writes one picks entry and that tally entry (8 B)."""
+# the tier each timed fused entry is timed at: a day's slot pick of
+# 4,000 new infections on the checks' newly stream's agents; T2's pick
+# of 1,000 drained agents over the bucket fills of 1,536 members
+FILL_MEMBERS, FILL_N_D = 1536, 1000
+
+
+def fold_checks(n: int, seed: int, dev) -> List[Check]:
+    """The fused tier picks against their twins (the producer's twin,
+    then daygraph.pick_twin) at every branch of every pick and past each
+    cap (``fold_cases``), exact: the producer's outputs, the picks row,
+    the tallies and the problem bits. Timed: the prefix of the checks'
+    ``newly`` stream with the slot pick, and T2's reduce-and-pick."""
     cfg = step.EngineConfig()
-    cases = pick_cases(cfg)
-    slot = [n for n, _ in cases if n.name == step.LAST_SPAN][0]
-    kernel, twin = _pick_pair(slot, (4000,), dev)
-    return Check(
-        "daygraph.pick", "cuda", "reina_tpu_torch/kernels/csrc/daygraph.cu",
-        f"{_STEP}:1344", kernel, twin, n=1, read_bytes=4 + 8 + 4,
-        write_bytes=4 + 4,
-        library_note="none: a conditional node is set from a kernel only",
-        extra=[_pick_pair(node, xs, dev) for node, xs in cases])
+    s = _streams(n, seed, dev)
+    pre, mx = [], []
+    for i, (name, counts) in enumerate(fold_cases(cfg, n)):
+        pair = _fold_pair(name, counts, FILL_MEMBERS if name.startswith(
+            "fill") else n, dev, seed=seed + i)
+        (mx if name.startswith("fill") else pre).append(pair)
+    note = "none: a conditional node is set from a kernel only"
+    newly = s["newly"]
+    return [
+        Check("fused_concat_prefix.pick", "cuda",
+              "reina_tpu_torch/kernels/csrc/prefix.cu",
+              f"{_FM}:553",
+              *_fold_pair("n_new", {"n_new": int(newly.sum())}, n, dev,
+                          w=newly),
+              inputs=[newly], library_note=note,
+              # the newly stream, its prefix and its count; the pick
+              # reads the count and the day counter (12 B) and writes
+              # its picks entry and tally entry (8 B)
+              read_bytes=4 * n + 12, write_bytes=4 * n + 4 + 8, extra=pre),
+        Check("daygraph.max_pick", "cuda",
+              "reina_tpu_torch/kernels/csrc/daygraph.cu",
+              f"{_STEP}:912",
+              *_fold_pair("fill_max", {"n_d": FILL_N_D, "fill_max": 37},
+                          FILL_MEMBERS, dev, seed=seed),
+              n=FILL_MEMBERS, library_note=note,
+              # the fills and n_d, the day counter; the maximum, the
+              # picks entry and the tally entry
+              read_bytes=4 * FILL_MEMBERS + 4 + 8 + 4, write_bytes=4 + 8,
+              extra=mx),
+    ]
 
 
 def compare(got, want, float_ulp: int):

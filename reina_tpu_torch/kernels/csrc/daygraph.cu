@@ -1,105 +1,69 @@
 // The day graph: a day of the port's day step as one CUDA graph, with the
-// JAX package's tier picks made on the device, and the pick kernel that
-// makes them.
+// JAX package's tier picks made on the device by the kernels that produce
+// their counts (csrc/pick.cuh), and the reduce-and-pick kernel for the
+// counts that are a maximum.
 //
-// Replaces the index computation of the reference's lax.switch and
-// lax.cond inside its compiled day (reina_tpu/core/step.py: the slot-tier
-// switch's searchsorted at :1344, the member-tier switches :922 and :952,
-// the column-tier switch :912-918, the tracing cond :976, the overflow
-// bits :979-981 and :1231-1232); it has no Pallas counterpart. Its plain
-// twin is reina_tpu_torch/core/daygraph.py:pick_twin.
+// Every tier pick of the day (reina_tpu_torch/core/step.py:day_program)
+// is folded into a producer's launch (core/daygraph.py:FOLDS): the slot
+// pick into the prefix of today's infections (csrc/prefix.cu), the
+// tracing cond and T1's switch into the prefix that compacts the drained
+// agents, T3's into the frontier's prefix, and T2's and T4's into
+// max_pick below, which takes the bucket fill maximum of the members at
+// the end of each branch of T1 and T3. There is no pick node: a
+// conditional node follows the span (or branch) whose kernel set it.
 //
-// A pick reads one or two int32 counts where the span before it left
-// them, takes for each the left searchsorted into its tier ceilings (the
-// count clamped to a cap first, the index clamped to the last branch, as
-// lax.switch clamps it), and
-//   * sets the conditional node that follows it to the branch
-//     (cudaGraphSetConditional: a switch over the tiers, or an if),
-//   * writes the branch into row *counter of the run's picks table,
-//   * adds one to the branch's tally (the launches that ran),
-//   * ORs the overflow bit of a count above its cap into the carry's
-//     problem bits.
-// What bounds it: nothing but a launch. One thread reads at most 8 bytes
-// of counts, 8 of the day counter and 4 of the tally (and 4 of the
-// problem bits where a count overflows) and writes at most 12; its time
-// is the launch's floor.
+// max_pick replaces the torch maximum of the reference's
+// jnp.max(fill_m) (reina_tpu/core/step.py:912-918) and the pick that
+// read it. What bounds it: the fill values it reads (4 bytes a member of
+// the tier's ceiling) and a launch; one CTA reads them, which at the
+// tiers a day uses (up to a few thousand members) is a launch's floor.
 //
 // The graph is assembled here from the spans' captured torch graphs
 // (torch.cuda.CUDAGraph(keep_graph=True).raw_cuda_graph()), each added
 // as a child-graph node (a clone); a conditional node's bodies are
-// graphs that the node owns. Every entry point returns a cudaError_t.
+// graphs that the node owns. A producing kernel sits in a captured span,
+// captured before the day graph and its handles exist, and each span is
+// cloned into up to four day graphs; so it reads its conditional's
+// handle from the graph set's handle table, which a memcpy node at the
+// head of each day graph fills with that graph's handles. A kernel in a
+// child graph or a conditional body may set a conditional of an
+// enclosing graph or of a nested body (kernels/cond_parts.py checks each
+// layout the day uses on the card). Every entry point returns a
+// cudaError_t.
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pick.cuh"
+
 namespace {
 
-// tier ceilings of one count: head · 3^k up to an int32 cap, from a
-// head of 1 (core/daygraph.py:MAX_ENDS)
-constexpr int MAX_ENDS = 24;
+using reina::Fold;
+using reina::MAX_ENDS;
+using reina::Pick;
 
-struct Pick {
-  const int* count[2];        // count[1] == nullptr: a pick of one count
-  int ends[2][MAX_ENDS];      // each count's tier ceilings, ascending
-  int n[2];                   // how many
-  int cap[2];                 // the count's clamp (< 0: none)
-  int bit[2];                 // problem bit where the count exceeds cap
-  int* picks;                 // (days, ncols) int32
-  const long long* counter;   // the row: the run's device day counter
-  int ncols, col;
-  int* tally;                 // one int32 a branch
-  int* problem;               // the carry's int32 problem bits
-  cudaGraphConditionalHandle handle;
-  int set;                    // 0: launched outside a graph, no handle
-};
+constexpr int MAX_THREADS = 1024;
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void pick_kernel(Pick a) {
-  unsigned branch = 0;
-  int bits = 0;
+__global__ void __launch_bounds__(MAX_THREADS)
+max_pick_kernel(const int* __restrict__ x, long long n, int* out, Fold f) {
+  __shared__ int wm[MAX_THREADS / 32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int m = INT_MIN;
+  for (long long i = threadIdx.x; i < n; i += MAX_THREADS)
+    m = max(m, __ldg(x + i));
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    if (a.count[k] == nullptr) continue;
-    const int x = *a.count[k];
-    if (a.bit[k] != 0 && x > a.cap[k]) bits |= a.bit[k];
-    const int y = (a.cap[k] >= 0 && x > a.cap[k]) ? a.cap[k] : x;
-    int b = 0;
-    while (b < a.n[k] - 1 && a.ends[k][b] < y) ++b;
-    branch = branch * (unsigned)a.n[k] + (unsigned)b;
+  for (int s = 16; s > 0; s >>= 1) m = max(m, __shfl_xor_sync(FULL, m, s));
+  if (lane == 0) wm[warp] = m;
+  __syncthreads();
+  if (warp != 0) return;
+  m = wm[lane];
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) m = max(m, __shfl_xor_sync(FULL, m, s));
+  if (lane == 0) {
+    *out = m;
+    reina::take_fold(f);
   }
-  a.picks[*a.counter * a.ncols + a.col] = (int)branch;
-  a.tally[branch] += 1;
-  if (bits != 0) *a.problem |= bits;
-  if (a.set) cudaGraphSetConditional(a.handle, branch);
-}
-
-int make_pick(Pick* a, const void* c0, const int* ends0, int n0, int cap0,
-              int bit0, const void* c1, const int* ends1, int n1, int cap1,
-              int bit1, void* picks, const void* counter, int ncols, int col,
-              void* tally, void* problem) {
-  *a = Pick{};
-  const void* cs[2] = {c0, c1};
-  const int* es[2] = {ends0, ends1};
-  const int ns[2] = {n0, n1};
-  const int caps[2] = {cap0, cap1};
-  const int bs[2] = {bit0, bit1};
-  if (c0 == nullptr || picks == nullptr || counter == nullptr ||
-      tally == nullptr || problem == nullptr || col < 0 || col >= ncols)
-    return (int)cudaErrorInvalidValue;
-  for (int k = 0; k < 2; ++k) {
-    if (cs[k] == nullptr) continue;
-    if (ns[k] < 1 || ns[k] > MAX_ENDS) return (int)cudaErrorInvalidValue;
-    a->count[k] = (const int*)cs[k];
-    a->n[k] = ns[k];
-    a->cap[k] = caps[k];
-    a->bit[k] = bs[k];
-    for (int i = 0; i < ns[k]; ++i) a->ends[k][i] = es[k][i];
-  }
-  a->picks = (int*)picks;
-  a->counter = (const long long*)counter;
-  a->ncols = ncols;
-  a->col = col;
-  a->tally = (int*)tally;
-  a->problem = (int*)problem;
-  return 0;
 }
 
 cudaError_t add_node(cudaGraphNode_t* node, cudaGraph_t graph,
@@ -114,25 +78,70 @@ cudaError_t add_node(cudaGraphNode_t* node, cudaGraph_t graph,
 
 }  // namespace
 
-#define PICK_ARGS                                                          \
-  const void *c0, const int *ends0, int n0, int cap0, int bit0,           \
-      const void *c1, const int *ends1, int n1, int cap1, int bit1,       \
-      void *picks, const void *counter, int ncols, int col, void *tally,  \
-      void *problem
-#define PICK_NAMES                                                         \
-  c0, ends0, n0, cap0, bit0, c1, ends1, n1, cap1, bit1, picks, counter,    \
-      ncols, col, tally, problem
+extern "C" int reina_fold_bytes() { return (int)sizeof(Fold); }
 
-// One pick launched on a stream, outside a graph (no conditional to set):
-// the kernel's check against its twin. c0: the first count (int32 on the
+// Pick i (0 or 1) of the Fold at `fold` (host memory, reina_fold_bytes()
+// bytes, zeroed by the caller); gate: the second pick only where the
+// first took a branch other than 0. c0: the first count (int32 on the
 // device); ends0: its n0 ceilings (host); cap0 < 0: no clamp; bit0: the
-// problem bit of a count above cap0; c1 ... bit1 the second count, c1 NULL
-// for none. The branch goes to picks[*counter * ncols + col].
-extern "C" int reina_pick(PICK_ARGS, void* stream) {
-  Pick a;
-  const int err = make_pick(&a, PICK_NAMES);
-  if (err != 0) return err;
-  pick_kernel<<<1, 1, 0, (cudaStream_t)stream>>>(a);
+// problem bit of a count above cap0; c1 ... bit1 the second count, c1
+// NULL for none. The branch goes to picks[*counter * ncols + col].
+// handle: the conditional's slot in the handle table on the device, NULL
+// for none.
+extern "C" int reina_fold_set(void* fold, int i, int gate, const void* c0,
+                              const int* ends0, int n0, int cap0, int bit0,
+                              const void* c1, const int* ends1, int n1,
+                              int cap1, int bit1, void* picks,
+                              const void* counter, int ncols, int col,
+                              void* tally, void* problem,
+                              const void* handle) {
+  Fold* f = (Fold*)fold;
+  if (f == nullptr || i < 0 || i > 1 || c0 == nullptr || picks == nullptr ||
+      counter == nullptr || tally == nullptr || problem == nullptr ||
+      col < 0 || col >= ncols)
+    return (int)cudaErrorInvalidValue;
+  Pick* a = &f->p[i];
+  *a = Pick{};
+  const void* cs[2] = {c0, c1};
+  const int* es[2] = {ends0, ends1};
+  const int ns[2] = {n0, n1};
+  const int caps[2] = {cap0, cap1};
+  const int bs[2] = {bit0, bit1};
+  for (int k = 0; k < 2; ++k) {
+    if (cs[k] == nullptr) continue;
+    if (ns[k] < 1 || ns[k] > MAX_ENDS) return (int)cudaErrorInvalidValue;
+    a->count[k] = (const int*)cs[k];
+    a->n[k] = ns[k];
+    a->cap[k] = caps[k];
+    a->bit[k] = bs[k];
+    for (int j = 0; j < ns[k]; ++j) a->ends[k][j] = es[k][j];
+  }
+  a->picks = (int*)picks;
+  a->counter = (const long long*)counter;
+  a->ncols = ncols;
+  a->col = col;
+  a->tally = (int*)tally;
+  a->problem = (int*)problem;
+  a->handle = (const unsigned long long*)handle;
+  if (f->n < i + 1) f->n = i + 1;
+  f->gate = gate;
+  return 0;
+}
+
+// out (int32 on the device) = the maximum of x[0, n) (int32, n >= 1),
+// then the picks of `fold` (host memory as reina_fold_set fills it; NULL:
+// none). events: NULL, or 2 CUDA events recorded before and after the
+// launch.
+extern "C" int reina_max_pick(const void* x, long long n, void* out,
+                              const void* fold, void* const* events,
+                              void* stream) {
+  if (x == nullptr || out == nullptr || n < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  Fold f = fold == nullptr ? Fold{} : *(const Fold*)fold;
+  if (events) cudaEventRecord((cudaEvent_t)events[0], st);
+  max_pick_kernel<<<1, MAX_THREADS, 0, st>>>((const int*)x, n, (int*)out, f);
+  if (events) cudaEventRecord((cudaEvent_t)events[1], st);
   return (int)cudaGetLastError();
 }
 
@@ -160,24 +169,15 @@ extern "C" int reina_dg_handle(void* graph, unsigned long long* handle) {
   return (int)err;
 }
 
-// The pick kernel as a node of `graph` after `dep`, setting `handle`.
-extern "C" int reina_dg_pick(void* graph, void* dep, PICK_ARGS,
-                             unsigned long long handle, void** node) {
-  Pick a;
-  const int err = make_pick(&a, PICK_NAMES);
-  if (err != 0) return err;
-  a.handle = (cudaGraphConditionalHandle)handle;
-  a.set = 1;
-  void* args[] = {&a};
-  cudaKernelNodeParams kp = {};
-  kp.func = (void*)pick_kernel;
-  kp.gridDim = dim3(1);
-  kp.blockDim = dim3(1);
-  kp.kernelParams = args;
+// A device-to-device copy of `bytes` from src to dst as a node of
+// `graph` after `dep` (the handle table's fill at a day graph's head).
+extern "C" int reina_dg_memcpy(void* graph, void* dep, void* dst,
+                               const void* src, long long bytes,
+                               void** node) {
   cudaGraphNode_t d = (cudaGraphNode_t)dep;
-  return (int)cudaGraphAddKernelNode((cudaGraphNode_t*)node,
-                                     (cudaGraph_t)graph, &d,
-                                     d == nullptr ? 0 : 1, &kp);
+  return (int)cudaGraphAddMemcpyNode1D(
+      (cudaGraphNode_t*)node, (cudaGraph_t)graph, &d, d == nullptr ? 0 : 1,
+      dst, src, (size_t)bytes, cudaMemcpyDeviceToDevice);
 }
 
 // A conditional node of `graph` after `dep`: kind 0 an if (size 1), kind

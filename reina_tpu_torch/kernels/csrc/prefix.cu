@@ -44,6 +44,14 @@
 // Values written inside the launch are read back through L2 (__ldcg):
 // another SM's L1 may hold the row totals that the offsets replaced.
 //
+// A count and its picks (csrc/pick.cuh): where the caller passes a count
+// pointer, thread 0 of CTA 0 writes the last prefix value as int32 (the
+// count of a mask's set positions, what the plain step takes as
+// cum[-1].to(int32)) once the carry fold is done, hs_last[nb - 1] +
+// carry[nb - 1], the same operations on the same operands as the last
+// output, and then makes the picks of its Fold: the day graph's tier
+// picks folded into the launch that produces their count.
+//
 // The sharded form keeps the global layout (rows of the whole agent
 // axis, the same logical blocks, the carry in block order) for one slab
 // of whole rows, [row0, row0 + Rl): a block may straddle two slabs. It
@@ -63,6 +71,8 @@
 // the unsharded output bit for bit.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include "pick.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -208,7 +218,7 @@ __device__ void fold_carries(const float* hs_last, int nb, float* carry) {
 __global__ void __launch_bounds__(THREADS)
 prefix_fused(const float* __restrict__ w, const int* __restrict__ codes,
              long long R, int n_seg, int blk, float* td, float* hs_last,
-             float* __restrict__ out) {
+             float* __restrict__ out, int* count, reina::Fold fold) {
   extern __shared__ float sm[];  // max(3 * blk, n_seg * G) floats
   cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x % 32;
@@ -241,6 +251,10 @@ prefix_fused(const float* __restrict__ w, const int* __restrict__ codes,
   grid.sync();
   if (threadIdx.x < 32) fold_carries(hs_last, nb, sm);
   __syncthreads();
+  if (count != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    *count = (int)(__ldcg(hs_last + nb - 1) + sm[nb - 1]);
+    reina::take_fold(fold);
+  }
   for (long long m = 0; m <= mine; ++m) {
     const long long g = blockIdx.x + m * gridDim.x;
     if (m > 0) load_rows(w, codes, R, g, rows);
@@ -358,11 +372,14 @@ prefix_emit_slab(const float* __restrict__ w, const int* __restrict__ codes,
 
 // n % 1024 == 0, (n / 128) % blk == 0, w and codes 16-byte aligned.
 // scratch (floats): n_seg * n / 128 row totals / offsets, then n_seg * G
-// block values. events: NULL, or 2 CUDA events recorded before and after
-// the launch.
+// block values. count: NULL, or an int32 on the device that takes the
+// last prefix value; fold: NULL, or the picks to make once it is written
+// (host memory, as daygraph.cu's reina_fold_set fills it). events: NULL,
+// or 2 CUDA events recorded before and after the launch.
 extern "C" int reina_concat_prefix(const void* w, const void* codes,
                                    void* out, void* scratch, long long n,
-                                   int n_seg, int blk, void* const* events,
+                                   int n_seg, int blk, void* count,
+                                   const void* fold, void* const* events,
                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   long long R = n / LANE;
@@ -384,7 +401,9 @@ extern "C" int reina_concat_prefix(const void* w, const void* codes,
   const float* wp = (const float*)w;
   const int* cp = (const int*)codes;
   float* op = (float*)out;
-  void* args[] = {&wp, &cp, &R, &n_seg, &blk, &td, &hs_last, &op};
+  int* np = (int*)count;
+  reina::Fold f = fold == nullptr ? reina::Fold{} : *(const reina::Fold*)fold;
+  void* args[] = {&wp, &cp, &R, &n_seg, &blk, &td, &hs_last, &op, &np, &f};
   if (events) cudaEventRecord((cudaEvent_t)events[0], st);
   err = cudaLaunchCooperativeKernel((const void*)prefix_fused, dim3(ctas),
                                     dim3(THREADS), args, smem, st);

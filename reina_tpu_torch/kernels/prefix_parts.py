@@ -68,7 +68,7 @@ def main() -> int:
                 build.check(fn(w.data_ptr(), None if c is None else
                                c.data_ptr(), out.data_ptr(),
                                scratch.data_ptr(), n, n_seg, blk, None,
-                               stream), name)
+                               None, None, stream), name)
 
             ms.append(checks.time_ms(call))
         print(f"{name:16s} n_seg 1 {ms[0]:.4f} ms  n_seg 2 {ms[1]:.4f} ms",

@@ -1,7 +1,7 @@
 """The spread of the HUS run's final all_infected over seeds, on the card.
 
     python -m reina_tpu_torch.mc_spread [--seeds 16] [--days 365]
-        [--out build/mc_spread.json]
+        [--out build/mc_spread.json] [--area NAME] [--curves PATH]
     torchrun --nproc-per-node K -m reina_tpu_torch.mc_spread --n-seed K ...
 
 Builds the default HUS configuration once (``random_seed`` 0) and runs
@@ -15,6 +15,11 @@ seeds it finished. The record holds the finals, their mean and std
 BENCH_MC.json's metric name, the card's name and power limit, and the
 record's bands: the mean within BENCH_MC.json's mean ± 3 std/√S and the
 std within the 99% chi-square band for S - 1 degrees of freedom.
+``--area`` builds another area of the defaults instead (its record has
+no reference and no bands: BENCH_MC.json is HUS's); ``--curves`` appends
+each seed's daily totals (all_infected, new_infections, all_detected,
+in_ward, in_icu, dead; one JSON line a seed, as the seed ends) to PATH,
+to set the mean curves of two runs side by side day by day.
 Runs on the card only.
 
 With ``--n-seed K`` under torchrun (K ranks, one card each: the seed
@@ -34,6 +39,9 @@ import numpy as np
 import torch
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the daily totals --curves keeps: their rows of DayOutputs.by_group
+CURVES = {"all_infected": 3, "new_infections": 12, "all_detected": 5,
+          "in_ward": 8, "in_icu": 6, "dead": 9}
 
 
 def bands(n: int, ref: dict) -> dict:
@@ -54,6 +62,10 @@ def main(argv=None) -> int:
                                                   "mc_spread.json"))
     ap.add_argument("--n-seed", type=int, default=1,
                     help="ranks on the seed axis (under torchrun)")
+    ap.add_argument("--area", default=None,
+                    help="an area other than the defaults' (HUS)")
+    ap.add_argument("--curves", default=None,
+                    help="a JSONL file that takes each seed's daily totals")
     args = ap.parse_args(argv)
 
     from .config.variables import VARIABLE_DEFAULTS
@@ -78,6 +90,9 @@ def main(argv=None) -> int:
     v = dict(VARIABLE_DEFAULTS)
     v["simulation_days"] = args.days
     v["random_seed"] = 0
+    if args.area is not None:
+        v["area_name"] = args.area
+    hus = v["area_name"] == VARIABLE_DEFAULTS["area_name"]
     t0 = time.perf_counter()
     run = build_run(v, dev)
     if lead:
@@ -98,8 +113,16 @@ def main(argv=None) -> int:
         wall = float(sum(seconds))
         if not lead:
             continue
+        if args.curves is not None:
+            with open(args.curves, "a") as f:
+                for i, s in enumerate(seeds):
+                    tot = outs.by_group[i].sum(-1)
+                    f.write(json.dumps({"seed": s, "area": v["area_name"], **{
+                        k: tot[:, j].tolist() for k, j in CURVES.items()}})
+                            + "\n")
         rec = {
             "metric": "hus_monte_carlo_seeds_per_hour_per_chip",
+            "area": v["area_name"], "n_agents": run.n_agents,
             "device": torch.cuda.get_device_name(dev),
             "nvidia_smi": smi[0] if smi else None,
             "cards": step,
@@ -111,11 +134,12 @@ def main(argv=None) -> int:
             "finals": finals,
             "final_all_infected_mean": float(np.mean(finals)),
             "final_all_infected_std": float(np.std(finals)),
-            "reference": {k: ref[k] for k in (
-                "n_seeds", "final_all_infected_mean",
-                "final_all_infected_std")},
         }
-        if len(finals) > 1:
+        if hus:
+            rec["reference"] = {k: ref[k] for k in (
+                "n_seeds", "final_all_infected_mean",
+                "final_all_infected_std")}
+        if hus and len(finals) > 1:
             b = bands(len(finals), ref)
             rec["bands"] = b
             rec["mean_in_band"] = bool(

@@ -8,6 +8,9 @@ on what the kernel does not take:
 
   * ``fused_concat_prefix``: the blockwise Hillis-Steele prefix with a
     serial carry, bit for bit the JAX package's association;
+    ``prefix_count`` also returns its last value as an int32 count,
+    written by the kernel, which there may also make the count's tier
+    picks (the graph runner's fold site, core/daygraph.py:Fold);
   * ``fused_onehot_sum``: exact integer histograms of masks by code;
   * ``fused_fn_onehot_sum``: the same, with the masks computed inside
     the kernel from raw field streams (one kernel per mask function);
@@ -349,9 +352,41 @@ def fused_concat_prefix(weights, codes, n_seg: int,
     kernels/csrc/prefix.cu, bit-identical to the twin, one launch).
     ``events``: None, or 2 recorded CUDA events the kernel records again
     before and after its launch (for timing)."""
+    return _prefix(weights, codes, n_seg, max_block_rows, events)[0]
+
+
+def prefix_count(weights, name=None, given=None, max_block_rows: int = 2048,
+                 events=None, site=None):
+    """The one-segment prefix of ``weights`` and its last value as a 0-d
+    int32, the count of a mask's set positions (the plain step's
+    ``cum[-1].to(int32)``); on CUDA the prefix kernel writes it in the
+    same launch. ``name``: the count's name, under which the graph
+    runner may have set a fold site (``kernels.fold_site``; ``site``
+    gives one explicitly): the count then goes into the site's buffer
+    and, unless the site is not armed (a warm-up), the launch also makes
+    the site's tier picks (on the CPU: the twin, then the picks' twin).
+    ``given``: {name: 0-d int32} the other counts those picks read."""
+    if site is None and name is not None:
+        site = kernels.fold_site(name)
+    if weights.device.type == "cpu":
+        cum = concat_prefix_twin(weights, None, 1, max_block_rows)
+        count = cum[-1].to(torch.int32)
+        if site is not None and site.armed:
+            site.twin({name: count, **(given or {})})
+        return cum, count
+    out = None if site is None else site.out
+    if out is None:
+        out = torch.empty((), dtype=torch.int32, device=weights.device)
+    fold = (site.args({name: out, **(given or {})})
+            if site is not None and site.armed else None)
+    return _prefix(weights, None, 1, max_block_rows, events, out, fold)
+
+
+def _prefix(weights, codes, n_seg, max_block_rows, events, count=None,
+            fold=None):
     dev = _same_device([weights] + ([] if codes is None else [codes]))
     if dev.type == "cpu":
-        return concat_prefix_twin(weights, codes, n_seg, max_block_rows)
+        return concat_prefix_twin(weights, codes, n_seg, max_block_rows), None
     N = weights.shape[0]
     if N % (8 * LANE) != 0:
         raise ValueError("fused_concat_prefix kernel needs N % 1024 == 0")
@@ -366,13 +401,19 @@ def fused_concat_prefix(weights, codes, n_seg: int,
     out = torch.empty(n_seg * N, dtype=torch.float32, device=dev)
     # row totals (then row offsets), then the blocks' last values
     scratch = torch.empty(n_seg * R + nb, dtype=torch.float32, device=dev)
-    kernels.launched("fused_concat_prefix")
+    if count is not None and (count.dtype != torch.int32 or count.numel() != 1
+                              or count.device != dev):
+        raise TypeError("fused_concat_prefix kernel writes its count into "
+                        "one int32 on the weights' device")
+    kernels.launched("fused_concat_prefix" if fold is None
+                     else "fused_concat_prefix.pick")
     build.check(build.lib().reina_concat_prefix(
         weights.data_ptr(), None if codes is None else codes.data_ptr(),
         out.data_ptr(), scratch.data_ptr(), N, n_seg, blk,
+        None if count is None else count.data_ptr(), fold,
         build.event_handles(events), build.stream_of(weights)),
         "fused_concat_prefix")
-    return out
+    return out, count
 
 
 # ---------------------------------------------------------------------------

@@ -228,10 +228,16 @@ def random_bits_twin(key, shape: Sequence[int], device,
     bit for bit (the counters are the flat positions), which is how an
     agent shard draws its slab of a global (N,) draw."""
     shape, n = _draw_shape(shape, start)
-    k1, k2 = _key_words(key)
     lo = torch.arange(start, start + n, dtype=torch.int32, device=device)
-    b1, b2 = _threefry_t(k1, k2, torch.zeros_like(lo), lo)
-    return b1.bitwise_xor_(b2).reshape(shape)
+    return _bits_at(key, lo).reshape(shape)
+
+
+def _bits_at(key, counters: torch.Tensor) -> torch.Tensor:
+    """The bits of a draw of ``key`` at the flat positions ``counters``
+    (int32): random_bits_twin's elements there."""
+    k1, k2 = _key_words(key)
+    b1, b2 = _threefry_t(k1, k2, torch.zeros_like(counters), counters)
+    return b1.bitwise_xor_(b2)
 
 
 def random_bits(key, shape: Sequence[int], device,
@@ -245,7 +251,18 @@ def random_bits(key, shape: Sequence[int], device,
 def uniform_twin(key, shape, device, minval: float = 0.0,
                  maxval: float = 1.0, start: int = 0) -> torch.Tensor:
     """jax.random.uniform in float32 (``start``: see random_bits_twin)."""
-    bits = random_bits_twin(key, shape, device, start)
+    return _uniform_of(random_bits_twin(key, shape, device, start), minval,
+                       maxval)
+
+
+def uniform_twin_at(key, counters: torch.Tensor, minval: float = 0.0,
+                    maxval: float = 1.0) -> torch.Tensor:
+    """uniform_twin's elements at the flat positions ``counters`` (int32,
+    1-D) of a draw of ``key``, of any shape that holds them."""
+    return _uniform_of(_bits_at(key, counters), minval, maxval)
+
+
+def _uniform_of(bits, minval: float, maxval: float) -> torch.Tensor:
     fb = (bits >> 9).bitwise_and_(0x7FFFFF).bitwise_or_(0x3F800000)
     floats = fb.view(torch.float32) - 1.0
     lo, scale = affine(minval, maxval)

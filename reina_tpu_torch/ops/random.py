@@ -208,12 +208,29 @@ def gamma_fixed_pair(key1, kappa1: float, key2, kappa2: float, shape,
                          rounds, "gamma_fixed_pair")
 
 
-def _binomial_inversion(key, n, p, max_count: int = 48):
+def _lane_uniform(key, n, at, minval: float = 0.0):
+    """The uniforms of a draw of ``key`` for lanes ``n``: at every flat
+    position of n's shape, or (``at``, int32) at those positions of a
+    larger draw whose lanes n holds."""
+    if at is None:
+        return prng.uniform_twin(key, n.shape, n.device, minval=minval)
+    return prng.uniform_twin_at(key, at, minval=minval)
+
+
+def _all_settled(settled) -> bool:
+    """Whether every lane has settled, so that the rounds or steps left
+    change nothing (asked on the CPU only: on a card the twin reads
+    nothing on the host)."""
+    return settled.device.type == "cpu" and bool(settled.all())
+
+
+def _binomial_inversion(key, n, p, max_count: int = 48, at=None):
     """Binomial by CDF inversion over a fixed horizon: exact for counts
-    < max_count, clamped above (for n·p ≲ 10)."""
+    < max_count, clamped above (for n·p ≲ 10). ``at``: see
+    :func:`_lane_uniform`."""
     n = n.to(F32)
     p = torch.clamp(p.to(F32), 0.0, 1.0)
-    u = prng.uniform_twin(key, n.shape, n.device)
+    u = _lane_uniform(key, n, at)
     q = torch.clamp_min(1.0 - p, 1e-37)
     f = torch.exp(n * torch.log(q))
     ratio = p / q
@@ -221,6 +238,8 @@ def _binomial_inversion(key, n, p, max_count: int = 48):
     count = torch.zeros_like(n)
     settled = u < f
     for k in range(max_count):
+        if _all_settled(settled):
+            break
         # / (k + 1) as torch on CUDA divides by a Python scalar: times its
         # float32 reciprocal, written out so the CPU computes the same
         inv = float(np.float32(1.0) / np.float32(k + 1.0))
@@ -237,9 +256,10 @@ def _fc(x):
     return 1.0 / (12.0 * x) - 1.0 / (360.0 * _cube(x))
 
 
-def _binomial_btrs(key, n, p, rounds: int = 6):
+def _binomial_btrs(key, n, p, rounds: int = 6, at=None):
     """Binomial by BTRS transformed rejection (Hörmann 1993) with fixed
-    rounds; needs n·p ≥ 10 and p ≤ 0.5."""
+    rounds; needs n·p ≥ 10 and p ≤ 0.5. ``at``: see
+    :func:`_lane_uniform`."""
     n = n.to(F32)
     p = torch.clamp(p.to(F32), 1e-9, 0.5)
     q = 1.0 - p
@@ -271,9 +291,11 @@ def _binomial_btrs(key, n, p, rounds: int = 6):
     out = torch.full_like(n, float("nan"))
     done = torch.zeros(n.shape, dtype=torch.bool, device=n.device)
     for rk in prng.split(key, rounds):
+        if _all_settled(done):
+            break
         ku, kv = prng.split(rk)
-        u = prng.uniform_twin(ku, n.shape, n.device) - 0.5
-        v = prng.uniform_twin(kv, n.shape, n.device, minval=1e-37)
+        u = _lane_uniform(ku, n, at) - 0.5
+        v = _lane_uniform(kv, n, at, minval=1e-37)
         us = 0.5 - torch.abs(u)
         k = torch.floor((2.0 * a / us + b) * u + c_)
         in_range = (k >= 0) & (k <= n)
@@ -287,6 +309,11 @@ def _binomial_btrs(key, n, p, rounds: int = 6):
     return torch.where(done, out, torch.round(n * p))
 
 
+def _lanes(mask) -> torch.Tensor:
+    """The flat positions where ``mask`` (1-D) holds, as int32."""
+    return torch.nonzero(mask).reshape(-1).to(torch.int32)
+
+
 def binomial_fixed_twin(key, n, p, rounds: int = 6):
     """Binomial(n, p), while-free: inversion for n·p ≤ 10, BTRS above,
     p > 0.5 by flipping."""
@@ -297,12 +324,24 @@ def binomial_fixed_twin(key, n, p, rounds: int = 6):
     mean = n * p_eff
     k_inv, k_btrs = prng.split(prng.host_key(key))
     small_m = mean <= 10.0
-    small = _binomial_inversion(k_inv, n,
-                                torch.where(small_m, p_eff, 0.0))
-    big = _binomial_btrs(k_btrs, torch.where(mean > 10.0, n, 100.0),
-                         torch.where(mean > 10.0, p_eff, 0.2), rounds)
-    cnt = torch.where(small_m, small, big)
-    cnt = torch.minimum(torch.clamp_min(cnt, 0.0), n)
+    # each branch on its own lanes, drawing at their flat positions (the
+    # same uniforms as a draw over all lanes): the inversion on small
+    # lanes that can draw (n = 0 or p_eff = 0 counts 0 there), BTRS on
+    # the rest, a lane whose mean is not above 10 (NaN) as n = 100,
+    # p = 0.2
+    fn, fp = n.reshape(-1), p_eff.reshape(-1)
+    cnt = torch.zeros_like(fn)
+    inv = _lanes(small_m.reshape(-1) & (fn > 0) & (fp > 0))
+    if inv.numel():
+        cnt[inv.long()] = _binomial_inversion(k_inv, fn[inv.long()],
+                                              fp[inv.long()], at=inv)
+    big = _lanes(~small_m.reshape(-1))
+    if big.numel():
+        b = big.long()
+        m_b = mean.reshape(-1)[b] > 10.0
+        cnt[b] = _binomial_btrs(k_btrs, torch.where(m_b, fn[b], 100.0),
+                                torch.where(m_b, fp[b], 0.2), rounds, at=big)
+    cnt = torch.minimum(torch.clamp_min(cnt.reshape(n.shape), 0.0), n)
     return torch.where(flip, n - cnt, cnt)
 
 

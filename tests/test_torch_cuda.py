@@ -592,13 +592,15 @@ def test_graphed_run_equals_eager():
     days among them) as day graphs and with the plain day step: every
     output row, the final state and the final carry equal bit for bit,
     the device's picks equal the host's, every kernel launched as often
-    (the spans' and branches' tallies, one pick launch a conditional
-    run) beside the warm-ups' launches, one day-graph launch and no host
-    read a day, the tracing spans
+    (the spans' and branches' tallies; the prefix launches with picks
+    among the eager run's prefix launches, one a fold's first pick, and
+    one reduce-and-pick for each of T2's and T4's picks) beside the
+    warm-ups' launches, one day-graph launch and no host read a day, the
+    tracing spans
     captured, and the second run of the build captures nothing."""
     _need_cuda()
     from reina_tpu_torch import convert
-    from reina_tpu_torch.core import graphs, step
+    from reina_tpu_torch.core import daygraph, graphs, step
     from reina_tpu_torch.core.engine import run_days
     from reina_tpu_torch.testing import build_synthetic_run
     run = build_synthetic_run("cuda", n_agents=20000, days=25, seed=3,
@@ -607,7 +609,8 @@ def test_graphed_run_equals_eager():
     host_picks = []
     want = run_days(run, chunk_days=8, graphs=False, picks=host_picks)
     eager_launches = kernels.launches()
-    picked = int((np.array(host_picks) >= 0).sum())   # a pick a column
+    fused = daygraph.fold_launches(host_picks)
+    assert fused["fused_concat_prefix.pick"] and fused["daygraph.max_pick"]
     graphs.drop_idle()
     for captures in (True, False):
         kernels.reset_launches()
@@ -618,13 +621,17 @@ def test_graphed_run_equals_eager():
         np.testing.assert_array_equal(np.array(dev_picks),
                                       np.array(host_picks))
         launches = kernels.launches()
-        assert launches.pop("daygraph.pick") == picked
         # the day graphs' warm-ups launch eagerly and count apart too
         warm = kernels.warmups()
         assert bool(warm) == captures
+        assert launches.pop("daygraph.max_pick") == (
+            fused["daygraph.max_pick"] + warm.get("daygraph.max_pick", 0))
+        n = launches.pop("fused_concat_prefix.pick")
+        assert n == fused["fused_concat_prefix.pick"]
+        launches["fused_concat_prefix"] += n
         assert launches == {k: v + warm.get(k, 0)
                             for k, v in eager_launches.items()
-                            if k != "daygraph.pick"}
+                            if k not in fused}
         assert (st.get("captures", 0) > 0) == captures, st
         assert st["launches"] == st["days"] == 24 and "reads" not in st
         for name, a, b in zip(want[0]._fields, want[0], got[0]):
@@ -681,30 +688,34 @@ def test_capture_failure_raises():
 
 
 def test_pick_kernel_matches_twin():
-    """The day graph's pick kernel against its twin at every branch of
-    every pick of a tracing day and past each cap (checks.pick_check):
-    the picks row, the branch tally and the problem bits (with the
-    overflow bits), exact; one launch a pick."""
+    """The tier picks folded into their producers (the prefix with its
+    picks, the reduce-and-pick) against their twins (the producer's twin,
+    then the picks' twin) at every branch of every pick of a tracing day
+    and past each cap (checks.fold_checks, at the HUS agent count): the
+    producer's outputs, the picks row, the branch tallies and the problem
+    bits (with the overflow bits), exact; one launch a case."""
     _need_cuda()
-    from reina_tpu_torch.core import step
+    from reina_tpu_torch.core import daygraph, step
     from reina_tpu_torch.kernels import checks
-    cases = checks.pick_cases(step.EngineConfig())
-    for name in step.PICK_COLS:
-        node = [n for n, _ in cases if n.name == name][0]
-        n = 2 if isinstance(node, step.If) else len(node.keys())
-        branches = set()
-        for nd, xs in cases:
-            if nd.name == name:
-                b = 0
-                for p, x in zip(nd.picks, xs):
-                    b = b * len(p.ends) + step.tier_branch(p, x)
-                branches.add(b)
-        assert branches == set(range(n)), name
-    c = checks.pick_check("cuda")
-    before = kernels.launches()["daygraph.pick"]
-    r = checks.run_check(c, timing=False)
-    assert kernels.launches()["daygraph.pick"] - before == 1 + len(cases)
-    assert r.ok, r
+    cfg = step.EngineConfig()
+    cases = checks.fold_cases(cfg, checks.HUS_N)
+    for name in daygraph.FOLDS:
+        for node in daygraph.fold_nodes(cfg, name):
+            n = 2 if isinstance(node, step.If) else len(node.keys())
+            branches = set()
+            for f, counts in cases:
+                if f == name:
+                    b = 0
+                    for p in node.picks:
+                        b = b * len(p.ends) + step.tier_branch(p, counts[
+                            p.src])
+                    branches.add(b)
+            assert branches == set(range(n)), node.name
+    for c in checks.fold_checks(checks.HUS_N, 0, "cuda"):
+        before = kernels.launches()[c.name]
+        r = checks.run_check(c, timing=False)
+        assert kernels.launches()[c.name] - before == 1 + len(c.extra)
+        assert r.ok, r
 
 
 @pytest.mark.parametrize("day", [10, 18], ids=["plain_day", "tracing_day"])

@@ -315,3 +315,32 @@ def test_calibrate_cli(monkeypatch):
     assert {json.loads(ln[19:])["infectiousness_multiplier"]
             for ln in lines[1:3]} == {0.3, 0.9}
     assert lines[3] == "best: " + lines[1][19:]
+
+
+def test_mc_compare_paired_and_parting(tmp_path):
+    """mc_compare on two made-up spreads of 4 seeds: B is A plus 5,000 on
+    every seed from stepped day 5 on (all_infected only), so the means
+    differ by 5,000, the paired difference is 5,000 ± 0, and all_infected's
+    mean curves stay apart from day 5 while the other totals never part."""
+    from reina_tpu_torch import mc_compare
+    r = np.random.default_rng(3)
+    a_path, b_path = tmp_path / "a.jsonl", tmp_path / "b.jsonl"
+    with open(a_path, "w") as fa, open(b_path, "w") as fb:
+        for s in range(4):
+            rec = {k: r.integers(1000, 2000, 20).tolist()
+                   for k in mc_compare.TOTALS}
+            fa.write(json.dumps({"seed": s, **rec}) + "\n")
+            rec["all_infected"] = [x + (5000 if d >= 4 else 0)
+                                   for d, x in enumerate(rec["all_infected"])]
+            fb.write(json.dumps({"seed": s, "final": 0, **rec}) + "\n")
+    res = mc_compare.compare(mc_compare.load(str(a_path)),
+                             mc_compare.load(str(b_path)), [5, 20])
+    assert res["a"]["seeds"] == res["b"]["seeds"] == 4
+    assert res["diff"] == pytest.approx(5000.0)
+    assert res["paired"] == {"seeds": 4, "mean": 5000.0, "se": 0.0}
+    assert res["b"]["curve_mean"][20] - res["a"]["curve_mean"][20] == \
+        pytest.approx(5000.0)
+    first = res["first_day_apart"]
+    assert first["all_infected"] == 5
+    assert all(first[k] is None for k in mc_compare.TOTALS
+               if k != "all_infected")

@@ -94,7 +94,7 @@ class Spy(graphs.GraphSet):
 
 
 # the counts the picks read, in the handoff buffers
-COUNTS = ("counts", "fill_max", "n_f", "fill2_max", "n_new")
+COUNTS = ("ct_cases", "n_d", "fill_max", "n_f", "fill2_max", "n_new")
 
 
 def _np(state, carry, out):
@@ -247,7 +247,7 @@ def test_tiers_match_jax_tier_bounds(runs):
         spans = {e[1]: e[2] for e in log}
         col = dict(zip(S.PICK_COLS, row))
         if col["T"] == 1:
-            ct_cases, n_d = cnt["counts"]
+            ct_cases, n_d = cnt["ct_cases"], cnt["n_d"]
             assert ct_cases > 0
             assert spans["T1"] == (jax_pick(*mem, min(n_d, Tcap)),)
             assert spans["T2"] == (spans["T1"][0],
@@ -263,6 +263,33 @@ def test_tiers_match_jax_tier_bounds(runs):
                                        min(cnt["n_new"], Tcap)),)
         checked.add("C")
     assert checked == {"T1", "T2", "T3", "T4", "C"}
+
+
+def test_model_tallies_and_bits_match_host_picks(runs):
+    """(c) the model makes each pick inside the launch of its count's
+    producer (daygraph.FOLDS; there is no pick of its own): on untraced
+    and tracing days, its branch tallies count the host's picks of both
+    starts' days branch by branch, every fold's first pick was made on
+    the days its producer ran, and the problem bits equal the plain
+    step's every day."""
+    gs = runs["gs"]
+    rows = np.array(runs["first"]["rows"] + runs["again"]["rows"])
+    traced = rows[:, S.PICK_COLS.index("T")] == 1
+    assert traced.any() and (~traced).any()
+    tally = gs.tally.numpy()
+    for name, (col, slot, n) in gs.layout.items():
+        picked = rows[:, col]
+        np.testing.assert_array_equal(
+            tally[slot:slot + n],
+            np.bincount(picked[picked >= 0], minlength=n), err_msg=name)
+    spans = [{e[1] for e in log} for log in runs["first"]["logs"]]
+    made = daygraph.fold_launches(runs["first"]["rows"])
+    assert made["fused_concat_prefix.pick"] == sum(
+        ("AB" in s or "B" in s) + ("A" in s) + ("T2" in s) for s in spans)
+    assert made["daygraph.max_pick"] == sum(
+        ("T1" in s) + ("T3" in s) for s in spans)
+    for d, (want, got) in enumerate(zip(runs["ref"], runs["first"]["days"])):
+        assert want["carry.problem"] == got["carry.problem"], d
 
 
 def test_packed_fetch_matches_jax_pack_leaves(runs):

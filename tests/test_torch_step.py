@@ -201,7 +201,8 @@ def test_runs_without_jax(tmp_path):
     """With jax, the JAX package and pandas all unimportable, the port
     builds and runs a synthetic run with a checkpoint, resumes from it,
     runs it through the day-graph model (and a second build of its shapes
-    on the same graph set),
+    on the same graph set), makes the fused tier picks' CPU form, imports
+    the conditional-node probe and the seed-spread tools,
     its CLI simulates a small area and samples the explorer on the CPU,
     its GraphQL server answers an area and an explorer query, and it
     runs an ensemble (also on a mesh of one rank over torch.distributed),
@@ -229,6 +230,12 @@ def test_runs_without_jax(tmp_path):
         "picks = []\n"
         "g = run_days(run, graphs=True, picks=picks)[0]\n"
         "assert (g.by_group == out.by_group).all() and len(picks) == 2\n"
+        # the fused tier picks' CPU form, the probe of their graph layouts
+        "from reina_tpu_torch.kernels import checks, cond_parts\n"
+        "k, t = checks._fold_pair('n_d', {'ct_cases': 1, 'n_d': 9}, 2048,"
+        " 'cpu')\n"
+        "assert all(torch.equal(a, b) for a, b in zip(k(), t()))\n"
+        "import reina_tpu_torch.mc_spread, reina_tpu_torch.mc_compare\n"
         # a build of the same shapes with other values reuses the set
         "run2 = build_synthetic_run('cpu', n_agents=3000, days=3, seed=2,"
         " hospital_beds=70)\n"
