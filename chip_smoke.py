@@ -152,6 +152,8 @@ CLI_DAYS = 30
 ENS_DAYS = 61
 GRID = [0.35, 0.55, 0.7]
 MESH_DAYS = 31
+# a mesh phase's ranks are killed after this many seconds
+MESH_CHILD_S = 150
 MESH_SEEDS = [0, 1, 2]
 CLI_GRID = [0.45, 0.65]
 POLL_S = 0.5
@@ -720,12 +722,14 @@ def ensemble_phase(run, v, out, one_run_bytes: int, run_bytes: int) -> None:
 
 def mesh_kernels(results: dict) -> dict:
     """The sharded ledger and prefix at HUS shape for 2, 4 and 8 slabs,
-    slab by slab in this process; returns the 2-slab results (the
-    layout of the two-rank run) by name."""
+    slab by slab in this process, and the sharded prefix's emit with its
+    count and picks; returns the 2-slab results (the layout of the
+    two-rank run) by name."""
     from reina_tpu_torch.kernels import checks
 
     unsharded = {"ledger_sharded": "ledger_scan",
-                 "concat_prefix_sharded": "fused_concat_prefix"}
+                 "concat_prefix_sharded": "fused_concat_prefix",
+                 "concat_prefix_sharded.pick": "fused_concat_prefix.pick"}
     out = {}
     for k in (2, 4, 8):
         for c in checks.sharded_checks(checks.HUS_N, 0, "cuda", k):
@@ -734,30 +738,51 @@ def mesh_kernels(results: dict) -> dict:
             lib = "none" if r.library_ms is None else f"{r.library_ms:.4f} ms"
             print(f"mesh kernel {c.name} k={k}: ok={r.ok} "
                   f"mismatches={r.mismatches} (against its twin and the "
-                  f"unsharded kernel and twin; offsets 0, N-1, inside slab "
-                  f"0's last tile) all {k} slabs {r.ms:.4f} ms, unsharded "
-                  f"kernel {one.ms:.4f} ms; twin {r.plain_ms:.4f} ms, "
-                  f"library {lib}, bound {r.bound_ms:.4f} ms ({r.bound_by})")
+                  f"unsharded kernel and twin; the ledger at offsets 0, "
+                  f"N-1, inside slab 0's last tile and from device memory "
+                  f"on and across the slab edges; the count and picks at "
+                  f"every branch of every prefix fold) all {k} slabs "
+                  f"{r.ms:.4f} ms, unsharded kernel {one.ms:.4f} ms; twin "
+                  f"{r.plain_ms:.4f} ms, library {lib}, bound "
+                  f"{r.bound_ms:.4f} ms ({r.bound_by})")
             if not r.ok:
                 fail(f"mesh: {c.name} over {k} slabs disagrees")
             if k == 2:
                 out[c.name] = (c, r)
+        host, dev = checks.sharded_ledger_offset_ms(checks.HUS_N, 0, "cuda",
+                                                    k)
+        print(f"mesh kernel ledger_sharded k={k}: all {k} slabs with the "
+              f"offset a host int {host:.4f} ms, read from device memory "
+              f"{dev:.4f} ms ({dev / host:.3f}x)")
     return out
 
 
+# the sharded forms' launch counts (kernels.LAUNCHES)
+SHARDED = ("ledger_sharded.fold", "ledger_sharded.emit",
+           "concat_prefix_sharded.totals", "concat_prefix_sharded.emit",
+           "concat_prefix_sharded.pick")
+
+
 def mesh_child(rank: int, world: int, port: int, backend: str,
-               work: str) -> None:
+               work: str, days: int) -> None:
     """One rank of the mesh phase (run as ``chip_smoke.py --mesh-child``):
-    (a) the agent axis, (b) the seed axis; results into ``work``."""
+    (a) the agent axis for ``days`` days with the plain day step and,
+    over NCCL, graphed (a first run that builds the graph set, then
+    again on it), (b) the seed axis; results into ``work``."""
     import numpy as np
     import torch
     from reina_tpu_torch import convert, kernels
     from reina_tpu_torch.config.variables import VARIABLE_DEFAULTS
+    from reina_tpu_torch.core import graphs as G
+    from reina_tpu_torch.core import step
     from reina_tpu_torch.core.engine import build_run, run_days
     from reina_tpu_torch.ensemble import run_ensemble
     from reina_tpu_torch.kernels import build
     from reina_tpu_torch.parallel import mesh as M
 
+    import faulthandler
+    # a rank still running near the parent's deadline prints where it is
+    faulthandler.dump_traceback_later(MESH_CHILD_S - 40, exit=False)
     build.lib()                 # built by the parent: loaded here
     dev = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
     M.init_distributed(f"tcp://127.0.0.1:{port}", world, rank, backend)
@@ -765,22 +790,40 @@ def mesh_child(rank: int, world: int, port: int, backend: str,
     v["simulation_days"] = DAYS
     run = build_run(v, dev)
     rec = {"rank": rank, "device": str(dev)}
-
     agents = M.make_mesh(1, world, device=dev)
-    torch.cuda.synchronize()
-    kernels.reset_launches()
-    M.reset_stats()
-    t0 = time.perf_counter()
-    out, state, _, _ = run_days(run, n_days=MESH_DAYS, chunk_days=MESH_DAYS,
-                                mesh=agents)
-    torch.cuda.synchronize()
-    rec["agent_s"] = time.perf_counter() - t0
-    rec["launches"] = kernels.launches()
-    rec["stats"] = M.stats()
-    np.savez(os.path.join(work, f"agent_{rank}.npz"),
-             **{"out__" + k: np.asarray(x) for k, x in zip(out._fields, out)},
-             **{"st__" + k: x for k, x in convert.to_numpy(state).items()})
-    del out, state
+
+    def agent_run(label, graphs):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        M.reset_stats()
+        step.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        picks = []
+        t0 = time.perf_counter()
+        out, state, _, _ = run_days(run, n_days=days, mesh=agents,
+                                    graphs=graphs, picks=picks)
+        torch.cuda.synchronize()
+        rec[label] = {"s": time.perf_counter() - t0,
+                      "launches": kernels.launches(),
+                      "warmups": kernels.warmups(), "stats": M.stats(),
+                      "step": dict(step.STATS),
+                      "peak": torch.cuda.max_memory_allocated(),
+                      "picks": np.asarray(picks).tolist()}
+        np.savez(os.path.join(work, f"{label}_{rank}.npz"),
+                 **{"out__" + k: np.asarray(x)
+                    for k, x in zip(out._fields, out)},
+                 **{"st__" + k: x
+                    for k, x in convert.to_numpy(state).items()})
+
+    # the graphed runs share one graph set; it is freed when the scope
+    # ends, before the communicators are destroyed
+    with G.reusing():
+        for label, graphs in (("plain", False), ("graphed", True),
+                              ("again", True))[:3 if backend == "nccl"
+                                               else 1]:
+            agent_run(label, graphs)
+            print(f"rank {rank}: agent axis {label} done in "
+                  f"{rec[label]['s']:.3f} s", flush=True)
 
     seeds = M.make_mesh(world, 1, device=dev)
     M.reset_stats()
@@ -789,117 +832,203 @@ def mesh_child(rank: int, world: int, port: int, backend: str,
     torch.cuda.synchronize()
     rec["seed_s"] = time.perf_counter() - t0
     rec["seed_members"] = len(M.batch_placement(seeds, MESH_SEEDS))
+    print(f"rank {rank}: seed axis done in {rec['seed_s']:.3f} s",
+          flush=True)
     if rank == 0:
         np.savez(os.path.join(work, "ensemble.npz"),
                  **{k: x for k, x in zip(ens._fields, ens)})
     with open(os.path.join(work, f"rank_{rank}.json"), "w") as f:
         json.dump(rec, f)
+    # the communicators' teardown, which the parent's deadline bounds
+    t0 = time.perf_counter()
     torch.distributed.destroy_process_group()
+    with open(os.path.join(work, f"down_{rank}.txt"), "w") as f:
+        f.write(f"{time.perf_counter() - t0:.3f}")
 
 
-def mesh_phase(run, out, ens, ens_ms_day: float, world: int = 2) -> dict:
+def sharded_launches(la: dict, warm: dict, picks, steps: int,
+                     graphed: bool, phase: str) -> None:
+    """A rank's launches of an agent-sharded run of ``steps`` days,
+    exactly: each per-day kernel once a day, the sharded ledger's two
+    entries once a day, the sharded prefix's emit once a day alone
+    (cum_cat) and once a fold's first pick with its count and picks
+    (n_new every day, n_d and n_f on tracing days; in the plain step,
+    alone), its row totals before each emit, the reduce-and-pick once a
+    T2 or T4 pick; the graph warm-ups' launches beside them; no launch of
+    the unsharded ledger or prefix."""
+    from reina_tpu_torch.core import daygraph
+    folds = daygraph.fold_launches(picks, sharded=True)
+    made = folds["concat_prefix_sharded.pick"] if graphed else 0
+    counted = 2 * steps + sum(1 for r in picks if r[0] >= 0) \
+        + sum(1 for r in picks if r[3] >= 0) - made
+    want = ({k: steps for k in DAILY if k != "ledger_scan"}
+            | {k: 2 * steps for k in TWICE}
+            | {"ledger_sharded.fold": steps, "ledger_sharded.emit": steps,
+               "concat_prefix_sharded.emit": counted,
+               "concat_prefix_sharded.pick": made,
+               "daygraph.max_pick": (folds["daygraph.max_pick"]
+                                     if graphed else 0),
+               "ledger_scan": 0, "fused_concat_prefix": 0,
+               "fused_concat_prefix.pick": 0, "fused_onehot_sum": 1})
+    for k, n in want.items():
+        n += warm.get(k, 0)
+        if la.get(k, 0) != n:
+            fail(f"{phase}: launched {k} {la.get(k, 0)} times, want {n}")
+    tot = la["concat_prefix_sharded.emit"] + la["concat_prefix_sharded.pick"]
+    if la["concat_prefix_sharded.totals"] != tot:
+        fail(f"{phase}: {la['concat_prefix_sharded.totals']} row totals "
+             f"launches for {tot} emits")
+    check_launched(la, {"prng.draw": DRAWS_A_DAY * steps}, phase)
+
+
+def mesh_phase(run, out, state, ens, ens_ms_day: float, world: int = 2,
+               one: dict = None) -> dict:
     """``world`` ranks on the card(s): the agent axis against the main
-    path, the seed axis against the ensemble phase. Returns rank 0's
-    launches of the agent-sharded run."""
+    path (``out``, ``state``: its rows and final state for the phase's
+    days), the seed axis against the ensemble phase. ``one``: the
+    one-card graphed and plain ms/day and the host's picks of those
+    days. Returns rank 0's launches of its last agent-sharded run."""
     import numpy as np
     import torch
-    from reina_tpu_torch.core.engine import run_days
 
     t_phase = time.perf_counter()
     backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    days = len(out.r)
+    steps = days - 1
     layout = (f"one rank a card, cuda:0-{world - 1}" if backend == "nccl"
               else f"all {world} ranks on cuda:0")
-    print(f"mesh: {world} ranks over {backend}, {layout}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, st31, _, _ = run_days(run, n_days=MESH_DAYS, chunk_days=MESH_DAYS)
-    torch.cuda.synchronize()
-    one_ms = (time.perf_counter() - t0) / (MESH_DAYS - 1) * 1000
+    print(f"mesh: {world} ranks over {backend}, {layout}, {steps} days")
+    if backend == "gloo":
+        print("mesh: the graphed agent axis captures its collectives, "
+              "which NCCL runs and gloo cannot; NCCL refuses two ranks on "
+              "one GPU, so it needs a card a rank (python3 chip_smoke.py "
+              "--mesh K on K cards): here the plain day step")
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
     here = os.path.dirname(os.path.abspath(__file__))
+    labels = ("plain", "graphed", "again") if backend == "nccl" \
+        else ("plain",)
     with tempfile.TemporaryDirectory(dir=here) as work:
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--mesh-child",
-             str(r), str(world), str(port), backend, work], cwd=here,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(world)]
-        try:
-            logs = [p.communicate(timeout=600)[0] for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait()
-        for r, (p, log) in enumerate(zip(procs, logs)):
+        # each rank's output into a file of its own: ranks blocked on a
+        # full pipe would stall the others in their collectives
+        paths = [os.path.join(work, f"rank_{r}.log") for r in range(world)]
+        procs = []
+        for r, path in enumerate(paths):
+            with open(path, "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--mesh-child", str(r), str(world), str(port), backend,
+                     work, str(days)], cwd=here, stdout=log,
+                    stderr=subprocess.STDOUT,
+                    env=dict(os.environ, NCCL_DEBUG=os.environ.get(
+                        "NCCL_DEBUG", "WARN"))))
+        deadline = time.time() + MESH_CHILD_S
+        while time.time() < deadline and any(p.poll() is None
+                                             for p in procs):
+            time.sleep(0.5)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for r, (p, path) in enumerate(zip(procs, paths)):
             if p.returncode != 0:
-                fail(f"mesh: rank {r} exited {p.returncode}:\n{log[-3000:]}")
-        recs = []
+                tails = "\n".join(
+                    f"--- rank {q}:\n" + open(x).read()[-2500:]
+                    for q, x in enumerate(paths))
+                fail(f"mesh: rank {r} exited {p.returncode} (killed after "
+                     f"{MESH_CHILD_S} s where negative):\n{tails}")
+        recs, down = [], []
         for r in range(world):
             with open(os.path.join(work, f"rank_{r}.json")) as f:
                 recs.append(json.load(f))
-        steps = MESH_DAYS - 1
-        slabs = []
-        for r, rec in enumerate(recs):
-            z = np.load(os.path.join(work, f"agent_{r}.npz"))
-            for name in out._fields:
-                if not np.array_equal(z["out__" + name],
-                                      getattr(out, name)[:MESH_DAYS]):
-                    fail(f"mesh (a): rank {r}'s {name} differs from the "
-                         f"main path's rows 0-{steps}")
-            slabs.append(z)
-            la, st = rec["launches"], rec["stats"]
-            want = ({k: steps for k in DAILY if k != "ledger_scan"}
-                    | {k: 2 * steps for k in TWICE}
-                    | {"ledger_sharded.fold": steps,
-                       "ledger_sharded.emit": steps,
-                       "concat_prefix_sharded.totals": 2 * steps,
-                       "concat_prefix_sharded.emit": 2 * steps,
-                       "ledger_scan": 0, "fused_concat_prefix": 0,
-                       "fused_concat_prefix.pick": 0,
-                       "fused_onehot_sum": 1})
-            for k, n in want.items():
-                if la.get(k, 0) != n:
-                    fail(f"mesh (a): rank {r} launched {k} {la.get(k, 0)} "
-                         f"times, want {n}")
-            check_launched(la, {"prng.draw": DRAWS_A_DAY * steps},
-                           f"mesh (a) rank {r}")
-            print(f"mesh (a) agent axis, rank {r} on {rec['device']}: "
-                  f"{steps} days in {rec['agent_s']:.3f} s, "
-                  f"{rec['agent_s'] / steps * 1000:.2f} ms/day "
-                  f"({rec['agent_s'] / steps * 1000 / one_ms:.2f}x one rank's "
-                  f"{one_ms:.2f} ms/day on this card); collectives "
-                  f"{st['calls'] / steps:.1f}/day, "
-                  f"{st['bytes'] / steps / 1e6:.3f} MB/day "
-                  f"(staged through the host: {st['staged_calls']} calls); "
-                  f"launches={la}")
-        for name in st31._fields:
-            whole = np.concatenate([z["st__" + name] for z in slabs])
-            if not np.array_equal(whole,
-                                  getattr(st31, name).cpu().numpy()):
-                fail(f"mesh (a): gathered state.{name} differs from the "
-                     f"unsharded {MESH_DAYS}-day run")
-        print(f"mesh (a): rows 0-{steps} equal the main path's and the "
-              f"gathered final state equals the unsharded run's, field by "
-              f"field")
+            with open(os.path.join(work, f"down_{r}.txt")) as f:
+                down.append(float(f.read()))
+        print(f"mesh: every rank destroyed its process groups "
+              f"(destroy_process_group, {backend}) after its runs, in at "
+              f"most {max(down):.3f} s")
+        host = None if one is None else one["picks"]
+        for label in labels:
+            slabs = []
+            for r, rec in enumerate(recs):
+                z = np.load(os.path.join(work, f"{label}_{r}.npz"))
+                for name in out._fields:
+                    if not np.array_equal(z["out__" + name],
+                                          getattr(out, name)):
+                        fail(f"mesh (a) {label}: rank {r}'s {name} differs "
+                             f"from the main path's rows 0-{steps}")
+                slabs.append(z)
+                x = rec[label]
+                la, st, sp = x["launches"], x["stats"], x["step"]
+                sharded_launches(la, x["warmups"], x["picks"], steps,
+                                 label != "plain", f"mesh (a) {label} rank "
+                                 f"{r}")
+                if label != "plain":
+                    if x["picks"] != recs[0][label]["picks"]:
+                        fail(f"mesh (a) {label}: rank {r}'s picks differ "
+                             "from rank 0's")
+                    if host is not None and x["picks"] != host:
+                        fail(f"mesh (a) {label}: rank {r}'s picks differ "
+                             "from the host's")
+                    if sp.get("reads", 0) or sp.get("launches") != steps \
+                            or st["staged_calls"]:
+                        fail(f"mesh (a) {label}: rank {r} read the host "
+                             f"{sp.get('reads', 0)} times, launched "
+                             f"{sp.get('launches')} day graphs in {steps} "
+                             f"days, staged {st['staged_calls']} "
+                             "collectives")
+                ms = x["s"] / steps * 1000
+                ref = "" if one is None else (
+                    f"; one card on cuda:0 in this call: graphed "
+                    f"{one['graphed_ms']:.2f}, plain {one['plain_ms']:.2f}"
+                    f" ms/day")
+                print(f"mesh (a) agent axis {label}, rank {r} on "
+                      f"{rec['device']}: {steps} days in {x['s']:.3f} s, "
+                      f"{ms:.2f} ms/day{ref}; collectives "
+                      f"{st['calls'] / steps:.1f}/day, "
+                      f"{st['bytes'] / steps / 1e6:.3f} MB/day (staged "
+                      f"through the host: {st['staged_calls']}); host reads "
+                      f"{sp.get('reads', 0) / steps:.2f}/day, day-graph "
+                      f"launches {sp.get('launches', 0) / steps:.2f}/day, "
+                      f"spans captured {sp.get('captures', 0)}, peak device "
+                      f"memory {x['peak'] / 2**30:.2f} GiB; launches={la}")
+            for name in state._fields:
+                whole = np.concatenate([z["st__" + name] for z in slabs])
+                if not np.array_equal(whole,
+                                      getattr(state, name).cpu().numpy()):
+                    fail(f"mesh (a) {label}: gathered state.{name} differs "
+                         f"from the unsharded {days}-day run")
+            print(f"mesh (a) {label}: rows 0-{steps} equal the main path's "
+                  f"and the gathered final state equals the unsharded "
+                  f"run's, field by field"
+                  + ("" if label == "plain" or host is None else
+                     f"; every rank's picks equal rank 0's and the host's "
+                     f"on all {steps} days"))
+        if backend == "nccl":
+            plain = max(rec["plain"]["s"] for rec in recs) / steps * 1000
+            again = max(rec["again"]["s"] for rec in recs) / steps * 1000
+            print(f"mesh (a) over NCCL, {world} ranks: graphed "
+                  f"{again:.2f} ms/day a rank against the plain sharded "
+                  f"step's {plain:.2f} ({plain / again:.1f}x)")
         z = np.load(os.path.join(work, "ensemble.npz"))
         for name in ens._fields:
-            if not np.array_equal(z[name], getattr(ens, name)[:, :steps]):
+            if not np.array_equal(z[name], getattr(ens, name)[:, :MESH_DAYS
+                                                              - 1]):
                 fail(f"mesh (b): member {name} differs from the ensemble "
-                     f"phase's rows 1-{steps}")
+                     f"phase's rows 1-{MESH_DAYS - 1}")
         wall = max(rec["seed_s"] for rec in recs)
         per_rank = ", ".join(f"rank {rec['rank']}: {rec['seed_members']} "
                              f"members in {rec['seed_s']:.3f} s"
                              for rec in recs)
-        print(f"mesh (b) seed axis: seeds {MESH_SEEDS} x {steps} days in "
-              f"{wall:.3f} s ({per_rank}), {wall / len(MESH_SEEDS):.3f} s "
-              f"per member, {wall / (len(MESH_SEEDS) * steps) * 1000:.2f} "
+        print(f"mesh (b) seed axis: seeds {MESH_SEEDS} x {MESH_DAYS - 1} "
+              f"days in {wall:.3f} s ({per_rank}), "
+              f"{wall / len(MESH_SEEDS):.3f} s per member, "
+              f"{wall / (len(MESH_SEEDS) * (MESH_DAYS - 1)) * 1000:.2f} "
               f"ms per member-day (the ensemble phase, one rank: "
               f"{ens_ms_day:.2f}); members equal the ensemble phase's rows "
-              f"1-{steps}")
+              f"1-{MESH_DAYS - 1}")
     print(f"mesh: {world} ranks, {time.perf_counter() - t_phase:.1f} s")
-    return recs[0]["launches"]
+    return recs[0][labels[-1]]["launches"]
 
 
 def cli_phase() -> None:
@@ -1383,7 +1512,11 @@ def main() -> None:
         resume_phase(run, out, state, scratch)
     ens, ens_ms_day = ensemble_phase(run, v, out, peak - mem0, run_bytes)
     sharded = mesh_kernels(results)
-    mesh_launches = mesh_phase(run, out, ens, ens_ms_day)
+    _, st_mesh, _, _ = run_days(run, n_days=MESH_DAYS, chunk_days=MESH_DAYS)
+    mesh_launches = mesh_phase(
+        run, type(out)(*(x[:MESH_DAYS] for x in out)), st_mesh, ens,
+        ens_ms_day)
+    del st_mesh
     main_all_infected = out.by_group[:, 3].sum(1)
     main_susceptible = out.by_group[:, 0].sum(1)
     del run, out, state, carry
@@ -1393,11 +1526,13 @@ def main() -> None:
     serving_phase(main_all_infected, main_susceptible)
 
     print(f"smoke: {time.perf_counter() - t_start:.1f} s in all")
-    # the sharded forms: launches of rank 0's agent-sharded run, times of
-    # their two slabs in turn
+    # the sharded forms: launches of rank 0's agent-sharded run (the
+    # plain step over gloo: the prefix's emit alone, no count and picks),
+    # times of their two slabs in turn
     rows = ([(c, r, launches[c.name]) for c, r in results.values()]
             + [(c, r, mesh_launches[c.name + ".emit"])
-               for c, r in sharded.values()])
+               for c, r in sharded.values()
+               if c.name + ".emit" in mesh_launches])
     print(json.dumps({"kernels": [
         {"name": c.name, "route": c.route, "source": c.source,
          "replaces": c.replaces, "launches": n,
@@ -1411,8 +1546,12 @@ def main() -> None:
 
 
 def mesh_only(k: int) -> None:
-    """Step 7's ranks alone, for 2 and k ranks: the main path's first 31
-    days and seeds 0-2 of the ensemble on one rank, then the phase."""
+    """Step 7's ranks alone, for 2 and k ranks (over NCCL, a rank a
+    card, the agent axis graphed: the 365-day HUS run): first the main
+    path on one card, graphed (building its graph set, then again on
+    it) and with the plain day step (its host picks), and seeds 0-2 of
+    the ensemble, which the ranks are held to."""
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device")
@@ -1422,17 +1561,41 @@ def mesh_only(k: int) -> None:
     from reina_tpu_torch.ensemble import run_ensemble
     from reina_tpu_torch.kernels import build
 
+    kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
-    print(f"device: {torch.cuda.get_device_name(0)} x "
-          f"{torch.cuda.device_count()}; nvidia-smi: {smi}")
+    print(f"device: {kind} x {torch.cuda.device_count()}; torch "
+          f"{torch.__version__}, cuda {torch.version.cuda}")
+    print(f"nvidia-smi: {smi}")
     build.lib()
     v = dict(VARIABLE_DEFAULTS)
     v["simulation_days"] = DAYS
     run = build_run(v, "cuda")
-    out, _, _, _ = run_days(run, n_days=MESH_DAYS, chunk_days=MESH_DAYS)
+    steps = DAYS - 1
+    dev_picks, host_picks = [], []
+    out, state, _, _ = run_days(run, picks=dev_picks)
+    one = {}
+    for label, kw in (("graphed", {}), ("plain", {"graphs": False,
+                                                   "picks": host_picks})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o, st, _, _ = run_days(run, **kw)
+        torch.cuda.synchronize()
+        one[label + "_ms"] = (time.perf_counter() - t0) / steps * 1000
+        for name in out._fields:
+            if not np.array_equal(getattr(o, name), getattr(out, name)):
+                fail(f"one card {label}: {name} differs from the first "
+                     "graphed run")
+        del o, st
+    one["picks"] = np.asarray(host_picks).tolist()
+    if np.asarray(dev_picks).tolist() != one["picks"]:
+        fail("one card: the graphed run's picks differ from the host's")
+    final = int(out.by_group[-1, 3].sum())
+    print(f"one card, {steps} days: graphed {one['graphed_ms']:.2f} ms/day "
+          f"(again, on its graph set), plain {one['plain_ms']:.2f} ms/day; "
+          f"final all_infected {final}; device picks equal the host's")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ens = run_ensemble(run, MESH_SEEDS, n_days=MESH_DAYS)
@@ -1441,7 +1604,7 @@ def mesh_only(k: int) -> None:
           / (len(MESH_SEEDS) * (MESH_DAYS - 1)) * 1000)
     print(f"ensemble on one rank: {ms:.2f} ms per member-day")
     for world in sorted({2, k}):
-        mesh_phase(run, out, ens, ms, world)
+        mesh_phase(run, out, state, ens, ms, world, one)
     print("mesh: ok")
 
 
@@ -1449,7 +1612,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-child"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         a = sys.argv[2:]
-        mesh_child(int(a[0]), int(a[1]), int(a[2]), a[3], a[4])
+        mesh_child(int(a[0]), int(a[1]), int(a[2]), a[3], a[4], int(a[5]))
     elif sys.argv[1:2] == ["--mesh"]:
         mesh_only(int(sys.argv[2]))
     else:

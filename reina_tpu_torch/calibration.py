@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .core import graphs
 from .core.engine import CompiledRun, build_run, run_days
 from .core.params import DISEASE_PARAMS
 from .core.step import GROUP_ROW, DayOutputs
@@ -86,17 +87,19 @@ def sweep_grid(variables: Dict[str, Any], grid: Dict[str, Sequence[Any]],
     base_s = time.perf_counter() - t0
     steps = (n_days if n_days is not None else base.days) - 1
     results = []
-    for i in mine:
-        t0 = time.perf_counter()
-        run = base if i == 0 else build(points[i])
-        t1 = time.perf_counter()
-        run = replace(run, cfg=base.cfg, schedules=base.schedules)
-        out, _, _, _ = run_days(run, n_days=steps + 1,
-                                seed=base.random_seed, mesh=mesh)
-        del run
-        results.append((DayOutputs(*(x[1:] for x in out)),
-                        (base_s if i == 0 else t1 - t0,
-                         time.perf_counter() - t1)))
+    # the points share one graph set, also on an agent axis over NCCL
+    with graphs.reusing():
+        for i in mine:
+            t0 = time.perf_counter()
+            run = base if i == 0 else build(points[i])
+            t1 = time.perf_counter()
+            run = replace(run, cfg=base.cfg, schedules=base.schedules)
+            out, _, _, _ = run_days(run, n_days=steps + 1,
+                                    seed=base.random_seed, mesh=mesh)
+            del run
+            results.append((DayOutputs(*(x[1:] for x in out)),
+                            (base_s if i == 0 else t1 - t0,
+                             time.perf_counter() - t1)))
     results = gather_placed(mesh, mine, results, len(points))
     base.meta["sweep_seconds"] = [sec for _, sec in results]
     return points, stack_members([out for out, _ in results]), base

@@ -18,6 +18,17 @@ ORs the overflow bits into the carry's problem bits, as the reference
 sets them on the device. The plain version of each fused entry is its
 producer's twin followed by :func:`pick_twin`.
 
+On a rank of an agent-sharded run (parallel/mesh.py) the counts are
+global and the producers run after the collectives that make them so:
+the sharded prefix's emit (``ops/fusedmap.py:sharded_prefix_count``,
+csrc/prefix.cu) writes n_new, n_d and n_f after its all-gather of the
+row totals and makes their picks (``SHARDED_FOLD_ENTRY``); the tracing
+cond reads ct_cases, the all-reduced sum, in the n_d fold; the
+reduce-and-pick takes T2's and T4's maxima over the members' fills that
+the lookups' all-reduce replicated. Every rank makes the same picks,
+so the ranks' day graphs take the same branches and the collectives
+captured in them stay matched.
+
 :class:`DayGraph` assembles a host key's day from the spans' captured
 graphs: a memcpy node that fills the graph set's handle table with this
 graph's conditional handles (a producing kernel is captured before the
@@ -50,20 +61,26 @@ FOLDS = {"n_new": ("C",), "n_d": ("T", "T1"), "fill_max": ("T2",),
          "n_f": ("T3",), "fill2_max": ("T4",)}
 
 
-# the launch count of each fold's producer when it makes its picks
+# the launch count of each fold's producer when it makes its picks, on
+# one card and on a shard of the agent axis (the sharded prefix's emit)
 FOLD_ENTRY = {name: "daygraph.max_pick" if name.startswith("fill")
               else "fused_concat_prefix.pick" for name in FOLDS}
+SHARDED_FOLD_ENTRY = {name: entry.replace("fused_concat_prefix",
+                                          "concat_prefix_sharded")
+                      for name, entry in FOLD_ENTRY.items()}
 
 
-def fold_launches(picks) -> Counter:
+def fold_launches(picks, sharded: bool = False) -> Counter:
     """The launches of the fused entries that a graphed run's rows of
     picks imply: one of each fold's producer a day its first pick was
-    made (warm-ups, which make no pick, aside)."""
+    made (warm-ups, which make no pick, aside); ``sharded``: of a rank of
+    the agent axis."""
+    entry = SHARDED_FOLD_ENTRY if sharded else FOLD_ENTRY
     rows = [list(r) for r in picks]
-    out = Counter({k: 0 for k in FOLD_ENTRY.values()})
+    out = Counter({k: 0 for k in entry.values()})
     for name, cols in FOLDS.items():
         col = S.PICK_COLS.index(cols[0])
-        out[FOLD_ENTRY[name]] += sum(1 for r in rows if r[col] >= 0)
+        out[entry[name]] += sum(1 for r in rows if r[col] >= 0)
     return out
 
 
@@ -213,8 +230,8 @@ class DayGraph:
         self.graph = self.exec = None
         self.lib = build.lib()
         self.hkey = hkey
-        # launches of the spans every launch runs (the branches' come
-        # from the tallies)
+        # launches and collectives of the spans every launch runs (the
+        # branches' come from the tallies)
         self.fixed = Counter()
         # this graph's conditional handles, a slot a picks-table column,
         # which its head copies into the set's table
@@ -277,6 +294,11 @@ class DayGraph:
         _check(self.lib.reina_dg_launch(self.exec, stream),
                self._what("launch"))
 
-    def __del__(self):
+    def close(self) -> None:
+        """Destroy the instantiated graph and its graph now."""
         if self.graph is not None or self.exec is not None:
             self.lib.reina_dg_destroy(self.graph, self.exec)
+        self.graph = self.exec = None
+
+    def __del__(self):
+        self.close()

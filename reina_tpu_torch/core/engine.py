@@ -12,7 +12,9 @@ fetches them there in one packed transfer and checks the problem
 bitmask, and checkpoints and resumes in the JAX package's file layout
 (``core/checkpoint.py``). Given a mesh whose agent axis has several
 ranks (parallel/mesh.py), ``run_days`` steps this rank's slab of the
-agents with the plain day step, bit-identical to the one-card run.
+agents, bit-identical to the one-card run: over NCCL, a rank a card, as
+one day-graph launch a day with its collectives captured in it (the JAX
+package's sharded compiled chunk); over gloo with the plain day step.
 """
 from __future__ import annotations
 
@@ -349,11 +351,13 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
 
     ``graphs``: step the days as CUDA graphs (core/graphs.py), one launch
     a day with its tier picks on the device, bit-identical to the plain
-    day step; the default on a CUDA device (one card); False runs the
-    plain day step, which picks each tier on the host. On the CPU, True
-    runs the graph runner's CPU model (recorded spans in place of
-    graphs, each fold's picks made by its twin inside the producer's
-    call).
+    day step; the default on a CUDA device, one card or an agent axis
+    over NCCL; False runs the plain day step, which picks each tier on
+    the host. An agent axis over gloo on CUDA steps the plain day step
+    (a gloo collective cannot be captured; ``graphs=True`` raises). On
+    the CPU, True runs the graph runner's CPU model (recorded spans in
+    place of graphs, each fold's picks made by its twin inside the
+    producer's call), also on an agent axis.
 
     ``picks``: a list that takes the stepped days' rows of tier picks
     (``step.PICK_COLS``: the branch each conditional took, -1 where it
@@ -362,10 +366,18 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
 
     ``mesh`` (parallel.mesh.Mesh) with an agent axis of k > 1 ranks:
     every rank of the agent group calls ``run_days`` on the same run,
-    steps its slab of the agents on its own device with the plain day
-    step and returns the same outputs as the unsharded run; the final
-    state and carry are its slab's. A checkpoint holds the whole run
-    (gathered to the group's first rank, which writes it), so a run
+    steps its slab of the agents on its own device and returns the same
+    outputs as the unsharded run; the final state and carry are its
+    slab's. Graphed, every rank launches one day graph a day whose
+    collectives run inside it, and makes the same picks; the host reads
+    nothing until a sync point, where the ranks OR their problem bits
+    so that all raise together. Its graph set holds the captured NCCL
+    collectives, and NCCL destroys a communicator only after every graph
+    that holds one: the set is freed when the run ends, so that
+    ``destroy_process_group`` may follow, unless the run is inside
+    ``graphs.reusing()`` (core/graphs.py), which keeps it for the
+    scope's later runs of the same shapes. A checkpoint holds the whole
+    run (gathered to the group's first rank, which writes it), so a run
     resumes on any layout. With one rank on the agent axis the mesh
     changes nothing."""
     from . import checkpoint as ckpt
@@ -383,11 +395,15 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
     else:
         arrays, schedules, device = run.arrays, run.schedules, run.device
         state, carry = run.init_state, run.init_carry
+    capturable = shard is None or shard.backend == "nccl"
     if graphs is None:
-        graphs = device.type == "cuda" and shard is None
-    elif graphs and shard is not None:
-        raise ValueError("an agent-sharded run steps the plain day step "
-                         "(graphs=False)")
+        graphs = device.type == "cuda" and capturable
+    elif graphs and device.type == "cuda" and not capturable:
+        raise ValueError(f"an agent axis over {shard.backend} steps the "
+                         "plain day step (graphs=False): a "
+                         f"{shard.backend} collective cannot be captured; "
+                         "the graphed agent axis runs over NCCL, a rank a "
+                         "card")
     host_sched = Schedules(*(x.cpu().numpy() for x in schedules))
 
     if shard is None and not graphs:
@@ -414,14 +430,9 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
             pending, rows = [], [saved_out]
     steps_left = (n_days - 1) - day
     sync_each_chunk = (day_callback is not None or checkpoint_dir is not None
-                       or shard is not None)
+                       or (shard is not None and not graphs))
     gs, plans, day0, bits = None, [], day, 0
     leftover = carry.weekly_leftover
-    if graphs and steps_left > 0:
-        gs = G.acquire(cfg, arrays, schedules, state, carry, device)
-        plans = gs.prepare(host_sched, base_key, day, steps_left, leftover,
-                           state.age.shape[0])
-        gs.start(cfg, arrays, schedules, state, carry, day, plans)
     synced = day
 
     def sync():
@@ -459,6 +470,12 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
     chunk_times = []
     since_ckpt = 0
     try:
+        if graphs and steps_left > 0:
+            gs = G.acquire(cfg, arrays, schedules, state, carry, device,
+                           shard)
+            plans = gs.prepare(host_sched, base_key, day, steps_left,
+                               leftover, run.init_state.age.shape[0])
+            gs.start(cfg, arrays, schedules, state, carry, day, plans)
         while steps_left > 0:
             this_chunk = min(chunk_days, steps_left)
             t0 = time.perf_counter()
@@ -500,10 +517,15 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
         if gs is not None:
             state, carry = gs.state_carry(day, leftover, bits, clone=True)
     except (C.SimulationFailed, ExecutionInterrupted):
-        # the run stopped, its graph set is sound (a set whose capture,
-        # assembly or launch failed is dropped, never reused)
+        # the run stopped, its graph set is sound
         if gs is not None:
             G.release(gs)
+        raise
+    except BaseException:
+        # a set whose build, capture, assembly or launch failed is freed
+        # now, never reused
+        if gs is not None:
+            gs.close()
         raise
     if gs is not None:
         G.release(gs)

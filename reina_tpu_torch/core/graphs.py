@@ -78,6 +78,34 @@ in ``kernels.WARMUPS``. ``step.STATS`` counts the captures, the day
 graphs built, their seconds and the day-graph launches beside the
 days.
 
+On a rank of an agent-sharded run (``shard``, parallel/mesh.py:
+AgentShard; over NCCL, a rank a card) the set holds the slab's static
+buffers and every span its collectives, captured as NCCL kernels
+(``kernels/nccl_parts.py`` probed which layouts CUDA and torch's
+ProcessGroupNCCL allow). Every rank builds the same (span, key)
+variants in the same order (their plans are the same), after one eager
+collective that makes the agent group's communicator. After each
+warm-up and after each capture the ranks agree through the world's
+store that it was built (``mesh.agree``), and a warm-up's collectives
+give up as soon as another rank has failed (``mesh.watching``): a
+warm-up or capture that fails on one rank, even halfway through a
+span's collectives, raises GraphError on all of them, and each aborts
+the agent group's communicator, instead of leaving the others in a
+collective. A day is then one day-graph launch on every rank; the
+picks, made by kernels that run after the collectives that make their
+counts global (core/daygraph.py), agree, so the ranks run the same
+branches. The collectives' calls and bytes go into a capture's tally
+(``mesh.calls``, ``mesh.bytes``) and ``kernels.REPLAYED`` once a
+replay. The key includes the slab count, the slab, the backend and the
+agent group (``shard_key``).
+
+A captured NCCL collective holds its communicator: NCCL's teardown of
+the communicator (``destroy_process_group``) waits until every graph
+that holds one is destroyed. So a set on an NCCL shard is freed when
+its run ends (``release``), unless a :func:`reusing` scope is open, in
+which it stays idle for the scope's later runs until the outermost
+scope ends; a failed run's set is freed at once.
+
 On the CPU a GraphSet is a model of the same machinery for the tests:
 each (span, key) records its body (the span and the copies around it) at
 its warm-up and calls it again on later days, and each fold site makes
@@ -86,6 +114,7 @@ picks table names the branch that runs; the host reads no count.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import Counter
@@ -100,13 +129,16 @@ from .daygraph import (FOLDS, DayGraph, Fold, GraphError, check_body_nodes,
 from .schedule import Schedules
 from .state import AgentState, DayCarry
 from .. import kernels
+from ..parallel import mesh
 
 __all__ = ["GraphError", "GraphSet", "acquire", "release", "drop_idle",
-           "idle", "set_key"]
+           "idle", "reusing", "set_key"]
 
 _CAPTURE_LOCK = threading.Lock()
 _IDLE_LOCK = threading.Lock()
 _IDLE: List["GraphSet"] = []
+# open reusing() scopes
+_REUSING = 0
 
 # the carry's fields on the device (day and weekly_leftover are host
 # values, kept by the run loop)
@@ -116,19 +148,31 @@ DEVICE_CARRY = tuple(f for f in DayCarry._fields
 
 class _Entry(NamedTuple):
     run: object            # the CUDAGraph, or on the CPU the body
-    tally: Counter         # launches of one run
+    tally: Counter         # launches (and collectives) of one run
+
+
+def shard_key(shard) -> tuple:
+    """What a set's graphs depend on of an agent shard: the slab count,
+    this slab's number, the backend and the agent group, whose
+    communicator the captured collectives use (None: unsharded)."""
+    if shard is None:
+        return None
+    return (shard.k, shard.index, shard.backend,
+            getattr(shard.group, "group_name", None))
 
 
 def set_key(cfg: S.EngineConfig, arrays: S.ModelArrays,
             schedules: Schedules, state: AgentState, carry: DayCarry,
-            device) -> tuple:
+            device, shard=None) -> tuple:
     """What a set's graphs depend on: the engine config, the device, and
     the shapes and dtypes of the model arrays, the schedules less their
-    day axis, the state and the carry's device fields."""
+    day axis, the state and the carry's device fields; on a shard of the
+    agent axis, its :func:`shard_key`."""
     def sig(ts, lead=0):
         return tuple((tuple(t.shape[lead:]), t.dtype) for t in ts)
     return (cfg, torch.device(device), sig(arrays), sig(schedules, 1),
-            sig(state), sig(getattr(carry, f) for f in DEVICE_CARRY))
+            sig(state), sig(getattr(carry, f) for f in DEVICE_CARRY),
+            shard_key(shard))
 
 
 def host_key(plan: S.DayPlan) -> tuple:
@@ -156,11 +200,17 @@ class GraphSet:
 
     def __init__(self, cfg: S.EngineConfig, arrays: S.ModelArrays,
                  schedules: Schedules, state: AgentState, carry: DayCarry,
-                 device):
-        self.key = set_key(cfg, arrays, schedules, state, carry, device)
+                 device, shard=None):
+        self.key = set_key(cfg, arrays, schedules, state, carry, device,
+                           shard)
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = self.device.type != "cuda"
+        self.shard = shard
+        if shard is not None and not self.model and shard.backend != "nccl":
+            raise GraphError(f"the graphed agent axis captures its "
+                             f"collectives, which {shard.backend} cannot: "
+                             "run it over NCCL, a rank a card")
         days, A, P = schedules.mobility.shape
         self.rows = days
         # the static copies of a build that the spans read (start fills
@@ -222,6 +272,10 @@ class GraphSet:
         if not self.model:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(dev)
+            if shard is not None:
+                # the agent group's communicator is made by its first
+                # collective, which a capture cannot hold
+                shard.sum(torch.zeros(1, dtype=torch.int32, device=dev))
 
     def fits(self, key: tuple, rows: int) -> bool:
         """Whether a build of ``key`` with ``rows`` schedule rows can run
@@ -265,11 +319,12 @@ class GraphSet:
         schedule tables into the set's, build the day graphs ``plans``
         need that the set lacks, then take the run's state and carry
         into the static buffers, from ``day``."""
-        key = set_key(cfg, arrays, schedules, state, carry, self.device)
+        key = set_key(cfg, arrays, schedules, state, carry, self.device,
+                      self.shard)
         rows = schedules.mobility.shape[0]
         if not self.fits(key, rows):
             parts = ("config", "device", "model arrays", "schedules",
-                     "state", "carry")
+                     "state", "carry", "agent shard")
             differ = [p for p, a, b in zip(parts, key, self.key) if a != b]
             why = (f"its {', '.join(differ)} differ" if differ
                    else f"{rows} days on a set of {self.rows}")
@@ -337,8 +392,8 @@ class GraphSet:
                 _, slot, nb = self.layout[name]
                 for b in range(nb):
                     if delta[slot + b]:
-                        kernels.replayed(self.bodies[(name, keys[b])].tally,
-                                         int(delta[slot + b]))
+                        entry = self.bodies[(name, keys[b])]
+                        kernels.replayed(entry.tally, int(delta[slot + b]))
         return int(tail[0]), tail[1 + n:].reshape(-1, len(S.PICK_COLS))
 
     def state_carry(self, day: int, leftover, bits: int, clone: bool):
@@ -367,20 +422,32 @@ class GraphSet:
     def _build(self, hkey: tuple, day: int) -> None:
         """Warm up and capture every variant of ``hkey``'s program the set
         lacks (on the static buffers, with day ``day``'s row), then
-        assemble its day graph."""
+        assemble its day graph. On a shard every rank of the agent group
+        builds the same variants in the same order (their plans are the
+        same), and after each warm-up and each capture the ranks agree
+        that it was built."""
         nodes = S.day_program(self.cfg, *hkey)
         for name, key, fn in _variants(nodes):
             if (name, key) in self.bodies:
                 continue
             body = self._span_body(name, key, fn)
             self.counter.fill_(day)
+            what = f"day graph {hkey}: span {name} {key}"
+            err = None
             try:
-                with kernels.warming():
+                with kernels.warming(), self._watching():
                     body()
             except Exception as e:
-                raise GraphError(f"day graph {hkey}: warm-up of span {name} "
-                                 f"{key} failed: {e}") from e
-            self.bodies[(name, key)] = self.capture(name, key, body)
+                err = GraphError(f"day graph {hkey}: warm-up of span {name} "
+                                 f"{key} failed: {e}")
+                err.__cause__ = e
+            self._agree(err, what)
+            try:
+                entry = self.capture(name, key, body)
+            except GraphError as e:
+                entry, err = None, e
+            self._agree(err, what)
+            self.bodies[(name, key)] = entry
         S.STATS["day_graphs"] += 1
         if self.model:
             self.days[hkey] = nodes
@@ -388,6 +455,23 @@ class GraphSet:
         t0 = time.perf_counter()
         self.days[hkey] = DayGraph(hkey, nodes, self)
         S.STATS["assemble_s"] += time.perf_counter() - t0
+
+    def _watching(self):
+        return (mesh.watching(self.shard) if self.shard is not None
+                else contextlib.nullcontext())
+
+    def _agree(self, err, what: str) -> None:
+        """Raise ``err`` if it is set; on a shard, on every rank of the
+        agent group where any rank's is set (``mesh.agree``, which then
+        aborts the group's communicator), so that no rank goes on to
+        collectives that the others never make."""
+        if self.shard is not None and mesh.agree(self.shard,
+                                                 err is not None):
+            if err is None:
+                err = GraphError(f"{what}: failed on another rank of the "
+                                 "agent group")
+        if err is not None:
+            raise err
 
     def _span_body(self, name: str, key: tuple, fn):
         carry = DayCarry(day=None, weekly_leftover=None, **self.carry)
@@ -397,7 +481,7 @@ class GraphSet:
                 self._load_day()
             with kernels.folding(self._sites(not kernels.is_warming())):
                 outs = fn(self.cfg, self.arrays, self.din, self.state, carry,
-                          self.handoff, *key)
+                          self.handoff, *key, shard=self.shard)
             self._commit(name, outs)
         return body
 
@@ -470,10 +554,33 @@ class GraphSet:
                         body()
                 check_body_nodes(g.raw_cuda_graph(), f"span {name} {key}")
             except Exception as e:
+                hint = ("" if self.shard is None else
+                        " (over NCCL, with NCCL_GRAPH_MIXING_SUPPORT=0 set "
+                        "before its communicators are made, as "
+                        "mesh.init_distributed sets it, a captured "
+                        "collective is kernel and memcpy nodes only)")
                 raise GraphError(f"capture of span {name} {key} failed: "
-                                 f"{e}") from e
+                                 f"{e}{hint}") from e
         S.STATS["capture_s"] += time.perf_counter() - t0
         return _Entry(g, tally)
+
+    @property
+    def collective(self) -> bool:
+        """Whether the set's graphs hold captured collectives."""
+        return self.shard is not None and not self.model
+
+    def close(self) -> None:
+        """Destroy the set's day graphs and captured spans now (a set on
+        an NCCL shard before its communicator is destroyed); the set is
+        not used again."""
+        for day in self.days.values():
+            if not self.model:
+                day.close()
+        for entry in self.bodies.values():
+            if entry is not None and not self.model:
+                entry.run.reset()
+        self.days.clear()
+        self.bodies.clear()
 
     def _model_day(self, hkey: tuple, nodes) -> None:
         """The CPU model of a day graph's launch: recorded spans, and the
@@ -508,24 +615,56 @@ def _copy(dst: torch.Tensor, src: torch.Tensor, what: str) -> None:
     dst.copy_(src)
 
 
-def acquire(cfg, arrays, schedules, state, carry, device) -> GraphSet:
+def acquire(cfg, arrays, schedules, state, carry, device,
+            shard=None) -> GraphSet:
     """An idle GraphSet that a build (its config, arrays, schedules,
-    state and carry on ``device``) fits, or a new one; making a new one
-    frees the device's idle sets."""
-    key = set_key(cfg, arrays, schedules, state, carry, device)
+    state and carry on ``device``; ``shard``: this rank's agent shard)
+    fits, or a new one; making a new one frees the device's idle sets.
+    The ranks of an agent group make the same calls, so each finds the
+    same sets, with the same spans built."""
+    key = set_key(cfg, arrays, schedules, state, carry, device, shard)
     rows = schedules.mobility.shape[0]
     with _IDLE_LOCK:
         for i, gs in enumerate(_IDLE):
             if gs.fits(key, rows):
                 return _IDLE.pop(i)
+        freed = [gs for gs in _IDLE if gs.device == key[1]]
         _IDLE[:] = [gs for gs in _IDLE if gs.device != key[1]]
-    return GraphSet(cfg, arrays, schedules, state, carry, device)
+    for gs in freed:
+        gs.close()
+    return GraphSet(cfg, arrays, schedules, state, carry, device, shard)
 
 
 def release(gs: GraphSet) -> None:
-    """Return a set whose run has ended for a later run of its build."""
+    """Return a set whose run has ended for a later run of its build;
+    one that holds captured collectives is freed instead, unless a
+    :func:`reusing` scope is open."""
     with _IDLE_LOCK:
-        _IDLE.append(gs)
+        if not gs.collective or _REUSING:
+            _IDLE.append(gs)
+            return
+    gs.close()
+
+
+@contextlib.contextmanager
+def reusing():
+    """The sets that hold captured collectives (an agent-sharded run
+    over NCCL) stay idle between the runs inside this scope, as every
+    other set does; when the outermost scope ends they are freed, so
+    that the communicators can then be destroyed."""
+    global _REUSING
+    with _IDLE_LOCK:
+        _REUSING += 1
+    try:
+        yield
+    finally:
+        with _IDLE_LOCK:
+            _REUSING -= 1
+            freed = [] if _REUSING else [gs for gs in _IDLE
+                                         if gs.collective]
+            _IDLE[:] = [gs for gs in _IDLE if gs not in freed]
+        for gs in freed:
+            gs.close()
 
 
 def idle() -> List[GraphSet]:
@@ -537,4 +676,7 @@ def idle() -> List[GraphSet]:
 def drop_idle() -> None:
     """Free every idle set."""
     with _IDLE_LOCK:
+        freed = list(_IDLE)
         _IDLE.clear()
+    for gs in freed:
+        gs.close()

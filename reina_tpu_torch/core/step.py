@@ -61,9 +61,15 @@ go through the shard's collectives: sums of counts and histograms, the
 sharded ledger and prefix, lookups of per-agent values at global indices
 and scatters that only the owner applies. The slot domain (new
 infections, imports, tracing buffers) is replicated: every rank draws
-and sorts the same slots. Every host decision reads a global value, so
-the ranks take the same tiers. With ``shard=None`` each of those points
-is the plain op.
+and sorts the same slots. Every pick reads a global value, so the ranks
+take the same tiers: on the host in the plain step, and in the graphed
+day inside the producing kernels, which run after the collective that
+makes their count global (the sharded prefix's emit writes n_new, n_d
+and n_f after its all-gather; the tracing cond reads ct_cases after its
+all-reduce; T2's and T4's maxima are taken over the lookups' replicated
+fills). No value crosses to the host inside a day: the ledger's slab
+entries read the day's offset from the day row. With ``shard=None``
+each of those points is the plain op.
 """
 from __future__ import annotations
 
@@ -84,7 +90,7 @@ from ..ops.compact import compact_indices, count_max
 from ..ops.fusedmap import (fused_bihistogram, fused_concat_prefix,
                             fused_fn_onehot_sum, fused_map,
                             fused_onehot_sum, prefix_count,
-                            sharded_concat_prefix)
+                            sharded_concat_prefix, sharded_prefix_count)
 from ..ops import random as samplers
 from ..ops.random import binomial_fixed, gamma_fixed_pair, searchsorted
 
@@ -708,11 +714,12 @@ def _compact(shard, mask, capacity: int, name=None, given=None):
     """compact_indices over the whole agent axis: the first
     ``capacity`` set global indices (sentinel N) and the global count;
     each rank's part of the global prefix, then a search for each slot.
-    ``name``, ``given``: the count's fold site (one card only)."""
+    ``name``, ``given``: the count's fold site and the other counts its
+    picks read (on a shard the sharded prefix's emit makes them, after
+    its all-gather: the count is global)."""
     if shard is None:
         return compact_indices(mask, capacity, name, given)
-    cum, ends = sharded_concat_prefix(mask.to(F32), None, 1, shard)
-    count = ends[0].to(I32)
+    cum, count = sharded_prefix_count(mask.to(F32), shard, name, given)
     slots = torch.arange(capacity, dtype=I32, device=mask.device)
     buf = shard.first_at_least(cum, (slots + 1).to(F32)).to(I32)
     used = slots < torch.clamp_max(count, capacity)
@@ -1036,10 +1043,9 @@ def span_b(cfg, arrays, din, state, carry, env, vacc: bool, imports: bool,
         cum_newly, n_new = prefix_count(newly.to(F32), "n_new")
         cum_cat = fused_concat_prefix(c_s, variant, V)
     else:
-        cum_newly, ends = sharded_concat_prefix(newly.to(F32), None, 1,
-                                                shard)
+        cum_newly, n_new = sharded_prefix_count(newly.to(F32), shard,
+                                                "n_new")
         cum_cat, _ = sharded_concat_prefix(c_s, variant, V, shard)
-        n_new = ends[0].to(I32)
     return dict(
         dov=dov, queued_b=queued, new_st=new_st, days_left=days_left,
         is_infected=is_infected, has_immunity=has_immunity,

@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .core import graphs
 from .core.engine import CompiledRun, build_run, run_days, stack_outputs
 from .core.step import DayOutputs, snapshot_outputs
 
@@ -60,10 +61,12 @@ def run_ensemble(run: CompiledRun, seeds: List[int], batch_size: int = 1,
     steps = (n_days if n_days is not None else run.days) - 1
     mine = batch_placement(mesh, seeds)
     members = []
-    for i in mine:
-        out, _, _, _ = run_days(run, n_days=steps + 1, seed=seeds[i],
-                                mesh=mesh)
-        members.append(DayOutputs(*(x[1:] for x in out)))
+    # the members share one graph set, also on an agent axis over NCCL
+    with graphs.reusing():
+        for i in mine:
+            out, _, _, _ = run_days(run, n_days=steps + 1, seed=seeds[i],
+                                    mesh=mesh)
+            members.append(DayOutputs(*(x[1:] for x in out)))
     return stack_members(gather_placed(mesh, mine, members, len(seeds)))
 
 

@@ -16,6 +16,10 @@ a CUDA graph (core/graphs.py) its wrappers launch nothing: their counts
 go into the graph's tally instead, and every run of the graph adds
 that tally to ``LAUNCHES`` (core/graphs.py: a day graph's always-run
 spans at its launch, its branches from the device's branch tallies).
+Other layers count what a captured graph does beside its launches in
+the same tally (:func:`capture_tally`; the collectives of
+parallel/mesh.py, as ``mesh.calls`` and ``mesh.bytes``); a replay adds
+those to ``REPLAYED``.
 While the graph runner builds a span it names, through :func:`folding`,
 the counts whose tier picks the span's producing kernels make
 (:func:`fold_site`). Before a span is captured it runs once eagerly
@@ -55,11 +59,18 @@ LAUNCHES = {
     # reduce-and-pick of a maximum count (ops/compact.py:count_max)
     "fused_concat_prefix.pick": 0,
     "daygraph.max_pick": 0,
+    # the sharded prefix's emit launched with a count and tier picks to
+    # make (ops/fusedmap.py:sharded_prefix_count, a graphed agent axis)
+    "concat_prefix_sharded.pick": 0,
 }
 
 
 # of LAUNCHES, those made by the graph runner's warm-ups
 WARMUPS = Counter()
+
+# the replays' counts of what is not a launch (parallel/mesh.py's
+# collectives), by the name the capture's tally gave them
+REPLAYED = Counter()
 
 _capture = threading.local()
 # served runs count from worker threads of their own
@@ -123,11 +134,19 @@ def is_warming() -> bool:
     return getattr(_capture, "warming", False)
 
 
+def capture_tally():
+    """The Counter of the graph this thread captures, or None."""
+    return getattr(_capture, "tally", None)
+
+
 def replayed(tally, times: int = 1) -> None:
     """``times`` runs of a graph whose capture counted ``tally``."""
     with _LOCK:
         for name, n in tally.items():
-            LAUNCHES[name] += n * times
+            if name in LAUNCHES:
+                LAUNCHES[name] += n * times
+            else:
+                REPLAYED[name] += n * times
 
 
 def reset_launches() -> None:

@@ -56,10 +56,12 @@ _SIGNATURES = {
     "reina_fn_onehot_output_masks": [_P] * 12 + [_L] + [_I] * 5 + [_P, _P],
     "reina_bihistogram": [_P] * 3 + [_I] + [_P] * 3 + [_L, _I, _I, _P, _P],
     "reina_post": [_P, _P, _I, _P, _L, _P, _P],
-    "reina_ledger_fold_slab": [_P] * 6 + [_L, _L, _L, _I, _P, _P],
-    "reina_ledger_emit_slab": [_P] * 10 + [_L, _L, _L, _I, _I, _I, _P, _P],
+    "reina_ledger_fold_slab": [_P] * 6 + [_L, _L, _L, _P, _I, _P, _P],
+    "reina_ledger_emit_slab": [_P] * 10 + [_L, _L, _L, _P, _I, _I, _I, _P,
+                                           _P],
     "reina_prefix_row_totals": [_P, _P, _P, _L, _I, _P, _P],
-    "reina_prefix_emit_slab": [_P] * 6 + [_L, _L, _L, _I, _I, _P, _P],
+    "reina_prefix_emit_slab": [_P] * 6 + [_L, _L, _L, _I, _I, _P, _P, _P,
+                                          _P],
     "reina_draw": [_P, _L, _L, _U, _U, _P, _I, _F, _F, _P],
     "reina_gamma_fixed": [_P, _L, _I, _P, _P, _I, _P, _P, _P],
     "reina_binomial_fixed": [_P, _P, _P, _L, _P, _P, _I, _P, _P],

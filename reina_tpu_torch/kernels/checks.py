@@ -93,6 +93,7 @@ OPS_PER_AGENT = {
     # the prefix with a pick (a pick's few dozen operations are nothing
     # beside N agents'); the maximum: a compare a fill value
     "fused_concat_prefix.pick": 60, "daygraph.max_pick": 1,
+    "concat_prefix_sharded.pick": 60,
 }
 INT32_BOUND = ("prng.draw", "random.gamma_fixed", "random.binomial_fixed")
 
@@ -484,7 +485,7 @@ def _slabs(ts, k: int):
             for j in range(k)]
 
 
-def sharded_ledger(rel, req, init, offset: int, k: int, kernel: bool):
+def sharded_ledger(rel, req, init, offset, k: int, kernel: bool):
     """The sharded ledger over k slabs in one process, the slabs' folds
     exchanged by stacking: (grants of each ledger over all slabs, slab
     0's finals, every slab's finals (k, L))."""
@@ -575,6 +576,14 @@ def sharded_checks(n: int, seed: int, dev, k: int) -> List[Check]:
         ledger_extra += [(ledger(True, off), ledger(False, off)),
                          vs_unsharded(off, clamped.clamped_counter_grants),
                          vs_unsharded(off, clamped.grants_twin)]
+    # the day's offset in device memory (a captured day's), on and across
+    # the slab edges: the kernel's entries against the twins given the
+    # same 0-d tensor and against the unsharded kernel given the int
+    for off in (0, nl - 1, nl, nl + 1, n - 1, s["offset"]):
+        dev_off = torch.tensor(off, dtype=torch.int32, device=dev)
+        ledger_extra += [(ledger(True, dev_off), ledger(False, dev_off)),
+                         (ledger(True, dev_off),
+                          vs_unsharded(off, clamped.clamped_counter_grants)[1])]
     prefix_extra = []
     for w, c, n_seg, rows in ((s["newly"], None, 1, 2048),
                               (s["w"], codes, V, 2048),
@@ -602,7 +611,139 @@ def sharded_checks(n: int, seed: int, dev, k: int) -> List[Check]:
               library_note="torch.cumsum of newly and of the materialised "
                            "concatenation over the whole axis",
               extra=prefix_extra),
+        sharded_fold_check(n, seed, dev, k),
     ]
+
+
+def sharded_ledger_offset_ms(n: int, seed: int, dev, k: int):
+    """The sharded ledger's entries over k slabs (all in turn, as
+    :func:`sharded_checks` times them) with the sweep's offset as a host
+    int and as a 0-d int32 tensor that the launches read (a captured
+    day's), timed host, device, device, host: (host ms, device ms), each
+    the mean of its two medians (:func:`time_ms`)."""
+    s = _streams(n, seed, dev)
+    init = torch.tensor([300, 60], dtype=torch.int32, device=dev)
+    off = s["offset"]
+    dev_off = torch.tensor(off, dtype=torch.int32, device=dev)
+    host, device = (lambda: sharded_ledger(s["rel"], s["req"], init, off, k,
+                                           True),
+                    lambda: sharded_ledger(s["rel"], s["req"], init, dev_off,
+                                           k, True))
+    t = [time_ms(f) for f in (host, device, device, host)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+class _Slab:
+    """Slab ``index`` of ``k`` of an agent axis of ``n`` in one process:
+    the shard a sharded entry takes, whose all-gather hands back the
+    slabs' stacked row totals (``gathered``)."""
+
+    def __init__(self, n: int, k: int, index: int, gathered):
+        self.n, self.k, self.index = n, k, index
+        self.n_local = n // k
+        self.lo = index * self.n_local
+        self.gathered = gathered
+
+    def all_gather(self, t):
+        return self.gathered
+
+
+def _sharded_fold_pair(name, counts, n, dev, k, w=None, seed=0, days=4,
+                       day=2):
+    """(kernel, twin): :func:`_fold_pair`'s prefix count ``name`` (n_new,
+    n_d, n_f) on k slabs of the agent axis in one process, the row totals
+    exchanged by stacking: each slab's emit makes the count and the picks
+    into tables of its own (each rank's), as
+    ``fusedmap.sharded_prefix_count`` under a fold site; the twin is the
+    sharded twin, then the picks' twin. Each returns the slabs' prefixes
+    in the unsharded order, then for every slab the count, the day's
+    picks row, the tallies and the problem bits (the same inputs as
+    ``_fold_pair(name, counts, n, dev, w, seed)``)."""
+    from ..core import daygraph
+    cfg = step.EngineConfig()
+    nodes = daygraph.fold_nodes(cfg, name)
+    if w is None:
+        g = torch.Generator(device="cpu").manual_seed(seed)
+        w = torch.zeros(n, dtype=torch.float32)
+        w[torch.randperm(n, generator=g)[:counts[name]]] = 1.0
+        w = w.to(dev)
+    given = {c: torch.tensor(v, dtype=torch.int32, device=dev)
+             for c, v in counts.items() if c != name}
+    nl = n // k
+    parts = [w[j * nl:(j + 1) * nl] for j in range(k)]
+
+    def side(kernel):
+        def run():
+            tot = torch.stack([fusedmap.prefix_row_totals(x, None, 1)
+                               if kernel and x.is_cuda else
+                               fusedmap.row_totals_twin(x, None, 1)
+                               for x in parts])
+            cums, rest = [], []
+            for j, x in enumerate(parts):
+                table = torch.full((days, len(step.PICK_COLS)), -1,
+                                   dtype=torch.int32, device=dev)
+                tallies = [torch.zeros(2 if isinstance(nd, step.If)
+                                       else len(nd.keys()),
+                                       dtype=torch.int32, device=dev)
+                           for nd in nodes]
+                problem = torch.full((), 4, dtype=torch.int32, device=dev)
+                counter = torch.full((), day, dtype=torch.int64, device=dev)
+                fold = daygraph.Fold(
+                    nodes, [step.PICK_COLS.index(nd.name) for nd in nodes],
+                    tallies, table, counter, problem,
+                    lookup=lambda p: given[p.src])
+                slab = _Slab(n, k, j, tot)
+                if kernel:
+                    cum, cnt = fusedmap.sharded_prefix_count(
+                        x, slab, name, given, site=fold)
+                else:
+                    cum, ends = fusedmap.concat_prefix_twin_sharded(
+                        x, None, 1, slab.lo // fusedmap.LANE, n, tot)
+                    cnt = ends[0].to(torch.int32)
+                    fold.twin({name: cnt, **given})
+                cums.append(cum)
+                rest += [cnt, table[day], *tallies, problem]
+            return (torch.cat(cums), *rest)
+        return run
+
+    return side(True), side(False)
+
+
+def sharded_fold_check(n: int, seed: int, dev, k: int) -> Check:
+    """The sharded prefix's emit with its count and picks
+    (``fusedmap.sharded_prefix_count`` under a fold site) over k slabs:
+    against the sharded twin and the picks' twin, and against the
+    unsharded prefix with its count and picks (each slab's tables equal
+    the one card's), at every branch of every prefix fold's picks and
+    past each cap (``fold_cases``), exact. Timed: the slot pick of the
+    checks' ``newly`` stream, all k slabs in turn."""
+    cfg = step.EngineConfig()
+    s = _streams(n, seed, dev)
+    extra = []
+    for i, (name, counts) in enumerate(fold_cases(cfg, n)):
+        if name.startswith("fill"):
+            continue
+        kern, twin = _sharded_fold_pair(name, counts, n, dev, k,
+                                        seed=seed + i)
+        one = _fold_pair(name, counts, n, dev, seed=seed + i)[0]
+
+        def unsharded(one=one):
+            got = one()
+            return (got[0],) + tuple(got[1:]) * k
+        extra += [(kern, twin), (kern, unsharded)]
+    newly = s["newly"]
+    return Check("concat_prefix_sharded.pick", "cuda",
+                 "reina_tpu_torch/kernels/csrc/prefix.cu", f"{_FM}:553",
+                 *_sharded_fold_pair("n_new", {"n_new": int(newly.sum())},
+                                     n, dev, k, w=newly),
+                 inputs=[newly],
+                 library_note="none: a conditional node is set from a "
+                              "kernel only",
+                 # every slab reads the newly stream's slab and writes its
+                 # prefix; each slab writes its count, picks and tally
+                 # entries and reads the count and the day counter
+                 read_bytes=4 * n + 12 * k, write_bytes=4 * n + 12 * k,
+                 extra=extra)
 
 
 # ---------------------------------------------------------------------------

@@ -48,7 +48,9 @@
 // base and emit_carry, reina_tpu/ops/clamped.py:247-294) splits the same
 // three launches at the tile scan, for one contiguous slab of the agent
 // axis whose first position is ``base``. The cyclic mask is taken at the
-// global position (the kernels get offset - base):
+// global position (the kernels get offset - base; in a captured day each
+// launch reads the day's offset from device memory and subtracts base,
+// as the unsharded launches read it):
 //
 //   K1 ledger_tile_fold   as above, on the slab;
 //   K2 ledger_slab_scan   the tile scan, and the slab's two folds out:
@@ -202,11 +204,13 @@ __device__ __forceinline__ Tup scan_tile(const Ledgers& lg, long long n,
 }
 
 // K1: tiles[led * ntiles + tile] = the tile's fold; pre[led] = the fold
-// of the agents of offset's tile before offset.
+// of the agents of offset's tile before offset. Where off_dev is not
+// NULL, offset is *off_dev - base (the day's global offset, read when the
+// launch runs, made local to a slab that starts at base).
 __global__ void __launch_bounds__(THREADS, 3)
 ledger_tile_fold(Ledgers lg, long long n, long long offset,
-                 const int* off_dev, Tup* tiles, Tup* pre) {
-  if (off_dev) offset = *off_dev;
+                 const int* off_dev, long long base, Tup* tiles, Tup* pre) {
+  if (off_dev) offset = *off_dev - base;
   __shared__ Tup buf[33];
   const long long i = (long long)blockIdx.x * TILE + ITEMS * threadIdx.x;
   Agents a;
@@ -300,10 +304,12 @@ __device__ __forceinline__ Tup load_tup(const long long* p) {
 }
 
 // K2 of a slab (one CTA per ledger): excl as K2's, and folds[6 * led ..].
-// offset is local: offset - base, any value.
+// offset is local: offset - base, any value (off_dev as K1's).
 __global__ void ledger_slab_scan(const Tup* tiles, Tup* excl, const Tup* pre,
-                                 long long n, long long offset, int ntiles,
-                                 long long* folds) {
+                                 long long n, long long offset,
+                                 const int* off_dev, long long base,
+                                 int ntiles, long long* folds) {
+  if (off_dev) offset = *off_dev - base;
   __shared__ Tup buf[33];
   const int led = blockIdx.x;
   const Tup* tl = tiles + (long long)led * ntiles;
@@ -332,9 +338,11 @@ __global__ void ledger_slab_scan(const Tup* tiles, Tup* excl, const Tup* pre,
 // slabs before this one into the carry and all of them into the
 // boundary scalars; the CTAs of tile 0 write the finals.
 __global__ void __launch_bounds__(THREADS, 3)
-ledger_emit_slab(Ledgers lg, long long n, long long offset, const Tup* excl,
+ledger_emit_slab(Ledgers lg, long long n, long long offset,
+                 const int* off_dev, long long base, const Tup* excl,
                  const long long* all_folds, int k, int index, int L,
                  const int* init, int* finals) {
+  if (off_dev) offset = *off_dev - base;
   __shared__ Tup buf[33];
   __shared__ Tup carry_in;
   __shared__ long long scal[2];
@@ -396,7 +404,8 @@ extern "C" int reina_ledger_grants(const void* rel0, const void* rel1,
   long long* scal = (long long*)(pre + L);
   const dim3 grid(ntiles, L);
   if (events) cudaEventRecord((cudaEvent_t)events[0], st);
-  ledger_tile_fold<<<grid, THREADS, 0, st>>>(lg, n, offset, od, tiles, pre);
+  ledger_tile_fold<<<grid, THREADS, 0, st>>>(lg, n, offset, od, 0, tiles,
+                                             pre);
   if (events) cudaEventRecord((cudaEvent_t)events[1], st);
   ledger_tile_scan<<<L, SCAN_THREADS, 0, st>>>(tiles, excl, pre,
                                                (const int*)init, offset, od,
@@ -422,15 +431,19 @@ Ledgers ledgers(const void* rel0, const void* rel1, const void* req0,
 }  // namespace
 
 // The sharded form, launches 1 and 2, on a slab of n agents whose first
-// global position is base: 0 <= offset < the global length. scratch:
+// global position is base: 0 <= offset < the global length, the host's
+// offset or, where off_dev is not NULL, the int32 it points to, read by
+// each launch (a captured day's offset, from its day row). scratch:
 // int64, 6 * L * ceil(n / 4096) + 3 * L entries, kept for the emit;
 // folds: (L, 6) int64 out. events: NULL, or 3 CUDA events recorded
 // before K1 and after each launch.
 extern "C" int reina_ledger_fold_slab(const void* rel0, const void* rel1,
                                       const void* req0, const void* req1,
                                       void* scratch, void* folds, long long n,
-                                      long long base, long long offset, int L,
+                                      long long base, long long offset,
+                                      const void* off_dev, int L,
                                       void* const* events, void* stream) {
+  const int* od = (const int*)off_dev;
   cudaStream_t st = (cudaStream_t)stream;
   const Ledgers lg = ledgers(rel0, rel1, req0, req1, nullptr, nullptr);
   const int ntiles = (int)((n + TILE - 1) / TILE);
@@ -439,11 +452,12 @@ extern "C" int reina_ledger_fold_slab(const void* rel0, const void* rel1,
   Tup* pre = excl + (long long)L * ntiles;
   const long long off = offset - base;
   if (events) cudaEventRecord((cudaEvent_t)events[0], st);
-  ledger_tile_fold<<<dim3(ntiles, L), THREADS, 0, st>>>(lg, n, off, nullptr,
+  ledger_tile_fold<<<dim3(ntiles, L), THREADS, 0, st>>>(lg, n, off, od, base,
                                                         tiles, pre);
   if (events) cudaEventRecord((cudaEvent_t)events[1], st);
-  ledger_slab_scan<<<L, SCAN_THREADS, 0, st>>>(tiles, excl, pre, n, off,
-                                               ntiles, (long long*)folds);
+  ledger_slab_scan<<<L, SCAN_THREADS, 0, st>>>(tiles, excl, pre, n, off, od,
+                                               base, ntiles,
+                                               (long long*)folds);
   if (events) cudaEventRecord((cudaEvent_t)events[2], st);
   return (int)cudaGetLastError();
 }
@@ -451,15 +465,17 @@ extern "C" int reina_ledger_fold_slab(const void* rel0, const void* rel1,
 // The sharded form, launch 3: the slab's grants and the global finals
 // from every slab's folds (all_folds: (k, L, 6) int64 on the device;
 // this slab is number index) and the scratch of its fold launches.
-// events: NULL, or 2 CUDA events recorded before and after the launch.
+// offset, off_dev: as the fold launches'. events: NULL, or 2 CUDA events
+// recorded before and after the launch.
 extern "C" int reina_ledger_emit_slab(const void* rel0, const void* rel1,
                                       const void* req0, const void* req1,
                                       void* granted0, void* granted1,
                                       const void* init, void* finals,
                                       const void* scratch,
                                       const void* all_folds, long long n,
-                                      long long base, long long offset, int L,
-                                      int k, int index, void* const* events,
+                                      long long base, long long offset,
+                                      const void* off_dev, int L, int k,
+                                      int index, void* const* events,
                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const Ledgers lg = ledgers(rel0, rel1, req0, req1, granted0, granted1);
@@ -467,7 +483,8 @@ extern "C" int reina_ledger_emit_slab(const void* rel0, const void* rel1,
   const Tup* excl = (const Tup*)scratch + (long long)L * ntiles;
   if (events) cudaEventRecord((cudaEvent_t)events[0], st);
   ledger_emit_slab<<<dim3(ntiles, L), THREADS, 0, st>>>(
-      lg, n, offset - base, excl, (const long long*)all_folds, k, index, L,
+      lg, n, offset - base, (const int*)off_dev, base, excl,
+      (const long long*)all_folds, k, index, L,
       (const int*)init, (int*)finals);
   if (events) cudaEventRecord((cudaEvent_t)events[1], st);
   return (int)cudaGetLastError();

@@ -64,7 +64,14 @@
 //                      logical block (each slab needs every block's last
 //                      value for the carry chain), then phase 3 on the
 //                      slab's rows; CTA 0 also writes each segment's
-//                      last prefix value (the carry chain's end).
+//                      last prefix value (the carry chain's end) and,
+//                      where the caller passes a count pointer, segment
+//                      0's as int32, then makes the picks of its Fold,
+//                      as the unsharded launch does. Every slab computes
+//                      the same global count, so every rank makes the
+//                      same picks: the conditionals of each rank's day
+//                      graph take the same branches, and the
+//                      collectives inside them stay matched.
 //
 // Every value is computed by the same operations on the same operands
 // as in the unsharded launch, so the slab's output equals its part of
@@ -316,7 +323,7 @@ prefix_emit_slab(const float* __restrict__ w, const int* __restrict__ codes,
                  const float* __restrict__ gathered, long long Rl,
                  long long R, long long row0, int n_seg, int blk, float* td,
                  float* hs_last, float* __restrict__ out,
-                 float* __restrict__ ends) {
+                 float* __restrict__ ends, int* count, reina::Fold fold) {
   extern __shared__ float sm[];  // max(3 * blk, n_seg * G) floats
   cg::grid_group grid = cg::this_grid();
   const int lane = threadIdx.x % 32;
@@ -337,6 +344,10 @@ prefix_emit_slab(const float* __restrict__ w, const int* __restrict__ codes,
   if (blockIdx.x == 0 && (int)threadIdx.x < n_seg) {
     const int b = (threadIdx.x + 1) * G - 1;
     ends[threadIdx.x] = __ldcg(hs_last + b) + sm[b];
+  }
+  if (count != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    *count = (int)(__ldcg(hs_last + G - 1) + sm[G - 1]);
+    reina::take_fold(fold);
   }
   const long long groups = (Rl + ROWS_PER_CTA - 1) / ROWS_PER_CTA;
   for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
@@ -432,13 +443,15 @@ extern "C" int reina_prefix_row_totals(const void* w, const void* codes,
 // == 0, n % 128 == 0): gathered holds the (k, n_seg, n / 128) row
 // totals of all k = n_global / n slabs in slab order. out: (n_seg, n)
 // floats, ends: (n_seg,) floats. scratch (floats): n_seg * n_global /
-// 128 row totals / offsets, then n_seg * G block values. events: as
+// 128 row totals / offsets, then n_seg * G block values. count, fold: as
+// reina_concat_prefix's, of segment 0's last value. events: as
 // reina_prefix_row_totals'.
 extern "C" int reina_prefix_emit_slab(const void* w, const void* codes,
                                       const void* gathered, void* out,
                                       void* ends, void* scratch, long long n,
                                       long long n_global, long long row0,
-                                      int n_seg, int blk, void* const* events,
+                                      int n_seg, int blk, void* count,
+                                      const void* fold, void* const* events,
                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   long long Rl = n / LANE, R = n_global / LANE;
@@ -464,8 +477,10 @@ extern "C" int reina_prefix_emit_slab(const void* w, const void* codes,
   const float* gp = (const float*)gathered;
   float* op = (float*)out;
   float* ep = (float*)ends;
+  int* np = (int*)count;
+  reina::Fold f = fold == nullptr ? reina::Fold{} : *(const reina::Fold*)fold;
   void* args[] = {&wp, &cp, &gp, &Rl, &R, &row0, &n_seg, &blk,
-                  &td, &hs_last, &op, &ep};
+                  &td, &hs_last, &op, &ep, &np, &f};
   if (events) cudaEventRecord((cudaEvent_t)events[0], st);
   err = cudaLaunchCooperativeKernel((const void*)prefix_emit_slab,
                                     dim3(ctas), dim3(THREADS), args, smem, st);

@@ -20,6 +20,9 @@ slabs' folds are all-gathered, and each slab emits its grants from the
 folds of the slabs before it; the global boundary scalars come from all
 of them. ``grants_twin_sharded`` is that closed form per slab, and
 ``kernels/csrc/ledger.cu`` has it as a fold entry and an emit entry.
+Every form takes the sweep's offset as a host int or as a 0-d int32
+tensor on the streams' device, which the kernels read when they run: a
+captured day's offset comes from its day row.
 """
 from __future__ import annotations
 
@@ -80,9 +83,10 @@ def _combine(x, y):
                         torch.maximum(x[2], y[2] - x[0])])
 
 
-def _slab_terms(rel, req, offset: int, base: int):
+def _slab_terms(rel, req, offset, base: int):
     """Per position of a slab: a, the key relative to the slab's start,
-    and whether the position is in the sweep's first segment."""
+    and whether the position is in the sweep's first segment (``offset``:
+    an int or a 0-d tensor)."""
     n = rel.shape[0]
     a = rel.to(I64) - req.to(I64)
     s_incl = torch.cumsum(a, 0)
@@ -91,10 +95,10 @@ def _slab_terms(rel, req, offset: int, base: int):
     return a, s_incl, key, in_a
 
 
-def slab_folds_twin(releases, requests, offset: int, base: int):
+def slab_folds_twin(releases, requests, offset, base: int):
     """(L, 2, 3) int64: per ledger, the fold of the slab and the fold of
     its positions before ``offset`` (the slab starts at global position
-    ``base``)."""
+    ``base``; ``offset`` an int or a 0-d integer tensor)."""
     neg_inf = torch.tensor(NEG_INF, dtype=I64, device=releases[0].device)
     out = []
     for rel, req in zip(releases, requests):
@@ -109,7 +113,7 @@ def slab_folds_twin(releases, requests, offset: int, base: int):
     return torch.stack(out)
 
 
-def grants_twin_sharded(releases, requests, init, offset: int, base: int,
+def grants_twin_sharded(releases, requests, init, offset, base: int,
                         all_folds, index: int):
     """The closed form over one slab plus a carry: the slab's grants and
     the global finals, from every slab's ``slab_folds_twin`` in slab
@@ -163,18 +167,35 @@ def _check_streams(releases, requests, what: str):
     return L, n, dev
 
 
-def ledger_fold_slab(releases, requests, offset: int, base: int,
+def _offset_arg(offset, dev, n: int, what: str):
+    """(host offset, device pointer or None) of an int in [0, n) or a 0-d
+    int32 tensor on ``dev`` (whose value is the caller's to keep in
+    range)."""
+    if isinstance(offset, torch.Tensor):
+        if offset.device != dev or offset.dtype != I32 or offset.dim():
+            raise TypeError(f"{what} takes a 0-d int32 offset on the "
+                            "streams' device")
+        return 0, offset.data_ptr()
+    if not 0 <= offset < n:
+        raise ValueError(f"{what}: offset {offset} outside [0, {n})")
+    return int(offset), None
+
+
+def ledger_fold_slab(releases, requests, offset, base: int,
                      n_global: int, events=None):
     """The sharded ledger's fold entry (kernels/csrc/ledger.cu, two
     launches) on a slab of (n,) int32 releases and bool requests whose
     first position is ``base`` of ``n_global``: returns the slab's
     folds, (L, 2, 3) int64 as ``slab_folds_twin``'s, and the scratch
-    that ``ledger_emit_slab`` takes. ``events``: None, or 3 recorded CUDA
+    that ``ledger_emit_slab`` takes. ``offset``: the sweep's global
+    offset, an int or a 0-d int32 tensor on the streams' device that the
+    launches read when they run. ``events``: None, or 3 recorded CUDA
     events, recorded again before the first launch and after each."""
     L, n, dev = _check_streams(releases, requests, "ledger fold entry")
-    if not 0 <= base <= n_global - n or not 0 <= offset < n_global:
-        raise ValueError(f"ledger fold entry: slab [{base}, {base + n}) or "
-                         f"offset {offset} outside [0, {n_global})")
+    if not 0 <= base <= n_global - n:
+        raise ValueError(f"ledger fold entry: slab [{base}, {base + n}) "
+                         f"outside [0, {n_global})")
+    offset, off_dev = _offset_arg(offset, dev, n_global, "ledger fold entry")
     from ..kernels import build
     req = [q.view(torch.uint8) for q in requests]
     ntiles = (n + 4095) // 4096
@@ -187,19 +208,20 @@ def ledger_fold_slab(releases, requests, offset: int, base: int,
     kernels.launched("ledger_sharded.fold")
     build.check(build.lib().reina_ledger_fold_slab(
         ptr(releases, 0), ptr(releases, 1), ptr(req, 0), ptr(req, 1),
-        scratch.data_ptr(), folds.data_ptr(), n, int(base), int(offset), L,
-        build.event_handles(events), build.stream_of(releases[0])),
+        scratch.data_ptr(), folds.data_ptr(), n, int(base), offset, off_dev,
+        L, build.event_handles(events), build.stream_of(releases[0])),
         "ledger_sharded.fold")
     return folds, scratch
 
 
-def ledger_emit_slab(releases, requests, init, offset: int, base: int,
+def ledger_emit_slab(releases, requests, init, offset, base: int,
                      all_folds, index: int, scratch, events=None):
     """The sharded ledger's emit entry (one launch): the slab's grants
     and the global (L,) int32 finals from every slab's folds
     (``all_folds``: (k, L, 2, 3) int64 on the streams' device, in slab
     order; this slab is number ``index``) and the scratch of its fold
-    entry. ``events``: None, or 2 recorded CUDA events."""
+    entry. ``offset``: as the fold entry's. ``events``: None, or 2
+    recorded CUDA events."""
     L, n, dev = _check_streams(releases, requests, "ledger emit entry")
     k = all_folds.shape[0]
     if all_folds.device != dev or all_folds.dtype != I64 \
@@ -218,6 +240,7 @@ def ledger_emit_slab(releases, requests, init, offset: int, base: int,
             or not init.is_contiguous():
         raise TypeError("ledger emit entry takes (L,) contiguous int32 init "
                         "on the streams' device")
+    offset, off_dev = _offset_arg(offset, dev, n * k, "ledger emit entry")
     from ..kernels import build
     req = [q.view(torch.uint8) for q in requests]
     granted = [torch.empty(n, dtype=torch.bool, device=dev)
@@ -231,18 +254,20 @@ def ledger_emit_slab(releases, requests, init, offset: int, base: int,
     build.check(build.lib().reina_ledger_emit_slab(
         ptr(releases, 0), ptr(releases, 1), ptr(req, 0), ptr(req, 1),
         ptr(granted, 0), ptr(granted, 1), init.data_ptr(), final.data_ptr(),
-        scratch.data_ptr(), all_folds.data_ptr(), n, int(base), int(offset),
-        L, k, int(index), build.event_handles(events),
+        scratch.data_ptr(), all_folds.data_ptr(), n, int(base), offset,
+        off_dev, L, k, int(index), build.event_handles(events),
         build.stream_of(releases[0])), "ledger_sharded.emit")
     return granted, final
 
 
-def sharded_grants(releases, requests, init, offset: int, shard):
+def sharded_grants(releases, requests, init, offset, shard):
     """The grants of this rank's slab and the global finals in an
     agent-sharded run: ``shard`` (parallel.mesh.AgentShard) gives the
     slab ([shard.lo, shard.lo + n) of shard.n), its number
-    (shard.index) and the all-gather of the slabs' folds. The twins on
-    the CPU, the two entries of the kernel on CUDA."""
+    (shard.index) and the all-gather of the slabs' folds. ``offset``: an
+    int or a 0-d int32 tensor on the streams' device (read by the
+    kernels, never by the host). The twins on the CPU, the two entries
+    of the kernel on CUDA."""
     if releases[0].device.type == "cpu":
         folds = slab_folds_twin(releases, requests, offset, shard.lo)
         return grants_twin_sharded(releases, requests, init, offset,
@@ -270,14 +295,7 @@ def ledger_grants(releases, requests, init, offset, events=None):
             or not init.is_contiguous():
         raise TypeError("ledger kernel takes (L,) contiguous int32 init on "
                         "the streams' device")
-    off_dev = None
-    if isinstance(offset, torch.Tensor):
-        if offset.device != dev or offset.dtype != I32 or offset.dim():
-            raise TypeError("ledger kernel takes a 0-d int32 offset on the "
-                            "streams' device")
-        off_dev, offset = offset.data_ptr(), 0
-    elif not 0 <= offset < n:
-        raise ValueError(f"ledger kernel: offset {offset} outside [0, {n})")
+    offset, off_dev = _offset_arg(offset, dev, n, "ledger kernel")
     from ..kernels import build
     req = [q.view(torch.uint8) for q in requests]
     granted = [torch.empty(n, dtype=torch.bool, device=dev)
@@ -309,16 +327,15 @@ def clamped_counter_grants(releases, requests, init, offset,
     releases: list of L (N,) int32 units returned per position;
     requests: list of L (N,) bool; init: (L,) int32 counter values at
     sweep start; offset: the sweep's first position, a host int or a 0-d
-    int32 tensor on the streams' device (read back to the host in an
-    agent-sharded run).
+    int32 tensor on the streams' device.
     Returns (tuple of L (N,) bool grants, (L,) int32 final balances).
     With ``shard`` (an agent-sharded run) the streams are this rank's
     slab and the grants its slab's (:func:`sharded_grants`).
     """
     dev = releases[0].device
     if shard is not None:
-        granted, final = sharded_grants(releases, requests, init,
-                                        int(offset), shard)
+        granted, final = sharded_grants(releases, requests, init, offset,
+                                        shard)
     elif dev.type == "cpu":
         granted, final = grants_twin(releases, requests, init, offset)
     else:

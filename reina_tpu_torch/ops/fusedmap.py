@@ -496,10 +496,15 @@ def prefix_row_totals(weights, codes, n_seg: int, events=None):
 
 
 def prefix_emit_slab(weights, codes, n_seg: int, row0: int, n_global: int,
-                     gathered, max_block_rows: int = 2048, events=None):
+                     gathered, max_block_rows: int = 2048, events=None,
+                     count=None, fold=None):
     """The sharded prefix's second entry (one cooperative launch):
     ``concat_prefix_twin_sharded`` on CUDA, from the slabs' gathered row
-    totals ((k, n_seg, rows) float32 on the weights' device)."""
+    totals ((k, n_seg, rows) float32 on the weights' device). ``count``:
+    None, or a 0-d int32 on the weights' device into which the launch
+    writes segment 0's last value (the global count, the same on every
+    slab) and then makes the picks of ``fold`` (a daygraph.Fold's
+    ``args``, or None)."""
     _check_prefix_inputs(weights, codes, n_seg, "prefix emit entry")
     n = weights.shape[0]
     _check_shard_layout(n, n_global, row0)
@@ -516,16 +521,23 @@ def prefix_emit_slab(weights, codes, n_seg: int, row0: int, n_global: int,
     if 4 * max(3 * blk, nb) > MAX_BLOCK_SMEM:
         raise ValueError(f"prefix emit entry: {nb} blocks of {blk} rows "
                          "exceed a block's shared memory")
+    if count is not None and (count.dtype != torch.int32
+                              or count.numel() != 1
+                              or count.device != weights.device):
+        raise TypeError("prefix emit entry writes its count into one int32 "
+                        "on the weights' device")
     from ..kernels import build
     dev = weights.device
     out = torch.empty(n_seg * n, dtype=torch.float32, device=dev)
     ends = torch.empty(n_seg, dtype=torch.float32, device=dev)
     scratch = torch.empty(n_seg * R + nb, dtype=torch.float32, device=dev)
-    kernels.launched("concat_prefix_sharded.emit")
+    kernels.launched("concat_prefix_sharded.emit" if fold is None
+                     else "concat_prefix_sharded.pick")
     build.check(build.lib().reina_prefix_emit_slab(
         weights.data_ptr(), None if codes is None else codes.data_ptr(),
         gathered.data_ptr(), out.data_ptr(), ends.data_ptr(),
         scratch.data_ptr(), n, n_global, int(row0), n_seg, blk,
+        None if count is None else count.data_ptr(), fold,
         build.event_handles(events), build.stream_of(weights)),
         "concat_prefix_sharded.emit")
     return out, ends
@@ -549,3 +561,36 @@ def sharded_concat_prefix(weights, codes, n_seg: int, shard,
     tot = prefix_row_totals(weights, codes, n_seg)
     return prefix_emit_slab(weights, codes, n_seg, row0, shard.n,
                             shard.all_gather(tot), max_block_rows)
+
+
+def sharded_prefix_count(weights, shard, name=None, given=None,
+                         max_block_rows: int = 2048, site=None):
+    """``prefix_count`` in an agent-sharded run: this rank's slab of the
+    one-segment prefix over the whole agent axis and its last value as a
+    0-d int32, the global count, which every rank computes alike; on
+    CUDA the emit launch writes it (into the fold site's buffer where the
+    graph runner set one for ``name``) and makes the site's tier picks
+    after the row totals' all-gather, so every rank picks the same
+    branches. ``given``, ``site``: as ``prefix_count``'s."""
+    if site is None and name is not None:
+        site = kernels.fold_site(name)
+    row0 = shard.lo // LANE
+    if weights.device.type == "cpu":
+        tot = row_totals_twin(weights, None, 1)
+        cum, ends = concat_prefix_twin_sharded(
+            weights, None, 1, row0, shard.n, shard.all_gather(tot),
+            max_block_rows)
+        count = ends[0].to(torch.int32)
+        if site is not None and site.armed:
+            site.twin({name: count, **(given or {})})
+        return cum, count
+    out = None if site is None else site.out
+    if out is None:
+        out = torch.empty((), dtype=torch.int32, device=weights.device)
+    fold = (site.args({name: out, **(given or {})})
+            if site is not None and site.armed else None)
+    tot = prefix_row_totals(weights, None, 1)
+    cum, _ = prefix_emit_slab(weights, None, 1, row0, shard.n,
+                              shard.all_gather(tot), max_block_rows,
+                              count=out, fold=fold)
+    return cum, out

@@ -22,17 +22,41 @@ Ranks of an agent group form one process group, and so do ranks of a
 seed group; both are made on every rank in the same order. A collective
 on CUDA tensors over gloo (several ranks sharing one card) is staged
 through host memory on purpose, and counted as staged (``STATS``).
+
+Over NCCL the day's collectives can be captured into CUDA graphs (the
+graphed agent axis, core/graphs.py): each is one NCCL call on buffers
+made on the device, an all-reduce in place on a tensor of its own and an
+``all_gather_into_tensor`` into one buffer, with no host staging and no
+list of parts. A collective captured over gloo raises CollectiveError.
+While a thread captures, its collectives go into the capture's tally
+(``kernels.capture_tally``, as ``mesh.calls`` and ``mesh.bytes``), and
+each replay adds them to ``kernels.REPLAYED``, which :func:`stats` adds
+to ``STATS``, as kernels.LAUNCHES counts a graph's launches.
+
+The ranks of an agent group build a graph set span by span together,
+and tell one another through the world's store, not a collective,
+whether each span was built (:func:`agree`): a rank whose warm-up fails
+may leave a collective that its peers wait in. Its failure mark in the
+store ends the peers' waits inside collectives (:func:`watching`), and
+every rank then aborts the group's communicator, which ends what it
+left on its card, so that all raise and none hangs.
 """
 from __future__ import annotations
 
 import math
 import os
+import threading
+import time
+from collections import Counter
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from .. import kernels
 
 LANE = 128
 
@@ -41,13 +65,34 @@ LANE = 128
 STATS = {"calls": 0, "bytes": 0, "staged_calls": 0, "staged_bytes": 0}
 
 
+_LOCK = threading.Lock()
+# the store keys that this thread's collectives watch (:func:`watching`)
+_watch = threading.local()
+# agreements made on each agent group (:func:`agree`), by group name
+_AGREED = Counter()
+
+
+class CollectiveError(RuntimeError):
+    """A collective that cannot run as asked: one over gloo met under a
+    CUDA graph capture, or one given up because another rank of its
+    group failed (:func:`watching`)."""
+
+
 def reset_stats() -> None:
-    for k in STATS:
-        STATS[k] = 0
+    with _LOCK:
+        for k in STATS:
+            STATS[k] = 0
+        for k in ("calls", "bytes"):
+            kernels.REPLAYED.pop("mesh." + k, None)
 
 
 def stats() -> dict:
-    return dict(STATS)
+    """``STATS`` with the collectives of the replayed graphs."""
+    with _LOCK:
+        out = dict(STATS)
+        for k in ("calls", "bytes"):
+            out[k] += kernels.REPLAYED.get("mesh." + k, 0)
+        return out
 
 
 def init_distributed(coordinator_address: Optional[str] = None,
@@ -64,6 +109,16 @@ def init_distributed(coordinator_address: Optional[str] = None,
     coordinator is ``host:port`` or an init-method URL (``tcp://``,
     ``file://``). ``backend=None`` means ``nccl`` when CUDA is available
     and ``gloo`` otherwise; pass ``gloo`` for several ranks on one card.
+
+    Over NCCL it sets ``NCCL_GRAPH_MIXING_SUPPORT=0`` (unless the
+    environment sets it) before any communicator exists: with NCCL's
+    support for mixing graph and eager launches a captured collective
+    brings event record and wait nodes, which a conditional node's body
+    cannot hold (kernels/nccl_parts.py); without it a capture is kernel
+    and memcpy nodes, and the run loop launches no eager collective on a
+    communicator while a day graph is outstanding (it fetches first). A
+    process group made elsewhere needs the same setting for the graphed
+    agent axis.
     """
     env = os.environ
     if dist.is_available() and dist.is_initialized():
@@ -85,6 +140,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
         init_method = f"tcp://{coordinator_address}"
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if backend == "nccl":
+        os.environ.setdefault("NCCL_GRAPH_MIXING_SUPPORT", "0")
     dist.init_process_group(backend, init_method=init_method,
                             world_size=num_processes, rank=process_id)
     return dist.get_world_size()
@@ -154,40 +211,126 @@ def _staged(t: torch.Tensor, backend) -> bool:
     return backend == "gloo" and t.is_cuda
 
 
-def _count(t: torch.Tensor, staged: bool, factor: int = 1) -> None:
+def _count(t: torch.Tensor, staged: bool, backend, factor: int = 1) -> None:
     nbytes = t.numel() * t.element_size() * factor
-    STATS["calls"] += 1
-    STATS["bytes"] += nbytes
-    if staged:
-        STATS["staged_calls"] += 1
-        STATS["staged_bytes"] += nbytes
+    if t.is_cuda and torch.cuda.is_current_stream_capturing():
+        if backend != "nccl":
+            raise CollectiveError(f"a collective over {backend} cannot be "
+                                  "captured into a CUDA graph (NCCL can)")
+        tally = kernels.capture_tally()
+        if tally is not None:
+            tally["mesh.calls"] += 1
+            tally["mesh.bytes"] += nbytes
+            return
+    with _LOCK:
+        STATS["calls"] += 1
+        STATS["bytes"] += nbytes
+        if staged:
+            STATS["staged_calls"] += 1
+            STATS["staged_bytes"] += nbytes
 
 
 def all_reduce(t: torch.Tensor, group, backend, op=dist.ReduceOp.SUM):
-    """The reduction of ``t`` over ``group``, as a new tensor."""
+    """The reduction of ``t`` over ``group``, in ``t`` itself (a
+    contiguous tensor that the caller made for it); returns ``t``."""
     staged = _staged(t, backend)
-    buf = t.cpu() if staged else t.clone()
-    _count(t, staged)
-    dist.all_reduce(buf, op=op, group=group)
-    return buf.to(t.device) if staged else buf
+    _count(t, staged, backend)
+    if not staged:
+        _wait(dist.all_reduce(t, op=op, group=group, async_op=_watched()))
+        return t
+    buf = t.cpu()
+    _wait(dist.all_reduce(buf, op=op, group=group, async_op=_watched()))
+    return t.copy_(buf)
 
 
 def all_gather(t: torch.Tensor, group, backend) -> torch.Tensor:
-    """(k, *t.shape): ``t`` of every rank of ``group``, in rank order."""
+    """(k, *t.shape): ``t`` of every rank of ``group``, in rank order,
+    by one ``all_gather_into_tensor`` into a buffer made here."""
     k = dist.get_world_size(group)
     staged = _staged(t, backend)
+    _count(t, staged, backend, k)
     src = t.cpu() if staged else t.contiguous()
-    parts = [torch.empty_like(src) for _ in range(k)]
-    _count(t, staged, k)
-    dist.all_gather(parts, src, group=group)
-    out = torch.stack(parts)
-    return out.to(t.device) if staged else out
+    buf = torch.empty(k * t.numel(), dtype=t.dtype, device=src.device)
+    _wait(dist.all_gather_into_tensor(buf, src.reshape(-1), group=group,
+                                      async_op=_watched()))
+    return buf.to(t.device).view((k,) + tuple(t.shape))
+
+
+def _watched() -> bool:
+    return getattr(_watch, "keys", None) is not None
+
+
+def _wait(work) -> None:
+    """Wait for a collective issued with ``async_op=_watched()``; while
+    this thread watches, give it up (CollectiveError) as soon as another
+    rank of its group has marked a failure in the store."""
+    if work is None:
+        return
+    store, failed = _watch.keys
+    while not work.is_completed():
+        if store.check([failed]):
+            raise CollectiveError("given up: another rank of the agent "
+                                  "group failed")
+        time.sleep(1e-4)
+    work.wait()
+
+
+def _store():
+    return dist.distributed_c10d._get_default_store()
+
+
+def _keys(shard) -> str:
+    return "reina/agent_group/" + str(getattr(shard.group, "group_name",
+                                              None))
+
+
+@contextmanager
+def watching(shard):
+    """This thread's collectives meanwhile (a span's warm-up: never
+    under capture) wait on the host, and give up as soon as another
+    rank of ``shard``'s agent group marks a failure in :func:`agree`: a
+    rank that fails halfway through a span's warm-up leaves its peers in
+    a collective that it never makes. Nothing changes without a world."""
+    if shard.group is None or not dist.is_initialized():
+        yield
+        return
+    _watch.keys = (_store(), _keys(shard) + "/failed")
+    try:
+        yield
+    finally:
+        _watch.keys = None
+
+
+def agree(shard, failed: bool) -> bool:
+    """Whether any rank of ``shard``'s agent group failed a step that
+    every rank of it makes (a graph set's warm-up or capture of one
+    span), from every rank's word in the world's store. A rank that
+    failed marks it first, which ends its peers' watched waits; where
+    any failed, every rank aborts the group's communicator (which ends
+    the collectives left on its card) and the group is not used again.
+    Without a world it returns ``failed``."""
+    if shard.group is None or not dist.is_initialized():
+        return failed
+    store, base = _store(), _keys(shard)
+    if failed:
+        store.set(base + "/failed", b"1")
+    with _LOCK:
+        seq = _AGREED[base]
+        _AGREED[base] += 1
+    store.set(f"{base}/{seq}/{shard.index}", b"1" if failed else b"0")
+    words = [f"{base}/{seq}/{j}" for j in range(shard.k)]
+    store.wait(words)
+    if not any(store.get(w) == b"1" for w in words):
+        return False
+    dist.distributed_c10d._abort_process_group(shard.group)
+    return True
 
 
 def gather_objects(obj, group) -> list:
     """Every rank's ``obj`` over ``group``, in rank order (pickled)."""
     out = [None] * dist.get_world_size(group)
-    STATS["calls"] += 1
+    with _LOCK:
+        STATS["calls"] += 1
     dist.all_gather_object(out, obj, group=group)
     return out
 
@@ -301,7 +444,8 @@ class AgentShard:
     # -- whole state (checkpoints)
 
     def barrier(self) -> None:
-        STATS["calls"] += 1
+        with _LOCK:
+            STATS["calls"] += 1
         dist.barrier(group=self.group)
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:

@@ -24,7 +24,8 @@ KERNELS = ["fused_map.prologue", "fused_map.recv_front", "fused_map.post",
            "fused_onehot_sum", "fused_fn_onehot_sum", "fused_bihistogram"]
 # the launch counts of the ledger's and the prefix's sharded forms
 SHARDED = ("ledger_sharded.fold", "ledger_sharded.emit",
-           "concat_prefix_sharded.totals", "concat_prefix_sharded.emit")
+           "concat_prefix_sharded.totals", "concat_prefix_sharded.emit",
+           "concat_prefix_sharded.pick")
 # the draw kernel and the samplers (threefry.cu, samplers.cu)
 DRAWS = ["prng.draw", "random.gamma_fixed", "random.binomial_fixed"]
 IVS = [["test-with-contact-tracing", "2020-02-20", 60],
@@ -664,6 +665,37 @@ def test_device_key_draws_match_twins():
     assert after["random.gamma_fixed"] - before["random.gamma_fixed"] == 2
     assert (after["random.binomial_fixed"]
             - before["random.binomial_fixed"]) == 1
+
+
+def test_graphed_agent_axis_refuses_gloo():
+    """The graphed agent axis captures its collectives, which gloo
+    cannot: run_days(graphs=True) on a gloo mesh on the card raises
+    before any collective, a graph set on a gloo shard raises GraphError,
+    and a gloo collective met under capture CollectiveError (each naming
+    the backend); the default on a gloo mesh is the plain step."""
+    _need_cuda()
+    from reina_tpu_torch.core import graphs
+    from reina_tpu_torch.core.engine import run_days
+    from reina_tpu_torch.parallel import mesh as M
+    from reina_tpu_torch.testing import build_synthetic_run
+    run = build_synthetic_run("cuda", n_agents=8192, days=3, seed=1)
+    mesh = M.Mesh(n_seed=1, n_agent=2, rank=0, seed_index=0, agent_index=0,
+                  device=torch.device("cuda"), backend="gloo",
+                  agent_group=None, seed_group=None)
+    with pytest.raises(ValueError, match="gloo"):
+        run_days(run, mesh=mesh, graphs=True)
+    shard = M.AgentShard(mesh, 8192)
+    arrays, schedules, state, carry = M.shard_run(run, mesh)
+    with pytest.raises(graphs.GraphError, match="gloo"):
+        graphs.GraphSet(run.cfg, arrays, schedules, state, carry, "cuda",
+                        shard)
+    g = torch.cuda.CUDAGraph()
+    x = torch.ones(4, dtype=torch.int32, device="cuda")
+    with pytest.raises(M.CollectiveError, match="gloo"):
+        with torch.cuda.graph(g):
+            M.all_reduce(x, None, "gloo")
+    torch.cuda.synchronize()
+    assert int(x.sum()) == 4
 
 
 def test_capture_failure_raises():

@@ -8,6 +8,18 @@ that have a counterpart in the port:
     in every output, state and carry field, bit for bit; the run traces
     contacts, imports infections and vaccinates, so every collective
     point of the day step runs;
+  * the graph runner's CPU model on an agent shard (k = 2 and 4, the
+    graphed agent axis's model: each (span, tier) recorded at its
+    warm-up and called again, every pick made by the sharded producer's
+    fold): stepped day by day, every state, carry and output field
+    equals the unsharded plain step's on every day; its picks table
+    equals the plain step's host picks on every rank, its branch tallies
+    count them and its problem bits equal the plain step's;
+    ``run_days(graphs=True)`` on the mesh equals the one-rank run; a
+    capture that fails on one rank, and a warm-up that fails on one rank
+    after the first collective of its span, raise GraphError on every
+    rank at once, and the ranks go on to their next collective (these
+    run a build with smaller tiers, ``CFG``);
   * on a (2 seed × 2 agent) mesh, ``run_ensemble`` and ``sweep_grid``
     equal the one-rank ensemble and sweep on every rank;
   * a checkpoint resumes across layouts: written by two ranks, resumed
@@ -21,6 +33,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -36,10 +49,16 @@ SEEDS = [0, 1, 2]
 GRID = {"infectiousness_multiplier": [0.4, 0.55, 0.7]}
 
 
-def _build():
+# for the graph runner's model: tiers of 512, 1536 and 4096 slots and
+# of 4, 12 and 16 bucket columns, so that it warms up and records every
+# (span, tier) of a tracing day, 27 of them, in a few seconds
+CFG = {"infection_buffer": 4096, "max_infectees": 16}
+
+
+def _build(cfg_overrides=None):
     from reina_tpu_torch.testing import build_synthetic_run
     return build_synthetic_run("cpu", n_agents=N, days=DAYS, seed=5,
-                               interventions=IVS)
+                               interventions=IVS, cfg_overrides=cfg_overrides)
 
 
 def _sweep(mesh=None):
@@ -64,6 +83,114 @@ def _save(path, out, state=None, carry=None):
     np.savez(path, **arrays)
 
 
+def _model_days(run, agents, path):
+    """The graph runner's CPU model on this rank's slab, stepped day by
+    day: each day's state, carry and outputs, then the picks, the branch
+    tallies with their layout and the problem bits, into ``path``."""
+    from reina_tpu_torch import convert
+    from reina_tpu_torch.core import graphs as G
+    from reina_tpu_torch.core.schedule import Schedules
+    from reina_tpu_torch.ops import prng
+    from reina_tpu_torch.parallel import mesh as M
+
+    shard = M.AgentShard(agents, run.init_state.age.shape[0])
+    arrays, schedules, state, carry = M.shard_run(run, agents)
+    gs = G.GraphSet(run.cfg, arrays, schedules, state, carry, "cpu", shard)
+    plans = gs.prepare(Schedules(*(x.numpy() for x in schedules)),
+                       prng.PRNGKey(run.random_seed), 0, DAYS - 1,
+                       carry.weekly_leftover, shard.n)
+    gs.start(run.cfg, arrays, schedules, state, carry, 0, plans)
+    rec = {}
+    for d, plan in enumerate(plans):
+        gs.step([plan])
+        st, cr = gs.state_carry(d + 1, plan.leftover, 0, clone=True)
+        out = gs.outputs(d, d + 1, [plan])
+        for pre, nt in (("st", st), ("cr", cr)):
+            for f, v in convert.to_numpy(nt).items():
+                rec[f"d{d}_{pre}__{f}"] = np.array(v)
+        for f, v in zip(out._fields, out):
+            rec[f"d{d}_out__{f}"] = np.array(v)[0]
+    problem, picks = gs.synced(gs.sync_tail(0, DAYS - 1).numpy())
+    rec["picks"], rec["problem"] = np.array(picks), np.int32(problem)
+    rec["tally"] = gs.tally.numpy().copy()
+    rec["layout"] = np.array([gs.layout[c] for c in sorted(gs.layout)])
+    np.savez(path, **rec)
+
+
+def _failing_run(run, rank: int, cls, attr: str, failing) -> str:
+    """A graphed run on a fresh agent axis of two (a failure aborts the
+    agent group's communicator) with ``cls.attr`` replaced by
+    ``failing(original)`` on rank 1: the GraphError each rank raises and
+    its seconds, after which a collective of the world runs."""
+    from reina_tpu_torch.core import graphs as G
+    from reina_tpu_torch.core.engine import run_days
+    from reina_tpu_torch.parallel import mesh as M
+
+    agents = M.make_mesh(1, 2, device=run.device)
+    G.drop_idle()
+    original = getattr(cls, attr)
+    if rank == 1:
+        setattr(cls, attr, failing(original))
+    t0 = time.perf_counter()
+    try:
+        run_days(run, chunk_days=4, mesh=agents, graphs=True)
+        msg = "no error"
+    except G.GraphError as e:
+        msg = f"GraphError: {e}"
+    finally:
+        setattr(cls, attr, original)
+    msg = f"{time.perf_counter() - t0:.3f} {msg}"
+    torch.distributed.barrier()
+    return msg
+
+
+def _failed_capture(run, rank: int) -> str:
+    """A graphed run whose capture of span A fails on rank 1 only."""
+    from reina_tpu_torch.core import graphs as G
+
+    def failing(capture):
+        def fn(self, name, key, body):
+            if name == "A":
+                raise G.GraphError(f"capture of span {name} {key} failed: "
+                                   "refused on purpose")
+            return capture(self, name, key, body)
+        return fn
+    return _failing_run(run, rank, G.GraphSet, "capture", failing)
+
+
+def _failed_warmup(run, rank: int) -> str:
+    """A graphed run whose first warm-up with two all-reduces fails on
+    rank 1 at its second: rank 0 is then waiting in that all-reduce."""
+    from reina_tpu_torch import kernels
+    from reina_tpu_torch.core import graphs as G
+    from reina_tpu_torch.parallel import mesh as M
+
+    seen = {"n": 0}
+    real = M.all_reduce
+
+    def all_reduce(t, group, backend, *op):
+        if kernels.is_warming():
+            seen["n"] += 1
+            if seen["n"] == 2:
+                raise RuntimeError("collective refused on purpose")
+        return real(t, group, backend, *op)
+
+    def failing(span_body):
+        def fn(self, name, key, span):
+            body = span_body(self, name, key, span)
+
+            def counted():
+                seen["n"] = 0
+                M.all_reduce = all_reduce
+                try:
+                    body()
+                finally:
+                    M.all_reduce = real
+            return counted
+        return fn
+    return _failing_run(run, rank, G.GraphSet, "_span_body", failing)
+
+
 def _child(rank: int, world: int, work: str) -> None:
     """One rank of a world of 2 or 4 (see the module docstring)."""
     torch.set_num_threads(1)
@@ -73,14 +200,30 @@ def _child(rank: int, world: int, work: str) -> None:
 
     assert M.init_distributed(f"file://{work}/store", world, rank,
                               backend="gloo") == world
-    run = _build()
+    run, small = _build(), _build(CFG)
     agents = M.make_mesh(1, world, device="cpu")
     out, st, cr, _ = run_days(run, chunk_days=4, mesh=agents)
     _save(f"{work}/agent_{rank}.npz", out, st, cr)
+    _model_days(small, agents, f"{work}/model_{rank}.npz")
+    picks = []
+    out, st, cr, _ = run_days(small, chunk_days=4, mesh=agents, graphs=True,
+                              picks=picks)
+    _save(f"{work}/graphed_{rank}.npz", out, st, cr)
+    np.save(f"{work}/graphed_picks_{rank}.npy", np.array(picks))
     if world == 2:
         run_days(run, n_days=AT + 1, checkpoint_dir=f"{work}/ck2",
                  checkpoint_every=AT, mesh=agents)
+        run_days(small, n_days=AT + 1, checkpoint_dir=f"{work}/ck2g",
+                 checkpoint_every=AT, mesh=agents, graphs=True)
+        for name, fn in (("capture", _failed_capture),
+                         ("warmup", _failed_warmup)):
+            with open(f"{work}/failed_{name}_{rank}.txt", "w") as f:
+                f.write(fn(small, rank))
     else:
+        out, st, cr, _ = run_days(small, chunk_days=4, mesh=agents,
+                                  checkpoint_dir=f"{work}/ck1g",
+                                  graphs=True)
+        _save(f"{work}/resumed_g_{rank}.npz", out, st, cr)
         out, st, cr, _ = run_days(run, chunk_days=4, mesh=agents,
                                   checkpoint_dir=f"{work}/ck1")
         _save(f"{work}/resumed_{rank}.npz", out, st, cr)
@@ -94,11 +237,34 @@ def _child(rank: int, world: int, work: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-def _spawn(world: int, work: str):
+def _nccl_child(rank: int, work: str, port: str) -> None:
+    """One rank of two over NCCL, a card each (the gpu-marked test): the
+    graphed agent axis by default, then a warm-up that fails on rank 1
+    after its span's first collective, then the communicators'
+    teardown."""
+    from reina_tpu_torch.core.engine import run_days
+    from reina_tpu_torch.parallel import mesh as M
+    from reina_tpu_torch.testing import build_synthetic_run
+
+    M.init_distributed(f"tcp://127.0.0.1:{port}", 2, rank, "nccl")
+    run = build_synthetic_run(f"cuda:{rank}", n_agents=N, days=DAYS, seed=5,
+                              interventions=IVS, cfg_overrides=CFG)
+    agents = M.make_mesh(1, 2, device=run.device)
+    out, st, cr, _ = run_days(run, chunk_days=4, mesh=agents)
+    _save(f"{work}/nccl_{rank}.npz", out, st, cr)
+    with open(f"{work}/failed_warmup_{rank}.txt", "w") as f:
+        f.write(_failed_warmup(run, rank))
+    t0 = time.perf_counter()
+    torch.distributed.destroy_process_group()
+    with open(f"{work}/down_{rank}.txt", "w") as f:
+        f.write(f"{time.perf_counter() - t0:.3f}")
+
+
+def _spawn(world: int, work: str, *extra: str):
     env = dict(os.environ, PYTHONPATH=_REPO, OMP_NUM_THREADS="1")
     return [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), str(r), str(world),
-         work], cwd=_REPO, env=env, stdout=subprocess.PIPE,
+         work, *extra], cwd=_REPO, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
 
 
@@ -113,10 +279,38 @@ def _wait(procs):
         assert p.returncode == 0, out[-4000:]
 
 
+def _plain_days(run):
+    """The unsharded plain day step, day by day: each day's state, carry
+    and outputs as numpy, and the host's picks rows."""
+    from reina_tpu_torch import convert
+    from reina_tpu_torch.core import step as S
+    from reina_tpu_torch.core.engine import sched_row
+    from reina_tpu_torch.core.schedule import Schedules
+    from reina_tpu_torch.ops import prng
+    host = Schedules(*(x.numpy() for x in run.schedules))
+    key = prng.PRNGKey(run.random_seed)
+    state = run.init_state
+    carry = run.init_carry._replace(bkt_dst=run.init_carry.bkt_dst.clone())
+    days, picks = [], []
+    for d in range(DAYS - 1):
+        dk = S.derive_day_keys(run.cfg, key, [d]).day(0)
+        state, carry, out = S.day_step(run.cfg, run.arrays,
+                                       sched_row(run.schedules, host, d),
+                                       state, carry, dk, picks=picks)
+        days.append(({f: np.array(v) for f, v in
+                      convert.to_numpy(state).items()},
+                     {f: np.array(v) for f, v in
+                      convert.to_numpy(carry).items()},
+                     {f: np.asarray(v) for f, v in zip(out._fields, out)}))
+    return days, np.array(picks)
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The one-rank results, and the worlds of 2 and 4 ranks run at once
-    (the world of 4 resumes a checkpoint written here first)."""
+    (the world of 4 resumes checkpoints written here first); for the
+    build with smaller tiers (``CFG``), its one-rank run and the
+    unsharded plain step day by day."""
     from reina_tpu_torch.core.engine import run_days
     from reina_tpu_torch.ensemble import run_ensemble
 
@@ -125,17 +319,21 @@ def runs(tmp_path_factory):
     work = {w: str(base / f"world{w}") for w in (2, 4)}
     for d in work.values():
         os.makedirs(d)
-    run = _build()
+    run, small = _build(), _build(CFG)
     run_days(run, n_days=AT + 1, checkpoint_dir=f"{work[4]}/ck1",
+             checkpoint_every=AT)
+    run_days(small, n_days=AT + 1, checkpoint_dir=f"{work[4]}/ck1g",
              checkpoint_every=AT)
     procs = _spawn(2, work[2]) + _spawn(4, work[4])
     try:
         one = run_days(run, chunk_days=4)[:3]
         ens = run_ensemble(run, SEEDS)
         sweep = _sweep()
+        small_one = run_days(small, chunk_days=4)[:3]
+        plain = _plain_days(small)
     finally:
         _wait(procs)
-    return run, one, ens, sweep, work
+    return run, one, ens, sweep, work, (small, small_one, plain)
 
 
 def _eq(a, b, name):
@@ -168,7 +366,7 @@ def _eq_slab(run, one, path, rank, k):
 
 @pytest.mark.parametrize("k", [2, 4])
 def test_agent_sharded_run_equals_one_rank(runs, k):
-    run, one, _, _, work = runs
+    run, one, _, _, work, _ = runs
     out = one[0]
     # the run exercises tracing, imports and vaccination
     assert out.ct_cases_per_day.max() > 0
@@ -178,10 +376,100 @@ def test_agent_sharded_run_equals_one_rank(runs, k):
         _eq_slab(run, one, f"{work[k]}/agent_{r}.npz", r, k)
 
 
+def _slab_of(run, f, a, rank, k):
+    """The slab of an unsharded carry or state field ``f`` that rank
+    ``rank`` of ``k`` holds (the bucket table without its spare slot)."""
+    n = run.init_state.age.shape[0] // k
+    capb = run.cfg.max_infectees
+    lo, hi = rank * n, (rank + 1) * n
+    if f == "bkt_dst":
+        return a[lo * capb:hi * capb]
+    if a.ndim and a.shape[0] == n * k:
+        return a[lo:hi]
+    return a
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_graph_model_on_a_shard_equals_plain_step(runs, k):
+    """The graph runner's CPU model on each rank's slab, day by day,
+    against the unsharded plain step: every state, carry and output
+    field every day; the picks table equals the host's picks on every
+    rank (the same branch on every rank), the branch tallies count them
+    and the problem bits are the plain step's."""
+    _, _, _, _, work, (run, _, (days, host_picks)) = runs
+    traced = host_picks[:, 0] == 1
+    assert traced.any() and (host_picks[:, 1] >= 0).any()
+    for r in range(k):
+        z = np.load(f"{work[k]}/model_{r}.npz")
+        for d, (st, cr, out) in enumerate(days):
+            for f, a in st.items():
+                _eq(_slab_of(run, f, a, r, k), z[f"d{d}_st__{f}"],
+                    f"rank {r} day {d} state.{f}")
+            for f, a in cr.items():
+                if f"d{d}_cr__{f}" not in z:
+                    continue
+                b = z[f"d{d}_cr__{f}"]
+                if f == "bkt_dst":
+                    b = b[:-1]
+                _eq(_slab_of(run, f, a, r, k), b, f"rank {r} day {d} "
+                    f"carry.{f}")
+            for f, a in out.items():
+                _eq(a, z[f"d{d}_out__{f}"], f"rank {r} day {d} out.{f}")
+        _eq(host_picks, z["picks"], f"rank {r} picks")
+        tally = z["tally"]
+        for col, slot, n in z["layout"]:
+            picked = host_picks[:, col]
+            _eq(np.bincount(picked[picked >= 0], minlength=n).astype(
+                tally.dtype), tally[slot:slot + n], f"rank {r} tally {col}")
+        assert int(z["problem"]) == int(days[-1][1]["problem"])
+
+
+@pytest.mark.parametrize("k", [2, 4])
+def test_graphed_run_days_on_a_mesh_equals_one_rank(runs, k):
+    """``run_days(graphs=True)`` on an agent axis of k (the CPU model)
+    equals the one-rank run on every rank, with the host's picks."""
+    _, _, _, _, work, (run, one, (_, host_picks)) = runs
+    for r in range(k):
+        _eq_slab(run, one, f"{work[k]}/graphed_{r}.npz", r, k)
+        _eq(host_picks, np.load(f"{work[k]}/graphed_picks_{r}.npy"),
+            f"rank {r} picks")
+
+
+def _failed(runs, name):
+    """Each rank's seconds and message of a failing run of the world of
+    two."""
+    work = runs[4]
+    out = []
+    for r in range(2):
+        s, msg = open(f"{work[2]}/failed_{name}_{r}.txt").read().split(" ", 1)
+        out.append((float(s), msg))
+    return out
+
+
+def test_failed_capture_raises_on_every_rank(runs):
+    """A capture that fails on rank 1 only raises GraphError on both
+    ranks (rank 0 through the ranks' agreement after the span), and
+    neither hangs: both reach their next collective."""
+    (_, m0), (_, m1) = _failed(runs, "capture")
+    assert m1.startswith("GraphError") and "on purpose" in m1
+    assert m0.startswith("GraphError") and "another rank" in m0
+
+
+def test_failed_warmup_raises_on_every_rank(runs):
+    """A warm-up that fails on rank 1 after the first collective of its
+    span, while rank 0 waits in the second: both raise GraphError within
+    seconds (rank 0 gives its collective up on rank 1's mark in the
+    store), and both reach their next collective."""
+    (s0, m0), (s1, m1) = _failed(runs, "warmup")
+    assert m1.startswith("GraphError") and "on purpose" in m1
+    assert m0.startswith("GraphError") and "another rank" in m0
+    assert max(s0, s1) < 60, (s0, s1)
+
+
 def test_seed_and_agent_axes_ensemble(runs):
     """A (2, 2) mesh: seeds split over the seed axis, each member over
     an agent group of two; every rank returns all members."""
-    _, _, ens, _, work = runs
+    _, _, ens, _, work, _ = runs
     for r in range(4):
         z = np.load(f"{work[4]}/ensemble_{r}.npz")
         for f, a in zip(ens._fields, ens):
@@ -189,7 +477,7 @@ def test_seed_and_agent_axes_ensemble(runs):
 
 
 def test_sweep_grid_across_ranks(runs):
-    _, _, _, sweep, work = runs
+    _, _, _, sweep, work, _ = runs
     for r in range(4):
         z = np.load(f"{work[4]}/sweep_{r}.npz")
         for f, a in zip(sweep._fields, sweep):
@@ -200,7 +488,7 @@ def test_resume_two_ranks_to_one(runs, tmp_path):
     """A checkpoint written by two ranks (the same file as one rank's)
     resumes on one rank to the uninterrupted run."""
     from reina_tpu_torch.core.engine import run_days
-    run, one, _, _, work = runs
+    run, one, _, _, work, _ = runs
     d = str(tmp_path / "ck")
     shutil.copytree(f"{work[2]}/ck2", d)
     out, state, _, times = run_days(run, chunk_days=4, checkpoint_dir=d)
@@ -211,8 +499,27 @@ def test_resume_two_ranks_to_one(runs, tmp_path):
         _eq(a.numpy(), b.numpy(), "state." + f)
 
 
+def test_graphed_checkpoints_across_layouts(runs, tmp_path):
+    """The graphed agent axis (the CPU model) checkpoints and resumes as
+    the plain one: written by two graphed ranks, resumed by one; written
+    by one, resumed by four graphed ranks; both equal the uninterrupted
+    run."""
+    from reina_tpu_torch.core.engine import run_days
+    _, _, _, _, work, (run, one, _) = runs
+    d = str(tmp_path / "ck")
+    shutil.copytree(f"{work[2]}/ck2g", d)
+    out, state, _, times = run_days(run, chunk_days=4, checkpoint_dir=d)
+    assert sum(n for n, _ in times) == DAYS - 1 - AT
+    for f, a, b in zip(out._fields, one[0], out):
+        _eq(a, b, "out." + f)
+    for f, a, b in zip(state._fields, one[1], state):
+        _eq(a.numpy(), b.numpy(), "state." + f)
+    for r in range(4):
+        _eq_slab(run, one, f"{work[4]}/resumed_g_{r}.npz", r, 4)
+
+
 def test_resume_one_rank_to_four(runs):
-    run, one, _, _, work = runs
+    run, one, _, _, work, _ = runs
     for r in range(4):
         _eq_slab(run, one, f"{work[4]}/resumed_{r}.npz", r, 4)
 
@@ -251,6 +558,45 @@ def test_mesh_and_shard_rule_errors():
     assert parts == [[0, 1, 2], [3, 4], [5, 6]]
 
 
+@pytest.mark.gpu
+def test_graphed_agent_axis_over_nccl(tmp_path):
+    """Two ranks over NCCL, a card each: ``run_days`` on the agent axis
+    is graphed by default and equals the one-card graphed run on every
+    rank; a warm-up that fails on rank 1 after its span's first
+    collective raises GraphError on both within seconds; then
+    ``destroy_process_group`` returns on both (the run freed its graph
+    set, whose captured collectives hold the communicator)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import socket
+    from reina_tpu_torch.core.engine import run_days
+    from reina_tpu_torch.testing import build_synthetic_run
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = str(sk.getsockname()[1])
+    procs = _spawn(2, str(tmp_path), "nccl", port)
+    try:
+        run = build_synthetic_run("cuda:0", n_agents=N, days=DAYS, seed=5,
+                                  interventions=IVS, cfg_overrides=CFG)
+        one = run_days(run, chunk_days=4)[:3]
+    finally:
+        _wait(procs)
+    for r in range(2):
+        _eq_slab(run, one, f"{tmp_path}/nccl_{r}.npz", r, 2)
+    msgs = []
+    for r in range(2):
+        sec, msg = open(f"{tmp_path}/failed_warmup_{r}.txt").read().split(
+            " ", 1)
+        msgs.append(msg)
+        assert float(sec) < 60, (r, sec, msg)
+        assert float(open(f"{tmp_path}/down_{r}.txt").read()) < 60
+    assert msgs[1].startswith("GraphError") and "on purpose" in msgs[1]
+    assert msgs[0].startswith("GraphError") and "another rank" in msgs[0]
+
+
 if __name__ == "__main__":
     sys.path.insert(0, _REPO)
-    _child(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    if sys.argv[4:5] == ["nccl"]:
+        _nccl_child(int(sys.argv[1]), sys.argv[3], sys.argv[5])
+    else:
+        _child(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

@@ -531,24 +531,32 @@ def test_sharded_ledger_matches_jax(k, monkeypatch):
     """The port's sharded twin and kernel model equal the JAX package's
     _grants_sharded (4 virtual devices, shard_pallas, interpret mode),
     run as tests/test_clamped.py::test_sharded_grants_match_unsharded
-    runs it."""
+    runs it; the twin also with the day's offset as a 0-d int32 tensor
+    (the device offset a captured day's slab entries read; the kernel
+    model reads the same value), at offsets on, just before and just
+    after the slab edges and inside a slab."""
     import jax
     from jax.sharding import Mesh
 
     monkeypatch.setenv("REINA_SHARD_INTERPRET", "1")
     mesh = Mesh(np.array(jax.devices()[:k]).reshape(1, k), ("seed", "agent"))
     n = 8192
+    nl = n // k
     rel, req = _ledger_inputs(7, n)
     init = np.array([4, 1], np.int32)
     trel, treq = [_t(x) for x in rel], [_t(x) for x in req]
-    for off in (0, 1, n // 4, n // 2 + 3, n - 1):
+    for off in (0, 1, n // 4, n // 2 + 3, n - 1, nl - 1, nl, nl + 1,
+                n - nl - 1, n - nl):
         with jfm.shard_pallas(mesh):
             (j0, j1), jfin = jax.jit(
                 lambda r, q, o: jclamped.clamped_counter_grants(
                     list(r), list(q), jnp.asarray(init), o))(
                 [jnp.asarray(x) for x in rel],
                 [jnp.asarray(x) for x in req], jnp.int32(off))
+        dev_off = torch.tensor(off, dtype=torch.int32)
         for got, fin in (_sharded_ledger_twin(trel, treq, _t(init), off, k),
+                         _sharded_ledger_twin(trel, treq, _t(init), dev_off,
+                                              k),
                          _sharded_ledger_model(trel, treq, _t(init), off, k,
                                                4096)):
             np.testing.assert_array_equal(got[0].numpy(), np.asarray(j0))

@@ -142,3 +142,29 @@ def test_count_max_without_a_site_is_the_max():
     cum, cnt = fusedmap.prefix_count(w, "n_new")
     assert int(cnt) == 3 and cnt.dtype == I32
     assert torch.equal(cum, fusedmap.concat_prefix_twin(w, None, 1))
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("name", ["n_new", "n_d", "n_f"])
+def test_sharded_emit_fold_equals_one_card(name, k):
+    """The sharded prefix's emit with its count and picks
+    (fusedmap.sharded_prefix_count under a fold site, its CPU form) on k
+    slabs, each with tables of its own as each rank has: the slabs'
+    prefixes put together, and on every slab the count, the picks row,
+    the tallies and the problem bits, equal the one-card fused entry's
+    twin (the prefix twin, then the picks' twin) at every branch of
+    every pick of the fold and past each cap."""
+    cfg = S.EngineConfig()
+    for i, (f, counts) in enumerate(checks.fold_cases(cfg, N)):
+        if f != name:
+            continue
+        got = checks._sharded_fold_pair(name, counts, N, "cpu", k,
+                                        seed=i)[0]()
+        want = checks._fold_pair(name, counts, N, "cpu", seed=i)[1]()
+        assert torch.equal(got[0], want[0]), (name, counts)
+        per = len(want) - 1
+        assert len(got) == 1 + k * per
+        for j in range(k):
+            for a, b in zip(got[1 + j * per:1 + (j + 1) * per], want[1:]):
+                assert a.dtype == b.dtype and torch.equal(a, b), (
+                    name, counts, j)

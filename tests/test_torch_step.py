@@ -22,6 +22,13 @@ Checks and tolerances:
     the gamma draws' normal ulps through a cube; 5 ulp seen). No field
     needs the 0.1%-of-agents allowance for near-threshold flips on
     these days.
+  * one day on an agent axis of two: the JAX package's
+    ``run_days(mesh=make_mesh(1, 2))`` (two virtual CPU devices, its
+    shard_map islands) against the port's graphed agent axis (the graph
+    runner's CPU model on two ranks spawned over gloo) from the same
+    converted build and keys: the outputs, the gathered state and carry
+    with the same tolerances (integer and bool exact, floats within 8
+    ulp).
   * 24 days in distribution over 8 seeds: each day's mean of
     all_infected and detected agrees within 4 combined standard errors.
   * the port runs, checkpoints, resumes, serves its CLI (simulate,
@@ -31,6 +38,7 @@ Checks and tolerances:
 """
 import json
 import os
+import pickle
 import subprocess
 import sys
 
@@ -57,6 +65,106 @@ SEEDS = range(40, 48)
 MAX_ULP = 8
 FLIP_ALLOWANCE = 0.001    # share of agents, for fields named in FLIP_FIELDS
 FLIP_FIELDS = ()          # none needed on CHECK_DAYS
+
+
+def _rows(d, pairs):
+    """The report rows of (name, JAX value, port value) pairs."""
+    rows = []
+    for name, a, b in pairs:
+        a, b = np.asarray(a), np.asarray(b)
+        if name == "carry.bkt_dst":
+            b = b[:-1]
+        row = {"day": d, "field": name, "shape_ok": a.shape == b.shape,
+               "n": int(a.size), "mismatch": 0, "ulp": 0}
+        if row["shape_ok"]:
+            if a.dtype == np.float32:
+                ulp = np.abs(a.view(np.int32).astype(np.int64)
+                             - b.astype(np.float32).view(np.int32))
+                row["ulp"] = int(ulp.max()) if ulp.size else 0
+            else:
+                row["mismatch"] = int((a != b.astype(a.dtype)).sum())
+        rows.append(row)
+    return rows
+
+
+def _mesh_rank(rank, work):
+    """One port rank of the agent axis of two: the graphed run (the
+    graph runner's CPU model) of one day from the JAX build in
+    ``work``/build.pkl; its rows and slab into ``work``."""
+    from dataclasses import replace
+    import torch
+    torch.set_num_threads(1)
+    from reina_tpu_torch import convert
+    from reina_tpu_torch.core import step as S
+    from reina_tpu_torch.core.engine import run_days
+    from reina_tpu_torch.parallel import mesh as M
+    from reina_tpu_torch.testing import build_synthetic_run
+    with open(os.path.join(work, "build.pkl"), "rb") as f:
+        b = pickle.load(f)
+    run = build_synthetic_run("cpu", n_agents=N_AGENTS, days=DAYS, seed=3,
+                              interventions=IVS)
+    run = replace(run, cfg=S.EngineConfig(**b["cfg"]),
+                  arrays=convert.model_arrays(b["arrays"], "cpu"),
+                  schedules=convert.schedules(b["schedules"], "cpu"),
+                  init_state=convert.agent_state(b["state"], "cpu"),
+                  init_carry=convert.day_carry(b["carry"], "cpu"),
+                  random_seed=b["seed"])
+    M.init_distributed(f"file://{work}/store", 2, rank, backend="gloo")
+    out, st, cr, _ = run_days(run, n_days=2, graphs=True,
+                              mesh=M.make_mesh(1, 2, device="cpu"))
+    np.savez(os.path.join(work, f"rank_{rank}.npz"),
+             **{"out__" + k: np.asarray(v) for k, v in zip(out._fields,
+                                                          out)},
+             **{"st__" + k: v for k, v in convert.to_numpy(st).items()},
+             **{"cr__" + k: v for k, v in convert.to_numpy(cr).items()})
+    torch.distributed.destroy_process_group()
+
+
+def _mesh_day(ref, np_tree, work):
+    """The JAX package's agent axis of two for one day against the
+    port's (two spawned ranks); returns the report rows."""
+    import jax
+    from reina_tpu.core.engine import run_days as jax_run_days
+    from reina_tpu.parallel.mesh import make_mesh
+    from reina_tpu_torch.core import step as S
+    b = {"cfg": {k: getattr(ref.cfg, k)
+                 for k in S.EngineConfig.__dataclass_fields__},
+         "seed": int(ref.random_seed)}
+    for name, tree in (("arrays", ref.arrays), ("schedules", ref.schedules),
+                       ("state", ref.init_state), ("carry", ref.init_carry)):
+        b[name] = {k: np.asarray(v) for k, v in np_tree(tree)._asdict()
+                   .items()}
+    with open(os.path.join(work, "build.pkl"), "wb") as f:
+        pickle.dump(b, f)
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         work], cwd=_REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    mesh = make_mesh(1, 2, devices=jax.devices()[:2])
+    jo, js, jc, _ = jax_run_days(ref, n_days=2, chunk_days=1, mesh=mesh)
+    js, jc = np_tree(js), np_tree(jc)
+    for p in procs:
+        log = p.communicate(timeout=600)[0]
+        assert p.returncode == 0, log[-3000:]
+    z = [np.load(os.path.join(work, f"rank_{r}.npz")) for r in range(2)]
+    n = ref.init_state.age.shape[0]
+
+    def whole(pre, k):
+        a = [x[pre + k] for x in z]
+        if k == "bkt_dst":                  # each slab's spare slot
+            return np.concatenate([x[:-1] for x in a] + [a[0][-1:]])
+        if a[0].ndim and 2 * a[0].shape[0] == n:
+            return np.concatenate(a)
+        return a[0]
+    pairs = ([("state." + k, getattr(js, k), whole("st__", k))
+              for k in js._fields]
+             + [("carry." + k, getattr(jc, k), whole("cr__", k))
+                for k in jc._fields
+                if "cr__" + k in z[0] and k not in ("mob", "nc_ag")]
+             + [("out." + k, getattr(jo, k), z[r]["out__" + k])
+                for k in jo._fields for r in range(2)])
+    return _rows("mesh", pairs)
 
 
 def _child(out_path):
@@ -114,21 +222,11 @@ def _child(out_path):
                     if k not in ("mob", "nc_ag")]
                  + [("out." + k, getattr(jo, k), v)
                     for k, v in convert.to_numpy(po).items()])
-        for name, a, b in pairs:
-            a, b = np.asarray(a), np.asarray(b)
-            if name == "carry.bkt_dst":
-                b = b[:-1]
-            row = {"day": d, "field": name, "shape_ok": a.shape == b.shape,
-                   "n": int(a.size), "mismatch": 0, "ulp": 0}
-            if row["shape_ok"]:
-                if a.dtype == np.float32:
-                    ulp = np.abs(a.view(np.int32).astype(np.int64)
-                                 - b.astype(np.float32).view(np.int32))
-                    row["ulp"] = int(ulp.max()) if ulp.size else 0
-                else:
-                    row["mismatch"] = int((a != b.astype(a.dtype)).sum())
-            report["one_day"].append(row)
+        report["one_day"] += _rows(d, pairs)
     report["one_day_agents"] = int(n)
+    work = os.path.join(os.path.dirname(out_path), "mesh")
+    os.makedirs(work, exist_ok=True)
+    report["mesh_day"] = _mesh_day(ref, np_tree, work)
 
     # ---- 24 days in distribution
     for s in SEEDS:
@@ -182,6 +280,20 @@ def test_one_day_field_by_field(report):
             assert r["mismatch"] == 0, r
 
 
+def test_mesh_day_against_jax(report):
+    """One day of the agent axis of two: the JAX package's sharded run
+    against the port's graphed agent axis, field by field (outputs of
+    both ranks, the gathered state and carry)."""
+    rows = report["mesh_day"]
+    fields = {r["field"] for r in rows}
+    assert "state.infector" in fields and "out.by_group" in fields
+    assert "carry.bkt_dst" in fields
+    for r in rows:
+        assert r["shape_ok"], r
+        assert r["ulp"] <= MAX_ULP, r
+        assert r["mismatch"] == 0, r
+
+
 def test_24_days_in_distribution(report):
     dist = report["dist"]
     assert len(dist) == len(SEEDS)
@@ -201,8 +313,10 @@ def test_runs_without_jax(tmp_path):
     """With jax, the JAX package and pandas all unimportable, the port
     builds and runs a synthetic run with a checkpoint, resumes from it,
     runs it through the day-graph model (and a second build of its shapes
-    on the same graph set), makes the fused tier picks' CPU form, imports
-    the conditional-node probe and the seed-spread tools,
+    on the same graph set, and the model on an agent shard of a mesh of
+    one rank, with the sharded emit's fold), makes the fused tier picks'
+    CPU form, imports the conditional-node and NCCL-capture probes and
+    the seed-spread tools,
     its CLI simulates a small area and samples the explorer on the CPU,
     its GraphQL server answers an area and an explorer query, and it
     runs an ensemble (also on a mesh of one rank over torch.distributed),
@@ -231,7 +345,8 @@ def test_runs_without_jax(tmp_path):
         "g = run_days(run, graphs=True, picks=picks)[0]\n"
         "assert (g.by_group == out.by_group).all() and len(picks) == 2\n"
         # the fused tier picks' CPU form, the probe of their graph layouts
-        "from reina_tpu_torch.kernels import checks, cond_parts\n"
+        "from reina_tpu_torch.kernels import checks, cond_parts, "
+        "nccl_parts\n"
         "k, t = checks._fold_pair('n_d', {'ct_cases': 1, 'n_d': 9}, 2048,"
         " 'cpu')\n"
         "assert all(torch.equal(a, b) for a, b in zip(k(), t()))\n"
@@ -277,6 +392,22 @@ def test_runs_without_jax(tmp_path):
         "m = M.make_mesh(device='cpu')\n"
         "assert (run_ensemble(run, [1, 2], mesh=m).by_group"
         " == e.by_group).all()\n"
+        # the graph runner's model on an agent shard (one slab)
+        "from reina_tpu_torch.core.schedule import Schedules\n"
+        "from reina_tpu_torch.ops import prng\n"
+        "sh = M.AgentShard(m, run.init_state.age.shape[0])\n"
+        "b = (run.cfg, run.arrays, run.schedules, run.init_state,"
+        " run.init_carry)\n"
+        "gs = graphs.GraphSet(*b, 'cpu', sh)\n"
+        "plans = gs.prepare(Schedules(*(x.numpy() for x in run.schedules)),"
+        " prng.PRNGKey(run.random_seed), 0, 2,"
+        " run.init_carry.weekly_leftover, sh.n)\n"
+        "gs.start(*b, 0, plans)\n"
+        "gs.step(plans)\n"
+        "_, rows = gs.synced(gs.sync_tail(0, 2).numpy())\n"
+        "assert rows.tolist() == [list(r) for r in picks], rows\n"
+        "assert (gs.state_carry(3, None, 0, True)[0].state"
+        " == st.state).all()\n"
         "best, ranked = calibrate(synthetic_variables(days=3),"
         " {'infectiousness_multiplier': [0.4, 0.7]}, observed_rows=["
         "{'date': '2020-02-20', 'confirmed': 3}], pad_multiple=256,"
@@ -310,4 +441,7 @@ def test_runs_without_jax(tmp_path):
 
 if __name__ == "__main__":
     sys.path.insert(0, _REPO)
-    _child(sys.argv[1])
+    if sys.argv[1] == "--mesh-rank":
+        _mesh_rank(int(sys.argv[2]), sys.argv[3])
+    else:
+        _child(sys.argv[1])
