@@ -123,6 +123,27 @@ Run from the repository root on a machine with a CUDA device. It
 
 runs only step 7's ranks, for 2 and K ranks (NCCL with K cards), after
 the 31 days of step 3 and the ensemble of step 6 that they are held to.
+Over NCCL the agent axis of (a) runs the 365-day HUS run (plain,
+graphed, graphed again), and the two-rank world then profiles rank 0's
+graphed days 100-109 with torch.profiler (busy ms/day, idle share, the
+NCCL, sharded ledger and sharded prefix kernels' ms/day). With four
+ranks, (c) the (2 seed × 2 agent) mesh: run_ensemble over seeds 0-2 for
+31 days, each agent group of two cards running its members graphed,
+whose members must equal the ensemble phase's bit for bit, with one
+day-graph launch and no host read a day on every rank and equal picks
+within each agent group; seeds/h and each rank's peak memory beside the
+seed axis alone (b). Then (d), a lost rank on two cards over NCCL, the
+HUS run cut to 8 days: (d1) rank 1's day-graph launch of day 3 raises
+on purpose, (d2) rank 1's process ends there (os._exit); every rank
+left must raise, within 5 s in (d1) and within the liveness bound
+(reina_tpu_torch/parallel/mesh.py: LIVENESS_S) plus 10 s of rank 1's
+end in (d2), each in a world of its own; then run a one-card graphed
+run on its card equal to the same run made before and tear its world
+down, or, where the abort ended its card's CUDA context (what ran out
+on the card after the abort read what the aborted collectives left),
+say so and leave; the seconds of each raise and of
+destroy_process_group are printed. ``python3 chip_smoke.py --lost``
+runs (d) alone.
 
 Each of steps 3, 4c, 4d, 5, 8, the ensemble, the grid and the CLI's
 calibrate runs of 4c and 6, the agent-sharded run of 7 (in each rank)
@@ -155,6 +176,9 @@ MESH_DAYS = 31
 # a mesh phase's ranks are killed after this many seconds
 MESH_CHILD_S = 150
 MESH_SEEDS = [0, 1, 2]
+# the lost-rank phase: the HUS run cut to this many days, rank 1 failing
+# at its day-graph launch of day LOST_AT
+LOST_DAYS, LOST_AT = 8, 3
 CLI_GRID = [0.45, 0.65]
 POLL_S = 0.5
 # run A's poll until its first partial result: finer than the web UI's
@@ -775,6 +799,8 @@ def mesh_child(rank: int, world: int, port: int, backend: str,
     from reina_tpu_torch.config.variables import VARIABLE_DEFAULTS
     from reina_tpu_torch.core import graphs as G
     from reina_tpu_torch.core import step
+    from reina_tpu_torch import ensemble as E
+    from reina_tpu_torch.agent_axis import profile_window
     from reina_tpu_torch.core.engine import build_run, run_days
     from reina_tpu_torch.ensemble import run_ensemble
     from reina_tpu_torch.kernels import build
@@ -824,19 +850,44 @@ def mesh_child(rank: int, world: int, port: int, backend: str,
             agent_run(label, graphs)
             print(f"rank {rank}: agent axis {label} done in "
                   f"{rec[label]['s']:.3f} s", flush=True)
+        if backend == "nccl" and world == 2:
+            rec["profile"] = profile_window(run, agents, rank == 0)
 
-    seeds = M.make_mesh(world, 1, device=dev)
-    M.reset_stats()
-    t0 = time.perf_counter()
-    ens = run_ensemble(run, MESH_SEEDS, n_days=MESH_DAYS, mesh=seeds)
-    torch.cuda.synchronize()
-    rec["seed_s"] = time.perf_counter() - t0
-    rec["seed_members"] = len(M.batch_placement(seeds, MESH_SEEDS))
-    print(f"rank {rank}: seed axis done in {rec['seed_s']:.3f} s",
-          flush=True)
-    if rank == 0:
-        np.savez(os.path.join(work, "ensemble.npz"),
-                 **{k: x for k, x in zip(ens._fields, ens)})
+    def seed_run(label, mesh):
+        torch.cuda.synchronize()
+        M.reset_stats()
+        step.reset_stats()
+        torch.cuda.reset_peak_memory_stats()
+        # the picks rows of the members this rank runs, one after
+        # another: each member's run_days gets this list
+        picks = []
+
+        def with_picks(*args, **kw):
+            return run_days(*args, picks=picks, **kw)
+
+        E.run_days = with_picks
+        t0 = time.perf_counter()
+        try:
+            ens = run_ensemble(run, MESH_SEEDS, n_days=MESH_DAYS, mesh=mesh)
+        finally:
+            E.run_days = run_days
+        torch.cuda.synchronize()
+        rec[label] = {"s": time.perf_counter() - t0,
+                      "members": len(M.batch_placement(mesh, MESH_SEEDS)),
+                      "step": dict(step.STATS), "stats": M.stats(),
+                      "peak": torch.cuda.max_memory_allocated(),
+                      "picks": np.asarray(picks).tolist()}
+        print(f"rank {rank}: {label} done in {rec[label]['s']:.3f} s",
+              flush=True)
+        if rank == 0:
+            np.savez(os.path.join(work, f"{label}.npz"),
+                     **{k: x for k, x in zip(ens._fields, ens)})
+
+    # (b) the seed axis; (c) with four ranks over NCCL, two agent groups
+    # of two cards, each running its members graphed
+    seed_run("ensemble", M.make_mesh(world, 1, device=dev))
+    if backend == "nccl" and world == 4:
+        seed_run("both", M.make_mesh(2, 2, device=dev))
     with open(os.path.join(work, f"rank_{rank}.json"), "w") as f:
         json.dump(rec, f)
     # the communicators' teardown, which the parent's deadline bounds
@@ -844,6 +895,202 @@ def mesh_child(rank: int, world: int, port: int, backend: str,
     torch.distributed.destroy_process_group()
     with open(os.path.join(work, f"down_{rank}.txt"), "w") as f:
         f.write(f"{time.perf_counter() - t0:.3f}")
+
+
+def lost_child(rank: int, port: int, work: str, case: str) -> None:
+    """One rank of a lost-rank world (run as ``chip_smoke.py
+    --lost-child``), over NCCL on cuda:``rank``: the HUS run cut to
+    LOST_DAYS days, one card graphed; then a graphed agent axis of two
+    whose rank 1, at its day-graph launch of day LOST_AT, raises (case
+    ``d1``) or ends its process (``d2``); then this rank's one-card
+    graphed run again, against the first (:func:`usable`). Writes its
+    record into ``work``, then tears the world down where its card is
+    usable, else leaves at once (CUDA's and NCCL's teardown fail on an
+    ended context)."""
+    import torch
+    from reina_tpu_torch.config.variables import VARIABLE_DEFAULTS
+    from reina_tpu_torch.core import daygraph
+    from reina_tpu_torch.core import graphs as G
+    from reina_tpu_torch.core.engine import build_run, run_days
+    from reina_tpu_torch.kernels import build
+    from reina_tpu_torch.parallel import mesh as M
+
+    import faulthandler
+    faulthandler.dump_traceback_later(MESH_CHILD_S - 40, exit=False)
+    build.lib()
+    dev = f"cuda:{rank}"
+    # the kernels launch on the current device
+    torch.cuda.set_device(dev)
+    M.init_distributed(f"tcp://127.0.0.1:{port}", 2, rank, "nccl")
+    v = dict(VARIABLE_DEFAULTS)
+    v["simulation_days"] = LOST_DAYS
+    run = build_run(v, dev)
+    alone = run_days(run)[0]
+    agents = M.make_mesh(1, 2, device=dev)
+    launch = daygraph.DayGraph.launch
+    seen = {"n": 0}
+
+    def failing(self, stream):
+        seen["n"] += 1
+        if seen["n"] == LOST_AT + 1:
+            if case == "d1":
+                raise G.GraphError("day-graph launch refused on purpose")
+            with open(os.path.join(work, "ended_at.txt"), "w") as f:
+                f.write(f"{time.time():.6f}")
+            os._exit(3)
+        return launch(self, stream)
+
+    if rank == 1:
+        daygraph.DayGraph.launch = failing
+    t0 = time.perf_counter()
+    try:
+        run_days(run, mesh=agents)
+        msg = "no error"
+    except G.GraphError as e:
+        msg = f"GraphError: {e}"
+    finally:
+        daygraph.DayGraph.launch = launch
+    rec = {"rank": rank, "liveness_s": M.LIVENESS_S,
+           "s": time.perf_counter() - t0, "at": time.time(),
+           "msg": msg[:800]}
+    print(f"rank {rank}: {case}: {msg[:300]}", flush=True)
+    rec["usable"] = usable(run, alone)
+    path = os.path.join(work, f"lost_{rank}.json")
+    with open(path, "w") as f:
+        json.dump(rec, f)
+    if rec["usable"] is not True:
+        sys.stdout.flush()
+        os._exit(0)
+    t0 = time.perf_counter()
+    torch.distributed.destroy_process_group()
+    rec["down"] = time.perf_counter() - t0
+    with open(path, "w") as f:
+        json.dump(rec, f)
+
+
+def usable(run, alone):
+    """True where this process's one-card graphed run equals ``alone``;
+    "context: ..." where its card's CUDA context has ended (a CUDA error
+    that a ``torch.cuda.synchronize()`` then raises too); else what went
+    wrong ("differs", or the error)."""
+    import numpy as np
+    import torch
+    from reina_tpu_torch.core.engine import run_days
+    try:
+        out = run_days(run)[0]
+        return (True if all(np.array_equal(a, b) for a, b in zip(alone, out))
+                else "differs")
+    except Exception as e:
+        first = str(e).strip().splitlines()[0][:300]
+        if "CUDA" not in str(e):
+            return f"{type(e).__name__}: {first}"
+        try:
+            torch.cuda.synchronize()
+        except RuntimeError:
+            return f"context: {first}"
+        return f"{type(e).__name__} on a working context: {first}"
+
+
+def lost_rank_phase() -> None:
+    """(d): two worlds of two ranks over NCCL on cuda:0-1
+    (``lost_child``), (d1) and (d2). In (d1) both must raise, rank 0
+    naming another rank, within 5 s of each other; in (d2) rank 0 within
+    the liveness bound plus 10 s of rank 1's end. After each, every rank
+    left must have a one-card run equal to its first, or a card whose
+    context the abort ended (then it leaves without the teardown)."""
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    recs = {}
+    for case in ("d1", "d2"):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        with tempfile.TemporaryDirectory(dir=here) as work:
+            procs = spawn_ranks(["--lost-child"], 2, lambda r: [
+                str(r), str(port), work, case], work, here)
+            wait_ranks(procs, work, f"mesh ({case})",
+                       {1: 3} if case == "d2" else None)
+            for r in range(2 if case == "d1" else 1):
+                with open(os.path.join(work, f"lost_{r}.json")) as f:
+                    recs[case, r] = json.load(f)
+            if case == "d2":
+                with open(os.path.join(work, "ended_at.txt")) as f:
+                    ended = float(f.read())
+    d1_0, d1_1, d2_0 = recs["d1", 0], recs["d1", 1], recs["d2", 0]
+    bound = d2_0["liveness_s"]
+    if not d1_1["msg"].startswith("GraphError") \
+            or "on purpose" not in d1_1["msg"]:
+        fail(f"mesh (d1): rank 1 raised {d1_1['msg']!r}")
+    for case, x in (("d1", d1_0), ("d2", d2_0)):
+        if not x["msg"].startswith("GraphError") \
+                or "another rank" not in x["msg"]:
+            fail(f"mesh ({case}): rank 0 raised {x['msg']!r}")
+    apart = abs(d1_0["at"] - d1_1["at"])
+    late = d2_0["at"] - ended
+    print(f"mesh (d1) rank 1's day-graph launch of day {LOST_AT} refused, "
+          f"the HUS run cut to {LOST_DAYS} days, cuda:0-1 over NCCL: rank "
+          f"0 raised {d1_0['s']:.3f} s into its run (the graph set's build "
+          f"included) and {apart:.3f} s from rank 1: {d1_0['msg'][:400]}; "
+          f"rank 1: {d1_1['msg'][:160]}")
+    print(f"mesh (d2) rank 1's process ended at its launch of day "
+          f"{LOST_AT}: rank 0 raised {late:.3f} s after that end "
+          f"(liveness bound {bound:g} s): {d2_0['msg'][:400]}")
+    for (case, r), x in sorted(recs.items()):
+        if x["usable"] is True:
+            state = (f"its one-card graphed run afterwards equals its "
+                     f"first; destroy_process_group {x['down']:.3f} s")
+        elif str(x["usable"]).startswith("context"):
+            state = (f"its card's CUDA context ended after the abort "
+                     f"({x['usable']}); it left without the teardown")
+        else:
+            fail(f"mesh ({case}): rank {r}'s one-card run afterwards: "
+                 f"{x['usable']}")
+        print(f"mesh ({case}) rank {r}: {state}")
+    print(f"mesh (d): {time.perf_counter() - t_phase:.1f} s")
+    if apart > 5:
+        fail(f"mesh (d1): the ranks raised {apart:.3f} s apart")
+    if late > bound + 10:
+        fail(f"mesh (d2): rank 0 raised {late:.1f} s after rank 1's end "
+             f"(bound {bound:g} s + 10 s)")
+
+
+def spawn_ranks(flag: list, world: int, args_of, work: str,
+                here: str) -> list:
+    """``world`` interpreters of this script, rank r with ``flag`` and
+    ``args_of(r)``, each logging into ``work``: a file, not a pipe, since
+    ranks blocked on a full pipe would stall the others in their
+    collectives."""
+    procs = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank_{r}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), *flag,
+                 *args_of(r)], cwd=here, stdout=log,
+                stderr=subprocess.STDOUT,
+                env=dict(os.environ, NCCL_DEBUG=os.environ.get(
+                    "NCCL_DEBUG", "WARN"))))
+    return procs
+
+
+def wait_ranks(procs: list, work: str, phase: str, codes=None) -> None:
+    """Wait for the ranks, killing those still running after
+    MESH_CHILD_S; fail unless each exited with its code (``codes``: by
+    rank, 0 where it names none)."""
+    deadline = time.time() + MESH_CHILD_S
+    while time.time() < deadline and any(p.poll() is None for p in procs):
+        time.sleep(0.5)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != (codes or {}).get(r, 0):
+            tails = "\n".join(
+                f"--- rank {q}:\n" + open(os.path.join(
+                    work, f"rank_{q}.log")).read()[-2500:]
+                for q in range(len(procs)))
+            fail(f"{phase}: rank {r} exited {p.returncode} (killed after "
+                 f"{MESH_CHILD_S} s where negative):\n{tails}")
 
 
 def sharded_launches(la: dict, warm: dict, picks, steps: int,
@@ -910,34 +1157,10 @@ def mesh_phase(run, out, state, ens, ens_ms_day: float, world: int = 2,
     labels = ("plain", "graphed", "again") if backend == "nccl" \
         else ("plain",)
     with tempfile.TemporaryDirectory(dir=here) as work:
-        # each rank's output into a file of its own: ranks blocked on a
-        # full pipe would stall the others in their collectives
-        paths = [os.path.join(work, f"rank_{r}.log") for r in range(world)]
-        procs = []
-        for r, path in enumerate(paths):
-            with open(path, "w") as log:
-                procs.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__),
-                     "--mesh-child", str(r), str(world), str(port), backend,
-                     work, str(days)], cwd=here, stdout=log,
-                    stderr=subprocess.STDOUT,
-                    env=dict(os.environ, NCCL_DEBUG=os.environ.get(
-                        "NCCL_DEBUG", "WARN"))))
-        deadline = time.time() + MESH_CHILD_S
-        while time.time() < deadline and any(p.poll() is None
-                                             for p in procs):
-            time.sleep(0.5)
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-        for r, (p, path) in enumerate(zip(procs, paths)):
-            if p.returncode != 0:
-                tails = "\n".join(
-                    f"--- rank {q}:\n" + open(x).read()[-2500:]
-                    for q, x in enumerate(paths))
-                fail(f"mesh: rank {r} exited {p.returncode} (killed after "
-                     f"{MESH_CHILD_S} s where negative):\n{tails}")
+        procs = spawn_ranks(["--mesh-child"], world, lambda r: [
+            str(r), str(world), str(port), backend, work, str(days)],
+            work, here)
+        wait_ranks(procs, work, "mesh")
         recs, down = [], []
         for r in range(world):
             with open(os.path.join(work, f"rank_{r}.json")) as f:
@@ -1010,23 +1233,60 @@ def mesh_phase(run, out, state, ens, ens_ms_day: float, world: int = 2,
             print(f"mesh (a) over NCCL, {world} ranks: graphed "
                   f"{again:.2f} ms/day a rank against the plain sharded "
                   f"step's {plain:.2f} ({plain / again:.1f}x)")
-        z = np.load(os.path.join(work, "ensemble.npz"))
-        for name in ens._fields:
-            if not np.array_equal(z[name], getattr(ens, name)[:, :MESH_DAYS
-                                                              - 1]):
-                fail(f"mesh (b): member {name} differs from the ensemble "
-                     f"phase's rows 1-{MESH_DAYS - 1}")
-        wall = max(rec["seed_s"] for rec in recs)
-        per_rank = ", ".join(f"rank {rec['rank']}: {rec['seed_members']} "
-                             f"members in {rec['seed_s']:.3f} s"
-                             for rec in recs)
-        print(f"mesh (b) seed axis: seeds {MESH_SEEDS} x {MESH_DAYS - 1} "
-              f"days in {wall:.3f} s ({per_rank}), "
-              f"{wall / len(MESH_SEEDS):.3f} s per member, "
-              f"{wall / (len(MESH_SEEDS) * (MESH_DAYS - 1)) * 1000:.2f} "
-              f"ms per member-day (the ensemble phase, one rank: "
-              f"{ens_ms_day:.2f}); members equal the ensemble phase's rows "
-              f"1-{MESH_DAYS - 1}")
+        if "profile" in recs[0]:
+            from reina_tpu_torch.agent_axis import PROFILE_DAYS, PROFILE_START
+            p = recs[0]["profile"]
+            print(f"mesh (a) profile, rank 0 of {world} on cuda:0, graphed "
+                  f"days {PROFILE_START}-{PROFILE_START + PROFILE_DAYS - 1}"
+                  f" under torch.profiler: wall {p['wall_ms']:.3f} ms/day "
+                  f"without it, device busy {p['busy_ms']:.3f} ms/day, idle "
+                  f"share {p['idle']:.3f}, {p['events']:.1f} device events "
+                  f"a day; NCCL kernels {p['nccl_ms']:.3f} ms/day "
+                  f"({p['nccl_n']:.1f}/day), sharded ledger "
+                  f"{p['ledger_ms']:.3f} ms/day ({p['ledger_n']:.1f}/day), "
+                  f"sharded prefix {p['prefix_ms']:.3f} ms/day "
+                  f"({p['prefix_n']:.1f}/day)")
+        for label, what in (("ensemble", f"(b) seed axis, make_mesh("
+                                          f"{world}, 1)"),
+                            ("both", "(c) make_mesh(2, 2), agent groups "
+                                     "cuda:0-1 and cuda:2-3")):
+            if label not in recs[0]:
+                continue
+            z = np.load(os.path.join(work, f"{label}.npz"))
+            for name in ens._fields:
+                if not np.array_equal(z[name], getattr(ens, name)[
+                        :, :MESH_DAYS - 1]):
+                    fail(f"mesh {what}: member {name} differs from the "
+                         f"ensemble phase's rows 1-{MESH_DAYS - 1}")
+            xs = [rec[label] for rec in recs]
+            wall = max(x["s"] for x in xs)
+            per_rank = ", ".join(
+                f"rank {r}: {x['members']} members in {x['s']:.3f} s, peak "
+                f"{x['peak'] / 2**30:.2f} GiB" for r, x in enumerate(xs))
+            extra = ""
+            if label == "both":
+                for r, x in enumerate(xs):
+                    sp = x["step"]
+                    if sp.get("reads", 0) or \
+                            sp.get("launches") != sp.get("days"):
+                        fail(f"mesh {what}: rank {r} read the host "
+                             f"{sp.get('reads', 0)} times and launched "
+                             f"{sp.get('launches')} day graphs in "
+                             f"{sp.get('days')} days")
+                    if x["picks"] != xs[r ^ 1]["picks"]:
+                        fail(f"mesh {what}: rank {r}'s picks differ from "
+                             f"rank {r ^ 1}'s")
+                days = sum(x["step"]["days"] for x in xs)
+                extra = (f"; every rank 1.00 day-graph launch and 0 host "
+                         f"reads a day ({days} rank-days), picks equal "
+                         f"within each agent group")
+            print(f"mesh {what}: seeds {MESH_SEEDS} x {MESH_DAYS - 1} days "
+                  f"in {wall:.3f} s, {len(MESH_SEEDS) / wall * 3600:.1f} "
+                  f"seeds/h ({per_rank}), "
+                  f"{wall / (len(MESH_SEEDS) * (MESH_DAYS - 1)) * 1000:.2f} "
+                  f"ms per member-day (the ensemble phase, one card: "
+                  f"{ens_ms_day:.2f}); members equal the ensemble phase's "
+                  f"rows 1-{MESH_DAYS - 1}{extra}")
     print(f"mesh: {world} ranks, {time.perf_counter() - t_phase:.1f} s")
     return recs[0][labels[-1]]["launches"]
 
@@ -1605,6 +1865,8 @@ def mesh_only(k: int) -> None:
     print(f"ensemble on one rank: {ms:.2f} ms per member-day")
     for world in sorted({2, k}):
         mesh_phase(run, out, state, ens, ms, world, one)
+    if torch.cuda.device_count() >= 2:
+        lost_rank_phase()
     print("mesh: ok")
 
 
@@ -1613,7 +1875,16 @@ if __name__ == "__main__":
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         a = sys.argv[2:]
         mesh_child(int(a[0]), int(a[1]), int(a[2]), a[3], a[4], int(a[5]))
+    elif sys.argv[1:2] == ["--lost-child"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        a = sys.argv[2:]
+        lost_child(int(a[0]), int(a[1]), a[2], a[3])
     elif sys.argv[1:2] == ["--mesh"]:
         mesh_only(int(sys.argv[2]))
+    elif sys.argv[1:2] == ["--lost"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from reina_tpu_torch.kernels import build
+        build.lib()
+        lost_rank_phase()
     else:
         main()

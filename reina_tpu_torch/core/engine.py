@@ -379,18 +379,29 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
     scope's later runs of the same shapes. A checkpoint holds the whole
     run (gathered to the group's first rank, which writes it), so a run
     resumes on any layout. With one rank on the agent axis the mesh
-    changes nothing."""
+    changes nothing.
+
+    On a mesh no rank hangs on another (parallel/mesh.py): a rank that
+    fails anywhere in the run gives it up (``mesh.give_up``: its failure
+    marked in the world's store, its agent group's and its mesh's, the
+    group aborted, its graphs freed); every wait of a rank on the others
+    (a collective that blocks the host, a host read, a sync point, a
+    graphed shard's launches) polls on the host and gives up on such a
+    mark or on a rank whose heartbeat has stopped. A peer's failure
+    raises as GraphError naming the day or the sync point (graphed) or
+    as CollectiveError (the plain step); this rank's own as it was
+    raised."""
     from . import checkpoint as ckpt
     from . import graphs as G
     from .. import convert
+    from ..parallel import mesh as M
     n_days = n_days if n_days is not None else run.days
     base_key = prng.PRNGKey(run.random_seed if seed is None else seed)
     cfg = run.cfg
     shard = None
     if mesh is not None and mesh.n_agent > 1:
-        from ..parallel.mesh import AgentShard, shard_run
-        shard = AgentShard(mesh, run.init_state.age.shape[0])
-        arrays, schedules, state, carry = shard_run(run, mesh)
+        shard = M.AgentShard(mesh, run.init_state.age.shape[0])
+        arrays, schedules, state, carry = M.shard_run(run, mesh)
         device = mesh.device
     else:
         arrays, schedules, device = run.arrays, run.schedules, run.device
@@ -410,42 +421,30 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
         # the bucket table is updated in place by the day step: copy the
         # run's initial table once so the run stays reusable
         carry = carry._replace(bkt_dst=carry.bkt_dst.clone())
-    # device-resident until a sync point, then fetched rows
-    pending = [_stack_device([snapshot_outputs(cfg, arrays, state, carry,
-                                               np.float32(1.0), shard)])]
-    rows = []
+    pending, rows = [], []
     day = 0
     latest = (ckpt.latest_checkpoint(checkpoint_dir)
               if checkpoint_dir and resume else None)
-    if latest:
-        st_np, cr_np, saved_out = ckpt.load_checkpoint(latest)
-        state = convert.agent_state(st_np, device)
-        carry = convert.day_carry(cr_np, device)
-        if shard is not None:
-            from ..parallel.mesh import place_state_carry
-            state, carry = place_state_carry(mesh, state, carry,
-                                             cfg.max_infectees)
-        day = carry.day
-        if saved_out is not None:
-            pending, rows = [], [saved_out]
-    steps_left = (n_days - 1) - day
     sync_each_chunk = (day_callback is not None or checkpoint_dir is not None
                        or (shard is not None and not graphs))
-    gs, plans, day0, bits = None, [], day, 0
-    leftover = carry.weekly_leftover
-    synced = day
+    gs, plans, bits = None, [], 0
+    synced = day0 = steps_left = 0
+    leftover = None
 
     def sync():
         """Fetch the pending outputs (and a graphed run's picks and
         branch tallies), check the problem bits."""
         nonlocal pending, synced
         if gs is not None:
+            gs.settle(f"the sync point at day {day}")
             if day > synced:
                 pending.append(gs.outputs(synced, day,
                                           plans[synced - day0:day - day0]))
             tail_t = gs.sync_tail(synced, day)
         else:
             tail_t = carry.problem.reshape(1)
+            if shard is not None:
+                shard.before_read(tail_t)
         if pending:
             out_np, tail = fetch_packed(_cat_device(pending), tail_t)
             rows.append(out_np)
@@ -462,68 +461,100 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
         problem |= bits
         if shard is not None:
             # the bits of every rank, so that all raise together
-            problem = np.bitwise_or.reduce(shard.all_gather(
-                torch.tensor([problem], dtype=torch.int32,
-                             device=device)).cpu().numpy())
+            got = shard.all_gather(torch.tensor([problem],
+                                                dtype=torch.int32,
+                                                device=device))
+            shard.before_read(got)
+            problem = np.bitwise_or.reduce(got.cpu().numpy())
         check_problems(problem)
 
     chunk_times = []
     since_ckpt = 0
+    # on a mesh every wait on the other ranks gives up on a failure mark
+    # or a lost rank (parallel/mesh.py), and a rank that fails gives the
+    # run up, so that every rank raises and none hangs; the plain step's
+    # collectives on a card are queued, its host reads watched
     try:
-        if graphs and steps_left > 0:
-            gs = G.acquire(cfg, arrays, schedules, state, carry, device,
-                           shard)
-            plans = gs.prepare(host_sched, base_key, day, steps_left,
-                               leftover, run.init_state.age.shape[0])
-            gs.start(cfg, arrays, schedules, state, carry, day, plans)
-        while steps_left > 0:
-            this_chunk = min(chunk_days, steps_left)
-            t0 = time.perf_counter()
-            if gs is not None:
-                chunk = plans[day - day0:day - day0 + this_chunk]
-                gs.step(chunk)
-                for plan in chunk:
-                    bits |= plan.problem      # known from the schedule
-                leftover = chunk[-1].leftover
-            else:
-                state, carry, outs = run_chunk(
-                    cfg, arrays, schedules, host_sched, state, carry,
-                    base_key, this_chunk, day, shard, picks)
-                pending.append(_stack_device(outs))
-            day += this_chunk
-            steps_left -= this_chunk
-            since_ckpt += this_chunk
-            if sync_each_chunk or steps_left == 0:
-                sync()
-            chunk_times.append((this_chunk, time.perf_counter() - t0))
-            if checkpoint_dir and (since_ckpt >= checkpoint_every
-                                   or steps_left == 0):
-                rows = [_concat(rows)]
-                path = ckpt.checkpoint_path(checkpoint_dir, day)
-                st, cr = ((state, carry) if gs is None else
-                          gs.state_carry(day, leftover, bits, clone=False))
-                if shard is None:
-                    ckpt.save_checkpoint(path, st, cr, rows[0])
+        with M.watching(shard, cards=False):
+            # device-resident until a sync point, then fetched rows
+            pending = [_stack_device([snapshot_outputs(
+                cfg, arrays, state, carry, np.float32(1.0), shard)])]
+            if latest:
+                st_np, cr_np, saved_out = ckpt.load_checkpoint(latest)
+                state = convert.agent_state(st_np, device)
+                carry = convert.day_carry(cr_np, device)
+                if shard is not None:
+                    state, carry = M.place_state_carry(mesh, state, carry,
+                                                       cfg.max_infectees)
+                day = carry.day
+                if saved_out is not None:
+                    pending, rows = [], [saved_out]
+            steps_left = (n_days - 1) - day
+            synced = day0 = day
+            leftover = carry.weekly_leftover
+            if graphs and steps_left > 0:
+                gs = G.acquire(cfg, arrays, schedules, state, carry, device,
+                               shard)
+                plans = gs.prepare(host_sched, base_key, day, steps_left,
+                                   leftover, run.init_state.age.shape[0])
+                gs.start(cfg, arrays, schedules, state, carry, day, plans)
+            while steps_left > 0:
+                this_chunk = min(chunk_days, steps_left)
+                t0 = time.perf_counter()
+                if gs is not None:
+                    chunk = plans[day - day0:day - day0 + this_chunk]
+                    gs.step(chunk)
+                    for plan in chunk:
+                        bits |= plan.problem      # known from the schedule
+                    leftover = chunk[-1].leftover
                 else:
-                    ckpt.save_sharded(path, shard, st, cr, rows[0],
-                                      cfg.max_infectees)
-                since_ckpt = 0
-            if day_callback is not None:
-                rows = [_concat(rows)]
-                if not day_callback(day, rows[0]):
-                    raise ExecutionInterrupted()
-        if pending or day > synced or not chunk_times:
-            sync()
-        if gs is not None:
-            state, carry = gs.state_carry(day, leftover, bits, clone=True)
+                    state, carry, outs = run_chunk(
+                        cfg, arrays, schedules, host_sched, state, carry,
+                        base_key, this_chunk, day, shard, picks)
+                    pending.append(_stack_device(outs))
+                day += this_chunk
+                steps_left -= this_chunk
+                since_ckpt += this_chunk
+                if sync_each_chunk or steps_left == 0:
+                    sync()
+                chunk_times.append((this_chunk, time.perf_counter() - t0))
+                if checkpoint_dir and (since_ckpt >= checkpoint_every
+                                       or steps_left == 0):
+                    rows = [_concat(rows)]
+                    path = ckpt.checkpoint_path(checkpoint_dir, day)
+                    st, cr = ((state, carry) if gs is None else
+                              gs.state_carry(day, leftover, bits,
+                                             clone=False))
+                    if shard is None:
+                        ckpt.save_checkpoint(path, st, cr, rows[0])
+                    else:
+                        ckpt.save_sharded(path, shard, st, cr, rows[0],
+                                          cfg.max_infectees)
+                    since_ckpt = 0
+                if day_callback is not None:
+                    rows = [_concat(rows)]
+                    if not day_callback(day, rows[0]):
+                        raise ExecutionInterrupted()
+            if pending or day > synced or not chunk_times:
+                sync()
+            if gs is not None:
+                state, carry = gs.state_carry(day, leftover, bits,
+                                              clone=True)
     except (C.SimulationFailed, ExecutionInterrupted):
-        # the run stopped, its graph set is sound
+        # the run stopped, on every rank of an agent group at once; its
+        # graph set is sound. The mesh is marked: the other agent
+        # groups' waits end
+        M.give_up(mesh)
         if gs is not None:
             G.release(gs)
         raise
-    except BaseException:
-        # a set whose build, capture, assembly or launch failed is freed
-        # now, never reused
+    except BaseException as e:
+        # a set whose build, capture, assembly or launch failed is freed,
+        # never reused; on a shard with its agent group (once: a failed
+        # day gave it up already)
+        note = M.give_up(shard if shard is not None else mesh)
+        if note:
+            e.add_note(note)
         if gs is not None:
             gs.close()
         raise

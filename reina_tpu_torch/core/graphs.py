@@ -99,12 +99,34 @@ branches. The collectives' calls and bytes go into a capture's tally
 replay. The key includes the slab count, the slab, the backend and the
 agent group (``shard_key``).
 
+A replay is watched as a build is. While a set steps a shard, a
+collective that blocks the host (the CPU model's) gives up on a peer's
+failure or loss (``mesh.watching``); over NCCL the host launches a day
+only once the card has run the day ``AHEAD`` launches back, polling
+that day's event (one of a ring, recorded again after each launch), and
+a sync point polls the last launch's event (``settle``), so that no
+launch or host read blocks behind a collective that a failed or lost
+peer never makes. The polls read what the watch's own thread found in
+the store, so a launch costs no store round trip. A day that fails on
+this rank, or a wait given up on a peer, gives the agent group up
+(``mesh.give_up``, the one failure policy): the failure is marked in
+the store, where every peer's wait sees it, the group's communicator is
+aborted, and every set whose captured collectives use the group (this
+one and the idle ones, each noted with ``mesh.hold``) is freed once the
+card has run out what was queued (at most ``AHEAD`` days). What runs
+out after the abort reads what the aborted collectives left in their
+buffers, and on an H100 over NCCL a torch index kernel there has failed
+its bounds assert, which ends the card's CUDA context: the rank then
+says so in the error it raises, and can use its card no more. The rank
+raises its own error as it was (with that note), a peer's as GraphError
+naming the day or the sync point.
+
 A captured NCCL collective holds its communicator: NCCL's teardown of
 the communicator (``destroy_process_group``) waits until every graph
 that holds one is destroyed. So a set on an NCCL shard is freed when
 its run ends (``release``), unless a :func:`reusing` scope is open, in
 which it stays idle for the scope's later runs until the outermost
-scope ends; a failed run's set is freed at once.
+scope ends; a failed run's set is freed at once, after the abort.
 
 On the CPU a GraphSet is a model of the same machinery for the tests:
 each (span, key) records its body (the span and the copies around it) at
@@ -117,7 +139,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from collections import Counter
+from collections import Counter, deque
 from typing import Dict, List, NamedTuple
 
 import numpy as np
@@ -139,6 +161,11 @@ _IDLE_LOCK = threading.Lock()
 _IDLE: List["GraphSet"] = []
 # open reusing() scopes
 _REUSING = 0
+
+# the days a rank's host may run ahead of its card on a graphed shard
+# over NCCL (2: the card always has the next day queued, and an abort
+# finds few days queued behind it)
+AHEAD = 2
 
 # the carry's fields on the device (day and weekly_leftover are host
 # values, kept by the run loop)
@@ -269,9 +296,15 @@ class GraphSet:
             self.folds[name] = (nodes, [c for c, _, _ in lay],
                                 [self.tally[s:s + n] for _, s, n in lay])
         self._tallied = np.zeros(slot, np.int64)
+        # the events of the last AHEAD days launched on a collective set,
+        # oldest first
+        self._ahead = deque()
         if not self.model:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(dev)
+            if self.collective:
+                self._ahead.extend(torch.cuda.Event() for _ in range(AHEAD))
+                mesh.hold(shard.group, self)
             if shard is not None:
                 # the agent group's communicator is made by its first
                 # collective, which a capture cannot hold
@@ -345,21 +378,67 @@ class GraphSet:
 
     def step(self, plans: List[S.DayPlan]) -> None:
         """Run the planned days, one day-graph launch each (the state,
-        carry, outputs and picks stay on the device)."""
+        carry, outputs and picks stay on the device). On a shard a day
+        that fails, or a wait given up on a peer, gives the agent group
+        up before it raises (see the module docstring)."""
         stream = (None if self.model
                   else torch.cuda.current_stream(self.device).cuda_stream)
-        for plan in plans:
-            hkey = host_key(plan)
-            day = self.days.get(hkey)
-            if day is None:
-                raise GraphError(f"no day graph for host key {hkey}")
-            if self.model:
-                self._model_day(hkey, day)
-            else:
-                day.launch(stream)
-                kernels.replayed(day.fixed)
-            S.STATS["launches"] += 1
-            S.STATS["days"] += 1
+        with self._watching() as watch:
+            watch = watch if self.collective else None
+            for plan in plans:
+                try:
+                    self._day(plan, stream, watch)
+                except BaseException as e:
+                    self._give_up(e, f"day {plan.day}")
+                    raise
+                S.STATS["launches"] += 1
+                S.STATS["days"] += 1
+
+    def _day(self, plan: S.DayPlan, stream, watch) -> None:
+        hkey = host_key(plan)
+        day = self.days.get(hkey)
+        if day is None:
+            raise GraphError(f"no day graph for host key {hkey}")
+        if self.model:
+            self._model_day(hkey, day)
+            return
+        if watch is None:
+            day.launch(stream)
+            kernels.replayed(day.fixed)
+            return
+        ev = self._ahead.popleft()
+        watch.wait(ev.query)
+        day.launch(stream)
+        kernels.replayed(day.fixed)
+        ev.record(torch.cuda.current_stream(self.device))
+        self._ahead.append(ev)
+
+    def settle(self, what: str) -> None:
+        """A sync point of a collective set: poll until the card has run
+        every day launched, so that the run loop's host read returns at
+        once; a peer's failure or loss meanwhile gives the group up and
+        raises GraphError naming ``what``."""
+        if not self.collective:
+            return
+        try:
+            with self.shard.watch() as watch:
+                watch.wait(self._ahead[-1].query)
+        except BaseException as e:
+            self._give_up(e, what)
+            raise
+
+    def _give_up(self, e: BaseException, what: str) -> None:
+        """On a shard: give the agent group up (``mesh.give_up``), then
+        raise GraphError naming ``what`` where ``e`` is a peer's
+        failure; the caller re-raises this rank's own."""
+        if self.shard is None:
+            return
+        note = mesh.give_up(self.shard)
+        if isinstance(e, mesh.CollectiveError):
+            raise GraphError(f"{what}: {e}"
+                             + (f"; {note}" if note else "")) from e
+        if note:
+            e.add_note(note)
 
     def outputs(self, a: int, b: int, plans) -> S.DayOutputs:
         """The outputs of stepped days [a, b) as device views of the table
@@ -457,19 +536,29 @@ class GraphSet:
         S.STATS["assemble_s"] += time.perf_counter() - t0
 
     def _watching(self):
-        return (mesh.watching(self.shard) if self.shard is not None
-                else contextlib.nullcontext())
+        return mesh.watching(self.shard)
 
     def _agree(self, err, what: str) -> None:
         """Raise ``err`` if it is set; on a shard, on every rank of the
-        agent group where any rank's is set (``mesh.agree``, which then
-        aborts the group's communicator), so that no rank goes on to
-        collectives that the others never make."""
-        if self.shard is not None and mesh.agree(self.shard,
-                                                 err is not None):
-            if err is None:
-                err = GraphError(f"{what}: failed on another rank of the "
-                                 "agent group")
+        agent group where any rank's is set or a rank is lost
+        (``mesh.agree``), each giving the group up (``mesh.give_up``),
+        so that no rank goes on to collectives that the others never
+        make."""
+        if self.shard is not None:
+            try:
+                failed = mesh.agree(self.shard, err is not None)
+            except mesh.CollectiveError as e:
+                failed = True
+                if err is None:
+                    err = GraphError(f"{what}: {e}")
+                    err.__cause__ = e
+            if failed:
+                note = mesh.give_up(self.shard)
+                if err is None:
+                    err = GraphError(f"{what}: failed on another rank of "
+                                     "the agent group")
+                if note:
+                    err.add_note(note)
         if err is not None:
             raise err
 
@@ -571,8 +660,14 @@ class GraphSet:
 
     def close(self) -> None:
         """Destroy the set's day graphs and captured spans now (a set on
-        an NCCL shard before its communicator is destroyed); the set is
+        an NCCL shard before its communicator is destroyed or aborted; a
+        graph still in flight is destroyed once it has run); the set is
         not used again."""
+        if self.collective:
+            mesh.unhold(self.shard.group, self)
+        with _IDLE_LOCK:
+            if self in _IDLE:
+                _IDLE.remove(self)
         for day in self.days.values():
             if not self.model:
                 day.close()

@@ -1366,6 +1366,8 @@ def run_day(cfg: EngineConfig, arrays: ModelArrays, plan: DayPlan,
     def count(p: Pick) -> int:
         if p.src not in reads:
             STATS["reads"] += 1
+            if shard is not None:
+                shard.before_read(env[p.src])
             reads[p.src] = env[p.src].tolist()
         v = reads[p.src]
         return v if p.idx is None else v[p.idx]

@@ -55,7 +55,11 @@ def run_ensemble(run: CompiledRun, seeds: List[int], batch_size: int = 1,
     row 0: the same initial state, day keys from ``PRNGKey(s)``.
     ``run_days`` checks the problem bitmask of every member. With
     ``mesh`` every rank calls it with the same arguments (``run`` built
-    on its own device) and gets every member."""
+    on its own device) and gets every member: each agent group runs its
+    members, graphed on an agent axis over NCCL, then the seed axis
+    gathers them. A rank that fails marks the mesh failed, and the other
+    ranks' runs and gathers give up on that mark or on a lost rank
+    (parallel/mesh.py), so that every rank raises."""
     from .parallel.mesh import batch_placement, gather_placed
     check_batch_size(batch_size)
     steps = (n_days if n_days is not None else run.days) - 1

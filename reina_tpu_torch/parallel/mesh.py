@@ -40,11 +40,33 @@ may leave a collective that its peers wait in. Its failure mark in the
 store ends the peers' waits inside collectives (:func:`watching`), and
 every rank then aborts the group's communicator, which ends what it
 left on its card, so that all raise and none hangs.
+
+The same holds for a whole run on a mesh (core/engine.py:run_days,
+core/graphs.py). A rank that fails anywhere in it follows one policy,
+:func:`give_up`: it marks its agent group and its mesh failed in the
+store, aborts the group's communicator and frees the graphs that hold
+the group's captured collectives. Every rank of a world keeps a
+heartbeat in the store (:func:`make_mesh` starts it), and a peer whose
+heartbeat has not moved for ``LIVENESS_S`` seconds counts as lost. Each
+wait of a rank on its peers is a poll on the host that gives up
+(CollectiveError) on a failure mark, a lost peer or a store that no
+longer answers (:class:`Watch`, whose thread asks the store, so that a
+poll costs the waiting thread no store round trip): a collective that
+blocks the host (over gloo; an NCCL collective is queued on the card
+and the host waits at its next read, :meth:`AgentShard.before_read`),
+an agreement, the sync points and the bounded run-ahead of a graphed
+shard (core/graphs.py), and the world's gather of the seed axis
+(:func:`gather_placed`), so that a failure in one agent group of a
+(seed × agent) mesh makes every rank raise. Over NCCL :func:`make_mesh`
+makes every communicator of the mesh at once, while every rank is
+there: made later, inside a wait, its bootstrap would block on a lost
+peer where no poll reaches.
 """
 from __future__ import annotations
 
 import math
 import os
+import pickle
 import threading
 import time
 from collections import Counter
@@ -65,17 +87,39 @@ LANE = 128
 STATS = {"calls": 0, "bytes": 0, "staged_calls": 0, "staged_bytes": 0}
 
 
+# a peer whose heartbeat in the world's store has not moved for this many
+# seconds counts as lost: far above any host stall of a healthy run (a
+# test may lower it in its own child)
+LIVENESS_S = 30.0
+# each rank of a world adds one to its heartbeat this often
+HEARTBEAT_S = 1.0
+# a Watch's thread asks the store this often
+_ASK_S = 0.05
+# after an abort, the seconds a rank waits for its card to run what was
+# queued before it, and for the abort to return (:func:`give_up`)
+DRAIN_S = 10.0
+
 _LOCK = threading.Lock()
-# the store keys that this thread's collectives watch (:func:`watching`)
+# this thread's (Watch, whether it waits for collectives on a card)
+# (:func:`watching`)
 _watch = threading.local()
 # agreements made on each agent group (:func:`agree`), by group name
 _AGREED = Counter()
+# the groups this process has aborted, by name
+_ABORTED = set()
+# what holds captured collectives of a group (graph sets), by group
+# name: freed by :func:`give_up` while it aborts the group
+_HOLDERS = {}
+# each peer's heartbeat as last read: world rank -> (count, monotonic
+# time it was first read at that count)
+_SEEN = {}
+_BEAT = {"thread": None}
 
 
 class CollectiveError(RuntimeError):
     """A collective that cannot run as asked: one over gloo met under a
-    CUDA graph capture, or one given up because another rank of its
-    group failed (:func:`watching`)."""
+    CUDA graph capture, or a wait given up because another rank failed
+    or is lost (:class:`Watch`)."""
 
 
 def reset_stats() -> None:
@@ -163,13 +207,17 @@ class Mesh:
     backend: Optional[str]
     agent_group: Any
     seed_group: Any
+    # the prefix of the mesh's keys in the world's store (None: no world)
+    name: Optional[str] = None
 
 
 def make_mesh(n_seed: Optional[int] = None, n_agent: Optional[int] = None,
               device=None) -> Mesh:
     """Reshape the world's ranks into (n_seed, n_agent), as the JAX
     package's ``make_mesh`` reshapes its devices (all seed by default).
-    ``device``: this rank's device, ``cuda:LOCAL_RANK`` by default."""
+    ``device``: this rank's device, ``cuda:LOCAL_RANK`` by default. In a
+    world of several ranks it starts this process's heartbeat and, over
+    NCCL, makes the communicators of this rank's two groups."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     if n_seed is None and n_agent is None:
@@ -186,9 +234,13 @@ def make_mesh(n_seed: Optional[int] = None, n_agent: Optional[int] = None,
     device = torch.device(device)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    agent_group = seed_group = None
+    agent_group = seed_group = name = None
+    backend = dist.get_backend() if world > 1 else None
     if world > 1:
-        # every rank creates every group, in the same order
+        # every rank creates every group, in the same order; the count
+        # of groups made before them, the same on every rank, names the
+        # mesh
+        name = f"reina/mesh/{dist.distributed_c10d._world.group_count}"
         for s in range(n_seed):
             g = dist.new_group([s * n_agent + a for a in range(n_agent)])
             if s == rank // n_agent:
@@ -197,11 +249,15 @@ def make_mesh(n_seed: Optional[int] = None, n_agent: Optional[int] = None,
             g = dist.new_group([s * n_agent + a for s in range(n_seed)])
             if a == rank % n_agent:
                 seed_group = g
+        _heartbeat()
+        if backend == "nccl":
+            for g, size in ((agent_group, n_agent), (seed_group, n_seed)):
+                if size > 1:
+                    dist.all_reduce(torch.zeros(1, device=device), group=g)
     return Mesh(n_seed=n_seed, n_agent=n_agent, rank=rank,
                 seed_index=rank // n_agent, agent_index=rank % n_agent,
-                device=device,
-                backend=dist.get_backend() if world > 1 else None,
-                agent_group=agent_group, seed_group=seed_group)
+                device=device, backend=backend,
+                agent_group=agent_group, seed_group=seed_group, name=name)
 
 
 # ---------------------------------------------------------------------------
@@ -235,11 +291,13 @@ def all_reduce(t: torch.Tensor, group, backend, op=dist.ReduceOp.SUM):
     contiguous tensor that the caller made for it); returns ``t``."""
     staged = _staged(t, backend)
     _count(t, staged, backend)
+    w = _watched(t)
     if not staged:
-        _wait(dist.all_reduce(t, op=op, group=group, async_op=_watched()))
+        _wait(dist.all_reduce(t, op=op, group=group, async_op=w is not None),
+              w)
         return t
     buf = t.cpu()
-    _wait(dist.all_reduce(buf, op=op, group=group, async_op=_watched()))
+    _wait(dist.all_reduce(buf, op=op, group=group, async_op=w is not None), w)
     return t.copy_(buf)
 
 
@@ -251,32 +309,155 @@ def all_gather(t: torch.Tensor, group, backend) -> torch.Tensor:
     _count(t, staged, backend, k)
     src = t.cpu() if staged else t.contiguous()
     buf = torch.empty(k * t.numel(), dtype=t.dtype, device=src.device)
+    w = _watched(t)
     _wait(dist.all_gather_into_tensor(buf, src.reshape(-1), group=group,
-                                      async_op=_watched()))
+                                      async_op=w is not None), w)
     return buf.to(t.device).view((k,) + tuple(t.shape))
 
 
-def _watched() -> bool:
-    return getattr(_watch, "keys", None) is not None
+def _watched(t: torch.Tensor) -> Optional["Watch"]:
+    """This thread's Watch where ``t``'s collective blocks the host (on
+    the CPU: gloo's), or is a card's while the watch covers those (a
+    span's warm-up); never one under capture. An NCCL collective of a
+    run is queued on the card, and the host waits at its next read
+    (:meth:`AgentShard.before_read`)."""
+    w, cards = getattr(_watch, "current", None) or (None, False)
+    if w is not None and t.is_cuda and (
+            not cards or torch.cuda.is_current_stream_capturing()):
+        return None
+    return w
 
 
-def _wait(work) -> None:
-    """Wait for a collective issued with ``async_op=_watched()``; while
-    this thread watches, give it up (CollectiveError) as soon as another
-    rank of its group has marked a failure in the store."""
+def _wait(work, watch: Optional["Watch"]) -> None:
+    """Wait for a collective issued with ``async_op=watch is not
+    None``: poll it on the host, giving it up (CollectiveError) as soon
+    as ``watch`` sees a peer's failure. A collective that fails itself
+    (gloo's, when a peer's process ends) raises the peer's failure where
+    the store already shows it, else its own error."""
     if work is None:
         return
-    store, failed = _watch.keys
-    while not work.is_completed():
-        if store.check([failed]):
-            raise CollectiveError("given up: another rank of the agent "
-                                  "group failed")
-        time.sleep(1e-4)
-    work.wait()
+    watch.wait(work.is_completed)
+    try:
+        work.wait()
+    except RuntimeError:
+        watch.look()
+        raise
 
 
 def _store():
     return dist.distributed_c10d._get_default_store()
+
+
+def _alive_key(rank: int) -> str:
+    return f"reina/alive/{rank}"
+
+
+def _heartbeat() -> None:
+    """Start this process's heartbeat, once: a daemon thread that adds
+    one to its key in the world's store every ``HEARTBEAT_S`` seconds
+    while the world's process group exists."""
+    with _LOCK:
+        t = _BEAT["thread"]
+        if t is not None and t.is_alive():
+            return
+        t = _BEAT["thread"] = threading.Thread(
+            target=_beat, name="reina-heartbeat", daemon=True)
+    t.start()
+
+
+def _beat() -> None:
+    while dist.is_initialized():
+        try:
+            _store().add(_alive_key(dist.get_rank()), 1)
+        except (RuntimeError, ValueError):
+            return      # the world ended under us
+        time.sleep(HEARTBEAT_S)
+
+
+class Watch:
+    """What a rank's wait on its peers gives up on (CollectiveError): a
+    failure mark in the world's store (``marks``: (key, why)), a peer of
+    ``peers`` (world ranks) whose heartbeat has not moved for
+    ``LIVENESS_S`` seconds, or a store that no longer answers (rank 0,
+    which hosts a TCPStore, may be the rank lost). ``scope`` names the
+    peers in the messages. Inside ``with`` a thread of its own asks the
+    store every ``_ASK_S`` seconds, so that :meth:`check` and
+    :meth:`wait` cost the waiting thread no round trip."""
+
+    def __init__(self, marks, peers, scope: str, store=None,
+                 rank: Optional[int] = None):
+        self.store = _store() if store is None else store
+        rank = dist.get_rank() if rank is None else rank
+        self.marks = list(marks)
+        self.peers = [p for p in peers if p != rank]
+        self.scope = scope
+        # what the watch gave up on (a message: an exception kept here
+        # would keep its frames, and a collective's work, alive)
+        self.error: Optional[str] = None
+        self._stop = threading.Event()
+        self._asker = None
+
+    def __enter__(self) -> "Watch":
+        self._asker = threading.Thread(target=self._ask_loop,
+                                       name="reina-watch", daemon=True)
+        self._asker.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        # a store that stopped answering may hold the thread in a call
+        self._asker.join(1.0)
+
+    def _ask_loop(self) -> None:
+        while not self._stop.wait(_ASK_S):
+            try:
+                self.look()
+            except CollectiveError:
+                return
+
+    def _ask(self, fn, *args):
+        try:
+            return fn(*args)
+        except (RuntimeError, OSError) as e:
+            raise CollectiveError(
+                f"given up: another rank of the {self.scope} failed: the "
+                f"world's store stopped answering ({e})") from e
+
+    def look(self) -> None:
+        """Ask the store now: raise CollectiveError (and keep its message
+        for :meth:`check`) on a failure mark or a lost peer."""
+        self.check()
+        try:
+            for key, why in self.marks:
+                if self._ask(self.store.check, [key]):
+                    raise CollectiveError(f"given up: {why}")
+            t = time.monotonic()
+            for p in self.peers:
+                n = self._ask(self.store.add, _alive_key(p), 0)
+                seen = _SEEN.get(p)
+                if seen is None or seen[0] != n:
+                    _SEEN[p] = (n, t)
+                elif t - seen[1] > LIVENESS_S:
+                    raise CollectiveError(
+                        f"given up: another rank of the {self.scope} "
+                        f"failed: rank {p} is lost (its heartbeat has not "
+                        f"moved for {t - seen[1]:.1f} s; bound "
+                        f"{LIVENESS_S:g} s)")
+        except CollectiveError as e:
+            self.error = str(e)
+            raise
+
+    def check(self) -> None:
+        """Raise what the thread found, if anything."""
+        if self.error is not None:
+            raise CollectiveError(self.error)
+
+    def wait(self, done, poll: float = 1e-4) -> None:
+        """Poll ``done()`` every ``poll`` seconds until it is true,
+        checking meanwhile."""
+        while not done():
+            self.check()
+            time.sleep(poll)
 
 
 def _keys(shard) -> str:
@@ -284,21 +465,122 @@ def _keys(shard) -> str:
                                               None))
 
 
+def _in_world(x) -> bool:
+    return (x is not None and getattr(x, "name", None) is not None
+            and dist.is_initialized())
+
+
 @contextmanager
-def watching(shard):
-    """This thread's collectives meanwhile (a span's warm-up: never
-    under capture) wait on the host, and give up as soon as another
-    rank of ``shard``'s agent group marks a failure in :func:`agree`: a
-    rank that fails halfway through a span's warm-up leaves its peers in
-    a collective that it never makes. Nothing changes without a world."""
-    if shard.group is None or not dist.is_initialized():
-        yield
+def watching(shard, cards: bool = True):
+    """This thread's waits on ``shard``'s agent group meanwhile give up
+    as soon as another rank of the group or of the mesh marks a failure,
+    or a rank of the group is lost (``shard.watch()``): a rank that
+    fails halfway through a span's warm-up or a day leaves its peers in
+    a collective that it never makes. A collective that blocks the host
+    (on the CPU) waits on the host; one on a card does where ``cards``
+    (a span's warm-up), else it is queued and the host waits at its next
+    read (:meth:`AgentShard.before_read`, the plain step's). Never one
+    under capture. Yields the Watch; nothing changes without a shard in
+    a world (it yields None)."""
+    if not _in_world(shard):
+        yield None
         return
-    _watch.keys = (_store(), _keys(shard) + "/failed")
+    prev = getattr(_watch, "current", None)
+    with shard.watch() as w:
+        _watch.current = (w, cards)
+        try:
+            yield w
+        finally:
+            _watch.current = prev
+
+
+def hold(group, holder) -> None:
+    """Note that ``holder`` (a graph set, with ``close()``) holds
+    captured collectives of ``group``: :func:`give_up` frees it."""
+    with _LOCK:
+        _HOLDERS.setdefault(group.group_name, []).append(holder)
+
+
+def unhold(group, holder) -> None:
+    with _LOCK:
+        held = _HOLDERS.get(group.group_name, [])
+        if holder in held:
+            held.remove(holder)
+
+
+def _mark(where) -> None:
+    if isinstance(where, AgentShard):
+        _store().set(_keys(where) + "/failed", b"1")
+    _store().set(where.name + "/failed", b"1")
+
+
+def give_up(where, group=None) -> Optional[str]:
+    """The one failure policy of a run on a mesh: this rank leaves its
+    run on ``where`` (a Mesh, or an AgentShard) after a failure. (1) It
+    marks the failure in the world's store, the mesh's and an
+    AgentShard's agent group's: every peer's watched wait then gives up.
+    (2) It aborts ``group`` (an AgentShard's agent group by default, a
+    Mesh's none), which ends the collectives left on the card; the group
+    is not used again. (3) It frees what holds captured collectives of
+    the group (:func:`hold`). NCCL's abort sets its flag at once, which
+    ends the captured collectives on the card, and then returns only
+    once every graph that holds one of them is destroyed, as its
+    teardown does; and a graph in flight cannot be destroyed until it
+    has run. So the abort runs on a thread while the card runs out what
+    was queued (``DRAIN_S`` at most), then the holders are freed and the
+    abort joined. Once a group; nothing without a world. Returns None,
+    or what went wrong after the abort, for the caller's error: the
+    card's CUDA context ended (the holders are freed all the same), or
+    the card or the abort not done within ``DRAIN_S`` (the holders are
+    left as they are: freeing a graph in flight waits for it)."""
+    if not _in_world(where):
+        return None
+    _mark(where)
+    if group is None and isinstance(where, AgentShard):
+        group = where.group
+    if group is None:
+        return None
+    with _LOCK:
+        if group.group_name in _ABORTED:
+            return None
+        _ABORTED.add(group.group_name)
+        held = _HOLDERS.pop(group.group_name, [])
+    if not held:
+        dist.distributed_c10d._abort_process_group(group)
+        return None
+    failed = []
+
+    def abort():
+        try:
+            dist.distributed_c10d._abort_process_group(group)
+        except BaseException as e:       # reported below, on this thread
+            failed.append(e)
+
+    t = threading.Thread(target=abort, name="reina-abort", daemon=True)
+    t.start()
+    note = None
+    end = time.monotonic() + DRAIN_S
     try:
-        yield
-    finally:
-        _watch.keys = None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(where.device))
+        while not ev.query():
+            if time.monotonic() > end:
+                return (f"the card did not run the days queued before the "
+                        f"agent group's abort within {DRAIN_S:g} s")
+            time.sleep(1e-3)
+    except RuntimeError as e:
+        note = (f"after the agent group's abort the card's CUDA context "
+                f"ended ({str(e).strip().splitlines()[0]}): this process "
+                "cannot use its card again")
+    for h in held:
+        h.close()
+    t.join(max(end - time.monotonic(), 1.0))
+    if t.is_alive():
+        return ((note + "; ") if note else "") + (
+            f"the agent group's abort did not return within {DRAIN_S:g} s")
+    if failed and note is None:
+        note = f"the agent group's abort failed ({failed[0]})"
+    return note
 
 
 def agree(shard, failed: bool) -> bool:
@@ -306,33 +588,47 @@ def agree(shard, failed: bool) -> bool:
     every rank of it makes (a graph set's warm-up or capture of one
     span), from every rank's word in the world's store. A rank that
     failed marks it first, which ends its peers' watched waits; where
-    any failed, every rank aborts the group's communicator (which ends
-    the collectives left on its card) and the group is not used again.
-    Without a world it returns ``failed``."""
-    if shard.group is None or not dist.is_initialized():
+    any failed, every rank then gives the group up (:func:`give_up`)
+    and the group is not used again. A peer lost before its word raises
+    CollectiveError. Without a world it returns ``failed``."""
+    if not _in_world(shard):
         return failed
     store, base = _store(), _keys(shard)
     if failed:
-        store.set(base + "/failed", b"1")
+        _mark(shard)
     with _LOCK:
         seq = _AGREED[base]
         _AGREED[base] += 1
     store.set(f"{base}/{seq}/{shard.index}", b"1" if failed else b"0")
     words = [f"{base}/{seq}/{j}" for j in range(shard.k)]
-    store.wait(words)
-    if not any(store.get(w) == b"1" for w in words):
-        return False
-    dist.distributed_c10d._abort_process_group(shard.group)
-    return True
+    with Watch([], shard.ranks, "agent group") as w:
+        w.wait(lambda: store.check(words), poll=1e-3)
+    return any(store.get(w) == b"1" for w in words)
 
 
-def gather_objects(obj, group) -> list:
-    """Every rank's ``obj`` over ``group``, in rank order (pickled)."""
-    out = [None] * dist.get_world_size(group)
+def gather_objects(obj, group, watch: Watch) -> list:
+    """Every rank's ``obj`` over ``group``, in rank order (pickled): its
+    size, then its bytes padded to the largest, by two
+    ``all_gather_into_tensor``s (on the rank's card over NCCL), each
+    waited for by ``watch``."""
+    k = dist.get_world_size(group)
     with _LOCK:
         STATS["calls"] += 1
-    dist.all_gather_object(out, obj, group=group)
-    return out
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    data = pickle.dumps(obj)
+    sizes = torch.empty(k, dtype=torch.int64, device=dev)
+    _wait(dist.all_gather_into_tensor(
+        sizes, torch.tensor([len(data)], dtype=torch.int64, device=dev),
+        group=group, async_op=True), watch)
+    sizes = sizes.tolist()
+    buf = torch.zeros(max(sizes), dtype=torch.uint8)
+    buf[:len(data)] = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    out = torch.empty(k * buf.numel(), dtype=torch.uint8, device=dev)
+    _wait(dist.all_gather_into_tensor(out, buf.to(dev), group=group,
+                                      async_op=True), watch)
+    out = out.cpu().view(k, -1).numpy()
+    return [pickle.loads(out[j, :n].tobytes()) for j, n in enumerate(sizes)]
 
 
 # ---------------------------------------------------------------------------
@@ -365,6 +661,33 @@ class AgentShard:
         self.hi = self.lo + self.n_local
         self.group, self.backend = mesh.agent_group, mesh.backend
         self.device = mesh.device
+        # the mesh's keys in the store, and the group's world ranks
+        self.name = mesh.name
+        self.ranks = (dist.get_process_group_ranks(self.group)
+                      if _in_world(mesh) else [])
+
+    def watch(self) -> Watch:
+        """What a wait of this rank on its agent group gives up on: a
+        failure mark of the group or of the mesh, a lost rank of the
+        group."""
+        return Watch([(_keys(self) + "/failed",
+                       "another rank of the agent group failed"),
+                      (self.name + "/failed",
+                       "another rank of the mesh failed")],
+                     self.ranks, "agent group")
+
+    def before_read(self, t: torch.Tensor) -> None:
+        """Before a host read of ``t``: while a run on the shard is
+        watched (:func:`watching`) and ``t`` is on a card, poll until the
+        card has run what was queued so far, giving up on a peer's
+        failure or loss; the read would block behind a collective that a
+        failed or lost peer never makes."""
+        cur = getattr(_watch, "current", None)
+        if cur is None or not t.is_cuda:
+            return
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(t.device))
+        cur[0].wait(ev.query)
 
     # -- reductions
 
@@ -517,11 +840,24 @@ def batch_placement(mesh: Optional[Mesh], items: Sequence) -> List[int]:
 def gather_placed(mesh: Optional[Mesh], positions: List[int],
                   results: list, n_items: int) -> list:
     """The results of every agent group in the caller's order, on every
-    rank: ``results[j]`` is this group's result for ``positions[j]``."""
+    rank: ``results[j]`` is this group's result for ``positions[j]``.
+    The gather gives up (CollectiveError) once a rank of the mesh has
+    marked a failure (a failed run of another agent group) or a rank of
+    the seed group is lost; it then marks the mesh and aborts the seed
+    group, whose collective is left on the card."""
     if mesh is None or mesh.n_seed == 1:
         return list(results)
+    watch = Watch([(mesh.name + "/failed", "another rank of the mesh "
+                    "failed")], dist.get_process_group_ranks(mesh.seed_group),
+                  "seed group")
     got = {}
-    for pairs in gather_objects(list(zip(positions, results)),
-                                mesh.seed_group):
+    try:
+        with watch:
+            parts = gather_objects(list(zip(positions, results)),
+                                   mesh.seed_group, watch)
+    except CollectiveError:
+        give_up(mesh, mesh.seed_group)
+        raise
+    for pairs in parts:
         got.update(pairs)
     return [got[i] for i in range(n_items)]

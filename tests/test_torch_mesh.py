@@ -16,12 +16,17 @@ that have a counterpart in the port:
     equals the plain step's host picks on every rank, its branch tallies
     count them and its problem bits equal the plain step's;
     ``run_days(graphs=True)`` on the mesh equals the one-rank run; a
-    capture that fails on one rank, and a warm-up that fails on one rank
-    after the first collective of its span, raise GraphError on every
-    rank at once, and the ranks go on to their next collective (these
-    run a build with smaller tiers, ``CFG``);
+    capture that fails on one rank, a warm-up that fails on one rank
+    after the first collective of its span, and a day that fails on one
+    rank in a replay raise GraphError on every rank at once, and the
+    ranks go on to their next collective; in a world of two of its own,
+    a rank whose process ends mid-run makes the other raise within the
+    liveness bound (these run a build with smaller tiers, ``CFG``);
   * on a (2 seed × 2 agent) mesh, ``run_ensemble`` and ``sweep_grid``
-    equal the one-rank ensemble and sweep on every rank;
+    equal the one-rank ensemble and sweep on every rank, and a failure
+    in one agent group makes ``run_ensemble`` raise on all four ranks;
+  * a wait's Watch gives up on a failure mark, a lost peer and a store
+    that stops answering;
   * a checkpoint resumes across layouts: written by two ranks, resumed
     by one; written by one, resumed by four;
   * ``init_distributed`` without variables, and the errors of
@@ -53,6 +58,12 @@ GRID = {"infectiousness_multiplier": [0.4, 0.55, 0.7]}
 # of 4, 12 and 16 bucket columns, so that it warms up and records every
 # (span, tier) of a tracing day, 27 of them, in a few seconds
 CFG = {"infection_buffer": 4096, "max_infectees": 16}
+# the liveness bound in the killed-rank worlds (mesh.LIVENESS_S)
+LOST_S = 10.0
+# rank 1's process ends at its day-graph launch of this day
+KILL_AT = 3
+# the two NCCL ranks' limit
+NCCL_S = 240
 
 
 def _build(cfg_overrides=None):
@@ -117,11 +128,13 @@ def _model_days(run, agents, path):
     np.savez(path, **rec)
 
 
-def _failing_run(run, rank: int, cls, attr: str, failing) -> str:
+def _failing_run(run, rank: int, cls, attr: str, failing,
+                 barrier: bool = True) -> str:
     """A graphed run on a fresh agent axis of two (a failure aborts the
     agent group's communicator) with ``cls.attr`` replaced by
     ``failing(original)`` on rank 1: the GraphError each rank raises and
-    its seconds, after which a collective of the world runs."""
+    its seconds, after which a collective of the world runs (unless
+    ``barrier`` is false)."""
     from reina_tpu_torch.core import graphs as G
     from reina_tpu_torch.core.engine import run_days
     from reina_tpu_torch.parallel import mesh as M
@@ -139,6 +152,76 @@ def _failing_run(run, rank: int, cls, attr: str, failing) -> str:
         msg = f"GraphError: {e}"
     finally:
         setattr(cls, attr, original)
+    msg = f"{time.perf_counter() - t0:.3f} {msg}"
+    if barrier:
+        torch.distributed.barrier()
+    return msg
+
+
+def _on_call(n: int, act):
+    """A replacement for a method that runs ``act()`` at its ``n``-th
+    call (the n-th day-graph launch: day n - 1) and the method itself at
+    every other."""
+    seen = {"n": 0}
+
+    def failing(method):
+        def fn(self, *args):
+            seen["n"] += 1
+            if seen["n"] == n:
+                act()
+            return method(self, *args)
+        return fn
+    return failing
+
+
+def _refuse():
+    from reina_tpu_torch.core import graphs as G
+    raise G.GraphError("day-graph launch refused on purpose")
+
+
+def _failed_replay(run, rank: int) -> str:
+    """A graphed run whose third day fails on rank 1 (the CPU model's
+    launch of a day), while rank 0 waits in that day's first collective."""
+    from reina_tpu_torch.core import graphs as G
+    return _failing_run(run, rank, G.GraphSet, "_model_day",
+                        _on_call(3, _refuse))
+
+
+def _killed(work: str):
+    """What ends rank 1's process mid-run: the time, then ``os._exit``."""
+    def act():
+        with open(f"{work}/killed_at.txt", "w") as f:
+            f.write(f"{time.time():.3f}")
+        os._exit(3)
+    return act
+
+
+def _failed_ensemble(run, rank: int) -> str:
+    """``run_ensemble`` on a fresh (2, 2) mesh whose rank 1 (agent group
+    0) fails its fifth collective of the plain sharded step: what each
+    rank raises and its seconds, then a barrier of the world."""
+    from reina_tpu_torch.ensemble import run_ensemble
+    from reina_tpu_torch.parallel import mesh as M
+
+    both = M.make_mesh(2, 2, device="cpu")
+    real, seen = M.all_reduce, {"n": 0}
+
+    def all_reduce(*args):
+        seen["n"] += 1
+        if seen["n"] == 5:
+            raise RuntimeError("collective refused on purpose")
+        return real(*args)
+
+    if rank == 1:
+        M.all_reduce = all_reduce
+    t0 = time.perf_counter()
+    try:
+        run_ensemble(run, SEEDS, mesh=both)
+        msg = "no error"
+    except Exception as e:
+        msg = f"{type(e).__name__}: {e}"
+    finally:
+        M.all_reduce = real
     msg = f"{time.perf_counter() - t0:.3f} {msg}"
     torch.distributed.barrier()
     return msg
@@ -216,7 +299,8 @@ def _child(rank: int, world: int, work: str) -> None:
         run_days(small, n_days=AT + 1, checkpoint_dir=f"{work}/ck2g",
                  checkpoint_every=AT, mesh=agents, graphs=True)
         for name, fn in (("capture", _failed_capture),
-                         ("warmup", _failed_warmup)):
+                         ("warmup", _failed_warmup),
+                         ("replay", _failed_replay)):
             with open(f"{work}/failed_{name}_{rank}.txt", "w") as f:
                 f.write(fn(small, rank))
     else:
@@ -231,32 +315,113 @@ def _child(rank: int, world: int, work: str) -> None:
         _save(f"{work}/ensemble_{rank}.npz",
               run_ensemble(run, SEEDS, mesh=both))
         _save(f"{work}/sweep_{rank}.npz", _sweep(both))
+        with open(f"{work}/failed_ensemble_{rank}.txt", "w") as f:
+            f.write(_failed_ensemble(run, rank))
     print(f"rank {rank} of {world}: {M.stats()}", flush=True)
     # join gloo's threads now: left to the interpreter's exit, they can
     # end the process in std::terminate (seen under a loaded host)
     torch.distributed.destroy_process_group()
 
 
-def _nccl_child(rank: int, work: str, port: str) -> None:
-    """One rank of two over NCCL, a card each (the gpu-marked test): the
-    graphed agent axis by default, then a warm-up that fails on rank 1
-    after its span's first collective, then the communicators'
-    teardown."""
+def _killed_child(rank: int, work: str) -> None:
+    """One rank of a world of two over gloo, the liveness bound lowered
+    to ``LOST_S``, whose rank 1's process ends mid-run, at its first
+    capture of a span of a graphed run (the CPU model), while rank 0
+    waits in the store for its word on that capture: only its stopped
+    heartbeat tells (over gloo a process's end closes its sockets, so a
+    peer in a collective fails at once). Rank 0 writes when its run
+    began, when it raised and what."""
+    torch.set_num_threads(1)
+    from reina_tpu_torch.core import graphs as G
+    from reina_tpu_torch.core.engine import run_days
+    from reina_tpu_torch.parallel import mesh as M
+
+    M.LIVENESS_S = LOST_S
+    M.init_distributed(f"file://{work}/store", 2, rank, backend="gloo")
+    small = _build(CFG)
+    agents = M.make_mesh(1, 2, device="cpu")
+    if rank == 1:
+        G.GraphSet.capture = _on_call(1, _killed(work))(G.GraphSet.capture)
+    t0 = time.time()
+    try:
+        run_days(small, chunk_days=4, mesh=agents, graphs=True)
+        msg = "no error"
+    except Exception as e:
+        msg = f"{type(e).__name__}: {e}"
+    with open(f"{work}/killed_{rank}.txt", "w") as f:
+        f.write(f"{t0:.3f} {time.time():.3f} {msg}")
+    torch.distributed.destroy_process_group()
+
+
+def _usable(run, alone) -> str:
+    """"True" where this process's one-card graphed run equals
+    ``alone``; "context: ..." where its card's CUDA context has ended (a
+    CUDA error that a ``torch.cuda.synchronize()`` then raises too);
+    else what went wrong ("False", or the error)."""
+    from reina_tpu_torch.core.engine import run_days
+    try:
+        out = run_days(run, chunk_days=4)[0]
+        return str(all(np.array_equal(a, b) for a, b in zip(alone, out)))
+    except Exception as e:
+        first = str(e).strip().splitlines()[0][:300]
+        if "CUDA" not in str(e):
+            return f"{type(e).__name__}: {first}"
+        try:
+            torch.cuda.synchronize()
+        except RuntimeError:
+            return f"context: {first}"
+        return f"{type(e).__name__} on a working context: {first}"
+
+
+def _nccl_child(rank: int, work: str, port: str, case: str) -> None:
+    """One rank of two over NCCL, a card each (the gpu-marked test), in
+    a world of its own for each case. ``nccl``: the graphed agent axis
+    by default, then a warm-up that fails on rank 1 after its span's
+    first collective. ``replay``: a replay whose day-graph launch of day
+    ``KILL_AT`` raises on rank 1. ``killed``: rank 1's process ends at
+    that launch (the liveness bound lowered to ``LOST_S``). After the
+    failure, the rank's one-card graphed run against the same run made
+    first (``_usable``). Each rank writes the seconds to its raise;
+    then, where its card is usable, tears the world down and writes
+    that's seconds, else leaves at once (the teardown fails on an ended
+    context)."""
+    import faulthandler
+    # a rank still running near the test's limit prints where it is
+    faulthandler.dump_traceback_later(NCCL_S - 60, exit=False)
+    from reina_tpu_torch.core import daygraph
     from reina_tpu_torch.core.engine import run_days
     from reina_tpu_torch.parallel import mesh as M
     from reina_tpu_torch.testing import build_synthetic_run
 
+    M.LIVENESS_S = LOST_S
+    # the kernels launch on the current device
+    torch.cuda.set_device(rank)
     M.init_distributed(f"tcp://127.0.0.1:{port}", 2, rank, "nccl")
     run = build_synthetic_run(f"cuda:{rank}", n_agents=N, days=DAYS, seed=5,
                               interventions=IVS, cfg_overrides=CFG)
-    agents = M.make_mesh(1, 2, device=run.device)
-    out, st, cr, _ = run_days(run, chunk_days=4, mesh=agents)
-    _save(f"{work}/nccl_{rank}.npz", out, st, cr)
-    with open(f"{work}/failed_warmup_{rank}.txt", "w") as f:
-        f.write(_failed_warmup(run, rank))
+    alone = run_days(run, chunk_days=4)[0]
+    if case == "nccl":
+        agents = M.make_mesh(1, 2, device=run.device)
+        out, st, cr, _ = run_days(run, chunk_days=4, mesh=agents)
+        _save(f"{work}/nccl_{rank}.npz", out, st, cr)
+        msg = _failed_warmup(run, rank)
+    else:
+        act = _refuse if case == "replay" else _killed(work)
+        msg = _failing_run(run, rank, daygraph.DayGraph, "launch",
+                           _on_call(KILL_AT + 1, act), barrier=False)
+    with open(f"{work}/failed_{case}_{rank}.txt", "w") as f:
+        f.write(f"{time.time():.3f} {msg}")
+    same = _usable(run, alone)
+    with open(f"{work}/usable_{case}_{rank}.txt", "w") as f:
+        f.write(same)
+    print(f"rank {rank}: {case} raised; one-card run after: {same}",
+          flush=True)
+    if same != "True":
+        sys.stdout.flush()
+        os._exit(0)
     t0 = time.perf_counter()
     torch.distributed.destroy_process_group()
-    with open(f"{work}/down_{rank}.txt", "w") as f:
+    with open(f"{work}/down_{case}_{rank}.txt", "w") as f:
         f.write(f"{time.perf_counter() - t0:.3f}")
 
 
@@ -268,15 +433,20 @@ def _spawn(world: int, work: str, *extra: str):
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
 
 
-def _wait(procs):
-    for p in procs:
+def _wait(procs, limit: float = 300, codes=None):
+    """Each process's output once it ended with its code (``codes``, a
+    code a rank; 0 by default); all are killed once one outlives
+    ``limit`` seconds."""
+    for r, p in enumerate(procs):
         try:
-            out, _ = p.communicate(timeout=300)
+            out, _ = p.communicate(timeout=limit)
         except subprocess.TimeoutExpired:
             for q in procs:
                 q.kill()
-            raise
-        assert p.returncode == 0, out[-4000:]
+            tails = "\n".join(f"--- rank {q}:\n{x.communicate()[0][-3000:]}"
+                              for q, x in enumerate(procs))
+            raise AssertionError(f"ranks killed after {limit} s:\n{tails}")
+        assert p.returncode == (codes or {}).get(r, 0), out[-4000:]
 
 
 def _plain_days(run):
@@ -324,6 +494,8 @@ def runs(tmp_path_factory):
              checkpoint_every=AT)
     run_days(small, n_days=AT + 1, checkpoint_dir=f"{work[4]}/ck1g",
              checkpoint_every=AT)
+    os.makedirs(base / "killed")
+    killed = _spawn(2, str(base / "killed"), "killed")
     procs = _spawn(2, work[2]) + _spawn(4, work[4])
     try:
         one = run_days(run, chunk_days=4)[:3]
@@ -332,7 +504,14 @@ def runs(tmp_path_factory):
         small_one = run_days(small, chunk_days=4)[:3]
         plain = _plain_days(small)
     finally:
-        _wait(procs)
+        try:
+            _wait(killed, limit=120, codes={1: 3})
+        except (AssertionError, subprocess.TimeoutExpired) as e:
+            # the killed-rank world's own test reports it
+            with open(base / "killed" / "error.txt", "w") as f:
+                f.write(repr(e)[-4000:])
+        finally:
+            _wait(procs)
     return run, one, ens, sweep, work, (small, small_one, plain)
 
 
@@ -466,6 +645,89 @@ def test_failed_warmup_raises_on_every_rank(runs):
     assert max(s0, s1) < 60, (s0, s1)
 
 
+def test_failed_replay_raises_on_every_rank(runs):
+    """A day that fails on rank 1 in a replay (the CPU model's launch of
+    its third day), while rank 0 waits in that day's first collective:
+    rank 0 gives its collective up on rank 1's mark, raises GraphError
+    naming the day and another rank within seconds, and both reach the
+    world's barrier."""
+    (s0, m0), (s1, m1) = _failed(runs, "replay")
+    assert m1.startswith("GraphError") and "on purpose" in m1
+    assert m0.startswith("GraphError: day 2:") and "another rank" in m0
+    assert max(s0, s1) < 60, (s0, s1)
+
+
+def test_killed_rank_raises_on_the_other(runs):
+    """Rank 1's process ends mid-run (``_killed_child``): rank 0 raises
+    GraphError naming the lost rank within the liveness bound plus 10 s
+    of that end, and within 60 s of its run's start; rank 1 exited with
+    its code (the fixture waited on both)."""
+    work = os.path.join(os.path.dirname(runs[4][2]), "killed")
+    assert not os.path.exists(f"{work}/error.txt"), open(
+        f"{work}/error.txt").read()
+    died = float(open(f"{work}/killed_at.txt").read())
+    t0, t1, msg = open(f"{work}/killed_0.txt").read().split(" ", 2)
+    assert msg.startswith("GraphError") and "rank 1 is lost" in msg, msg
+    assert float(t1) - died < LOST_S + 10, (float(t1) - died, msg)
+    assert float(t1) - float(t0) < 60, (float(t1) - float(t0), msg)
+
+
+def test_failed_group_raises_on_every_rank_of_the_mesh(runs):
+    """On a (2, 2) mesh a collective of the plain sharded step fails on
+    rank 1 (agent group 0): ``run_ensemble`` raises on all four ranks,
+    rank 0 giving up on its group's mark; of ranks 2 and 3 the first to
+    look gives up on the mesh's (in its run or in the seed axis's
+    gather), the other on that or on its group's; all reach the world's
+    barrier."""
+    work = runs[4]
+    got = [open(f"{work[4]}/failed_ensemble_{r}.txt").read().split(" ", 1)
+           for r in range(4)]
+    assert "on purpose" in got[1][1], got[1]
+    assert "another rank of the agent group failed" in got[0][1], got[0]
+    assert all("another rank of the" in got[r][1] for r in (2, 3)), got
+    assert any("another rank of the mesh failed" in got[r][1]
+               for r in (2, 3)), got
+    assert all(m.startswith(("RuntimeError", "CollectiveError"))
+               for _, m in got), got
+    assert max(float(s) for s, _ in got) < 60, got
+
+
+def test_watch_gives_up(monkeypatch):
+    """A Watch gives up on a failure mark, on a peer whose heartbeat
+    stopped for the liveness bound (and not on one that keeps beating)
+    and on a store that stops answering."""
+    import torch.distributed as dist
+    from reina_tpu_torch.parallel import mesh as M
+    monkeypatch.setattr(M, "LIVENESS_S", 0.2)
+    monkeypatch.setattr(M, "_SEEN", {})
+    store = dist.HashStore()
+    w = M.Watch([("m/failed", "another rank of the mesh failed")],
+                [0, 1, 2], "agent group", store=store, rank=0)
+    t0 = time.monotonic()
+    with pytest.raises(M.CollectiveError, match="rank 1 is lost") as e:
+        while time.monotonic() - t0 < 5:
+            store.add(M._alive_key(2), 1)       # rank 2 keeps beating
+            w.look()
+            time.sleep(0.02)
+    assert 0.2 <= time.monotonic() - t0 < 5, e.value
+    w.error, w.peers = None, [2]
+    w.look()
+    store.set("m/failed", b"1")
+    with pytest.raises(M.CollectiveError, match="of the mesh failed"):
+        w.look()
+    # the watch's thread finds it too, and a wait then gives up
+    w.error = None
+    with w, pytest.raises(M.CollectiveError, match="of the mesh failed"):
+        w.wait(lambda: False)
+
+    class Silent:
+        def check(self, keys):
+            raise RuntimeError("Connection reset by peer")
+    with pytest.raises(M.CollectiveError, match="stopped answering"):
+        M.Watch([("m/failed", "")], [0, 1], "mesh", store=Silent(),
+                rank=0).look()
+
+
 def test_seed_and_agent_axes_ensemble(runs):
     """A (2, 2) mesh: seeds split over the seed axis, each member over
     an agent group of two; every rank returns all members."""
@@ -560,43 +822,90 @@ def test_mesh_and_shard_rule_errors():
 
 @pytest.mark.gpu
 def test_graphed_agent_axis_over_nccl(tmp_path):
-    """Two ranks over NCCL, a card each: ``run_days`` on the agent axis
-    is graphed by default and equals the one-card graphed run on every
-    rank; a warm-up that fails on rank 1 after its span's first
-    collective raises GraphError on both within seconds; then
-    ``destroy_process_group`` returns on both (the run freed its graph
-    set, whose captured collectives hold the communicator)."""
+    """Two ranks over NCCL, a card each, three worlds of their own
+    (``_nccl_child``): ``run_days`` on the agent axis is graphed by
+    default and equals the one-card graphed run on every rank; a warm-up
+    that fails on rank 1 after its span's first collective raises
+    GraphError on both within seconds, both cards stay usable and
+    ``destroy_process_group`` then returns on both (the run freed its
+    graph set, whose captured collectives hold the communicator). A
+    replay whose day-graph launch of day ``KILL_AT`` raises on rank 1
+    raises GraphError on both within 5 s of each other; rank 1's process
+    ending at that launch makes rank 0 raise within the liveness bound
+    plus 10 s. After each, a rank's one-card graphed run equals the one
+    made before, or its card's CUDA context ended (confirmed by a
+    failing synchronize), and then it leaves without the teardown.
+    Prints each rank's seconds."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     import socket
     from reina_tpu_torch.core.engine import run_days
     from reina_tpu_torch.testing import build_synthetic_run
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        port = str(sk.getsockname()[1])
-    procs = _spawn(2, str(tmp_path), "nccl", port)
+
+    def world(case: str):
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = str(sk.getsockname()[1])
+        return _spawn(2, str(tmp_path), case, port)
+
+    procs = world("nccl")
     try:
         run = build_synthetic_run("cuda:0", n_agents=N, days=DAYS, seed=5,
                                   interventions=IVS, cfg_overrides=CFG)
         one = run_days(run, chunk_days=4)[:3]
     finally:
-        _wait(procs)
+        _wait(procs, limit=NCCL_S)
+    for case, codes in (("replay", None), ("killed", {1: 3})):
+        _wait(world(case), limit=NCCL_S, codes=codes)
     for r in range(2):
         _eq_slab(run, one, f"{tmp_path}/nccl_{r}.npz", r, 2)
-    msgs = []
+
+    def raised(case: str, r: int):
+        at, sec, msg = open(f"{tmp_path}/failed_{case}_{r}.txt").read(
+            ).split(" ", 2)
+        after = open(f"{tmp_path}/usable_{case}_{r}.txt").read()
+        print(f"{case}: rank {r} raised after {sec} s: {msg[:400]}; "
+              f"one-card run after: {after}")
+        assert after == "True" or after.startswith("context"), after
+        return float(at), float(sec), msg, after
+
+    for case in ("nccl", "replay"):
+        got = [raised(case, r) for r in range(2)]
+        assert got[1][2].startswith("GraphError") and "on purpose" in got[1][2]
+        assert got[0][2].startswith("GraphError") and "another rank" in \
+            got[0][2]
+        assert max(g[1] for g in got) < 60, got
+        if case == "replay":
+            assert abs(got[0][0] - got[1][0]) < 5, got
+    # a failed warm-up leaves no graph in flight: both cards stay usable,
+    # and the world's teardown returns on both
     for r in range(2):
-        sec, msg = open(f"{tmp_path}/failed_warmup_{r}.txt").read().split(
-            " ", 1)
-        msgs.append(msg)
-        assert float(sec) < 60, (r, sec, msg)
-        assert float(open(f"{tmp_path}/down_{r}.txt").read()) < 60
-    assert msgs[1].startswith("GraphError") and "on purpose" in msgs[1]
-    assert msgs[0].startswith("GraphError") and "another rank" in msgs[0]
+        assert open(f"{tmp_path}/usable_nccl_{r}.txt").read() == "True"
+        down = float(open(f"{tmp_path}/down_nccl_{r}.txt").read())
+        print(f"nccl: rank {r}'s destroy_process_group {down:.3f} s")
+        assert down < 60
+    died = float(open(f"{tmp_path}/killed_at.txt").read())
+    at, sec, msg, after = raised("killed", 0)
+    print(f"killed: rank 0 raised {at - died:.3f} s after rank 1's end")
+    assert msg.startswith("GraphError") and "rank 1 is lost" in msg
+    assert at - died < LOST_S + 10
+    for case, ranks in (("replay", 2), ("killed", 1)):
+        for r in range(ranks):
+            path = f"{tmp_path}/down_{case}_{r}.txt"
+            usable = open(f"{tmp_path}/usable_{case}_{r}.txt").read()
+            # a usable card tears its world down; an ended one leaves
+            assert os.path.exists(path) == (usable == "True"), (case, r)
+            if usable == "True":
+                print(f"{case}: rank {r}'s destroy_process_group "
+                      f"{open(path).read()} s")
+                assert float(open(path).read()) < 60
 
 
 if __name__ == "__main__":
     sys.path.insert(0, _REPO)
-    if sys.argv[4:5] == ["nccl"]:
-        _nccl_child(int(sys.argv[1]), sys.argv[3], sys.argv[5])
+    if len(sys.argv) > 5:
+        _nccl_child(int(sys.argv[1]), sys.argv[3], sys.argv[5], sys.argv[4])
+    elif sys.argv[4:5] == ["killed"]:
+        _killed_child(int(sys.argv[1]), sys.argv[3])
     else:
         _child(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
