@@ -137,13 +137,14 @@ HUS run cut to 8 days: (d1) rank 1's day-graph launch of day 3 raises
 on purpose, (d2) rank 1's process ends there (os._exit); every rank
 left must raise, within 5 s in (d1) and within the liveness bound
 (reina_tpu_torch/parallel/mesh.py: LIVENESS_S) plus 10 s of rank 1's
-end in (d2), each in a world of its own; then run a one-card graphed
-run on its card equal to the same run made before and tear its world
-down, or, where the abort ended its card's CUDA context (what ran out
-on the card after the abort read what the aborted collectives left),
-say so and leave; the seconds of each raise and of
-destroy_process_group are printed. ``python3 chip_smoke.py --lost``
-runs (d) alone.
+end in (d2), each in a world of its own; then every rank left must run
+a one-card graphed run on its card equal to the same run made before
+(its card usable: the stop word kept what the aborted collectives left
+from every kernel) and tear its world down; the seconds of each raise
+and of destroy_process_group are printed. Last, (d3): the HUS run cut
+to the same days, built on cuda:1 and run graphed once with cuda:1
+current and once with cuda:0 current, must be equal bit for bit, picks
+included. ``python3 chip_smoke.py --lost`` runs (d) alone.
 
 Each of steps 3, 4c, 4d, 5, 8, the ensemble, the grid and the CLI's
 calibrate runs of 4c and 6, the agent-sharded run of 7 (in each rank)
@@ -905,8 +906,7 @@ def lost_child(rank: int, port: int, work: str, case: str) -> None:
     ``d1``) or ends its process (``d2``); then this rank's one-card
     graphed run again, against the first (:func:`usable`). Writes its
     record into ``work``, then tears the world down where its card is
-    usable, else leaves at once (CUDA's and NCCL's teardown fail on an
-    ended context)."""
+    usable, else leaves at once (the phase fails then)."""
     import torch
     from reina_tpu_torch.config.variables import VARIABLE_DEFAULTS
     from reina_tpu_torch.core import daygraph
@@ -970,9 +970,9 @@ def lost_child(rank: int, port: int, work: str, case: str) -> None:
 
 def usable(run, alone):
     """True where this process's one-card graphed run equals ``alone``;
-    "context: ..." where its card's CUDA context has ended (a CUDA error
-    that a ``torch.cuda.synchronize()`` then raises too); else what went
-    wrong ("differs", or the error)."""
+    else what went wrong ("differs", or the error, with whether a
+    ``torch.cuda.synchronize()`` then fails too: an ended CUDA
+    context)."""
     import numpy as np
     import torch
     from reina_tpu_torch.core.engine import run_days
@@ -982,13 +982,50 @@ def usable(run, alone):
                 else "differs")
     except Exception as e:
         first = str(e).strip().splitlines()[0][:300]
-        if "CUDA" not in str(e):
-            return f"{type(e).__name__}: {first}"
         try:
             torch.cuda.synchronize()
         except RuntimeError:
-            return f"context: {first}"
-        return f"{type(e).__name__} on a working context: {first}"
+            return f"{type(e).__name__} on an ended context: {first}"
+        return f"{type(e).__name__}: {first}"
+
+
+def device_check() -> None:
+    """(d3): the HUS run cut to LOST_DAYS days, built on cuda:1, run
+    graphed with cuda:1 current and then, on a graph set built anew,
+    with cuda:0 current: outputs and picks bit for bit, and the caller's
+    current device restored."""
+    import numpy as np
+    import torch
+    from reina_tpu_torch.config.variables import VARIABLE_DEFAULTS
+    from reina_tpu_torch.core import graphs as G
+    from reina_tpu_torch.core.engine import build_run, run_days
+    v = dict(VARIABLE_DEFAULTS)
+    v["simulation_days"] = LOST_DAYS
+    run = build_run(v, "cuda:1")
+    got = {}
+    for current in (1, 0):
+        G.drop_idle()
+        with torch.cuda.device(current):
+            picks = []
+            t0 = time.perf_counter()
+            out = run_days(run, picks=picks)[0]
+            torch.cuda.synchronize(1)
+            got[current] = (out, picks, time.perf_counter() - t0)
+            if torch.cuda.current_device() != current:
+                fail(f"mesh (d3): run_days left cuda:"
+                     f"{torch.cuda.current_device()} current, not "
+                     f"cuda:{current}")
+    same = all(np.array_equal(a, b) for a, b in zip(got[1][0], got[0][0]))
+    if not same or np.asarray(got[1][1]).tolist() != \
+            np.asarray(got[0][1]).tolist():
+        fail("mesh (d3): the graphed run on cuda:1 with cuda:0 current "
+             "differs from the run with cuda:1 current")
+    G.drop_idle()
+    print(f"mesh (d3) a graphed HUS run of {LOST_DAYS} days built on "
+          f"cuda:1: with cuda:0 current equal bit for bit (outputs and "
+          f"{len(got[0][1])} picks rows) to the run with cuda:1 current "
+          f"({got[1][2]:.2f} s and {got[0][2]:.2f} s, each building its "
+          f"graph set)")
 
 
 def lost_rank_phase() -> None:
@@ -996,8 +1033,8 @@ def lost_rank_phase() -> None:
     (``lost_child``), (d1) and (d2). In (d1) both must raise, rank 0
     naming another rank, within 5 s of each other; in (d2) rank 0 within
     the liveness bound plus 10 s of rank 1's end. After each, every rank
-    left must have a one-card run equal to its first, or a card whose
-    context the abort ended (then it leaves without the teardown)."""
+    left must have a one-card run equal to its first. Then (d3),
+    :func:`device_check`."""
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     recs = {}
@@ -1036,22 +1073,18 @@ def lost_rank_phase() -> None:
           f"{LOST_AT}: rank 0 raised {late:.3f} s after that end "
           f"(liveness bound {bound:g} s): {d2_0['msg'][:400]}")
     for (case, r), x in sorted(recs.items()):
-        if x["usable"] is True:
-            state = (f"its one-card graphed run afterwards equals its "
-                     f"first; destroy_process_group {x['down']:.3f} s")
-        elif str(x["usable"]).startswith("context"):
-            state = (f"its card's CUDA context ended after the abort "
-                     f"({x['usable']}); it left without the teardown")
-        else:
-            fail(f"mesh ({case}): rank {r}'s one-card run afterwards: "
-                 f"{x['usable']}")
-        print(f"mesh ({case}) rank {r}: {state}")
-    print(f"mesh (d): {time.perf_counter() - t_phase:.1f} s")
+        if x["usable"] is not True:
+            fail(f"mesh ({case}): rank {r}'s card after the failure: its "
+                 f"one-card graphed run {x['usable']}")
+        print(f"mesh ({case}) rank {r}: its one-card graphed run afterwards "
+              f"equals its first; destroy_process_group {x['down']:.3f} s")
     if apart > 5:
         fail(f"mesh (d1): the ranks raised {apart:.3f} s apart")
     if late > bound + 10:
         fail(f"mesh (d2): rank 0 raised {late:.1f} s after rank 1's end "
              f"(bound {bound:g} s + 10 s)")
+    device_check()
+    print(f"mesh (d): {time.perf_counter() - t_phase:.1f} s")
 
 
 def spawn_ranks(flag: list, world: int, args_of, work: str,

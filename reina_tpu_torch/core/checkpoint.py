@@ -122,10 +122,16 @@ def save_sharded(path: str, shard, state: AgentState, carry: DayCarry,
     """save_checkpoint of an agent-sharded run: every rank of the agent
     group (``shard``, parallel.mesh.AgentShard) hands in its slab, the
     per-agent fields are gathered, the group's first rank writes the
-    same file as an unsharded run, and the group waits for it."""
+    same file as an unsharded run, and the group agrees through the
+    world's store that it is written (``shard.barrier``). Every wait is
+    watched: the first rank reads the gathered rows only once the card
+    has run their collectives (``shard.before_read``), so a peer failed
+    or lost meanwhile makes every other rank raise (CollectiveError)
+    within the liveness bound instead of blocking."""
     state = AgentState(*(shard.gather_rows(x) for x in state))
     carry = carry._replace(nc_ag=shard.gather_rows(carry.nc_ag))
     if shard.index == 0:
+        shard.before_read(carry.nc_ag)
         save_checkpoint(path, state, carry, outputs, bucket_capacity)
     shard.barrier()
 

@@ -37,6 +37,17 @@ then each span a child-graph node and each pick's conditional node after
 the span whose kernel set it: an if for the tracing cond, a switch over
 the tiers of a tiered span whose branch bodies are that span's captures
 at each tier. One launch runs the day.
+
+On a graphed shard of the agent axis each span is gated: its capture is
+split after each of its collectives (:func:`split`), and each piece
+after the first is a child graph inside an if node that a one-thread
+kernel sets from the graph set's stop word (csrc/daygraph.cu: the
+gates). Once the host has set the word (parallel/mesh.py:give_up,
+before it aborts the group), nothing after a collective runs: not the
+rest of the span whose collective the abort ended, nor anything past
+the first collective of a later span or of a day queued behind it. A
+span's first piece reads only static buffers that no aborted collective
+wrote, so it runs ungated.
 """
 from __future__ import annotations
 
@@ -209,6 +220,26 @@ def _check(err: int, what: str) -> None:
         raise GraphError(f"{what}: CUDA error {err} ({msg})")
 
 
+def split(graph: int, guards, what: str) -> tuple:
+    """The pieces of a captured span ``graph`` (new graphs, in order), cut
+    after each guard node (the node that ends a captured collective,
+    ``kernels.guard_point``); the caller destroys them."""
+    from ..kernels import build
+    arr = (ctypes.c_void_p * max(len(guards), 1))(*guards)
+    out = (ctypes.c_void_p * (len(guards) + 1))()
+    n = ctypes.c_int()
+    _check(build.lib().reina_dg_split(graph, arr, len(guards), out,
+                                      ctypes.byref(n)), what)
+    return tuple(out[i] for i in range(n.value))
+
+
+def destroy_graphs(graphs) -> None:
+    """Destroy graphs made by :func:`split`."""
+    from ..kernels import build
+    for g in graphs:
+        build.lib().reina_dg_destroy(g, None)
+
+
 def check_body_nodes(graph: int, what: str) -> None:
     """Raise unless every node of the captured ``graph`` is of a type a
     conditional body may hold."""
@@ -255,17 +286,38 @@ class DayGraph:
     def _what(self, step: str) -> str:
         return f"day graph {self.hkey}: {step}"
 
-    def _child(self, graph, dep, entry, what):
+    def _child(self, graph, dep, child, what):
         node = ctypes.c_void_p()
-        _check(self.lib.reina_dg_child(graph, dep, entry.run.raw_cuda_graph(),
-                                       ctypes.byref(node)), self._what(what))
+        _check(self.lib.reina_dg_child(graph, dep, child, ctypes.byref(node)),
+               self._what(what))
         return node
+
+    def _span(self, graph, dep, entry, stop, what):
+        """A captured span after ``dep`` in ``graph``: one child-graph
+        node, or on a gated set (``entry.pieces``) its first piece a
+        child graph and each later piece, which starts after a captured
+        collective, a child graph in the body of a gate on the stop word
+        at ``stop``. The first piece needs no gate: a span reads only the
+        set's static buffers, which no aborted collective writes, so
+        what it runs before its first collective is sound."""
+        if not entry.pieces:
+            return self._child(graph, dep, entry.run.raw_cuda_graph(), what)
+        dep = self._child(graph, dep, entry.pieces[0], f"{what}: piece 0")
+        for i, piece in enumerate(entry.pieces[1:], 1):
+            node, body = ctypes.c_void_p(), ctypes.c_void_p()
+            _check(self.lib.reina_dg_gate(graph, dep, stop, ctypes.byref(node),
+                                          ctypes.byref(body)),
+                   self._what(f"{what}: gate {i}"))
+            self._child(body, None, piece, f"{what}: piece {i}")
+            dep = node
+        return dep
 
     def _add(self, graph, dep, nodes, gs, handles) -> None:
         for node in nodes:
             if isinstance(node, S.Span):
                 entry = gs.entry(self.hkey, node.name, node.key)
-                dep = self._child(graph, dep, entry, f"span {node.name}")
+                dep = self._span(graph, dep, entry, gs.stop_dev,
+                                 f"span {node.name}")
                 self.fixed.update(entry.tally)
                 continue
             # the span before set this node's condition (FOLDS)
@@ -286,9 +338,9 @@ class DayGraph:
                 self._add(bodies[0], None, node.body, gs, handles)
             else:
                 for b, key in enumerate(node.keys()):
-                    self._child(bodies[b], None,
-                                gs.entry(self.hkey, node.name, key),
-                                f"branch {node.name} {key}")
+                    self._span(bodies[b], None,
+                               gs.entry(self.hkey, node.name, key),
+                               gs.stop_dev, f"branch {node.name} {key}")
 
     def launch(self, stream: int) -> None:
         _check(self.lib.reina_dg_launch(self.exec, stream),

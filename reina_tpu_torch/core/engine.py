@@ -390,7 +390,12 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
     mark or on a rank whose heartbeat has stopped. A peer's failure
     raises as GraphError naming the day or the sync point (graphed) or
     as CollectiveError (the plain step); this rank's own as it was
-    raised."""
+    raised. A graphed shard's captured days stop where a peer's failure
+    aborted their collectives, and the card stays usable
+    (core/graphs.py).
+
+    The run's device is current while it runs, whatever device the
+    caller had current, which is restored after."""
     from . import checkpoint as ckpt
     from . import graphs as G
     from .. import convert
@@ -475,7 +480,7 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
     # run up, so that every rank raises and none hangs; the plain step's
     # collectives on a card are queued, its host reads watched
     try:
-        with M.watching(shard, cards=False):
+        with G.on_device(device), M.watching(shard, cards=False):
             # device-resident until a sync point, then fetched rows
             pending = [_stack_device([snapshot_outputs(
                 cfg, arrays, state, carry, np.float32(1.0), shard)])]
@@ -572,13 +577,14 @@ def build_graphs(run: CompiledRun) -> None:
     host_sched = Schedules(*(x.cpu().numpy() for x in run.schedules))
     build = (run.cfg, run.arrays, run.schedules, run.init_state,
              run.init_carry)
-    gs = G.acquire(*build, run.device)
-    plans = gs.prepare(host_sched, prng.PRNGKey(run.random_seed), 0,
-                       run.days - 1,
-                       run.init_carry.weekly_leftover,
-                       run.init_state.age.shape[0])
-    gs.start(*build, 0, plans)
-    G.release(gs)
+    with G.on_device(run.device):
+        gs = G.acquire(*build, run.device)
+        plans = gs.prepare(host_sched, prng.PRNGKey(run.random_seed), 0,
+                           run.days - 1,
+                           run.init_carry.weekly_leftover,
+                           run.init_state.age.shape[0])
+        gs.start(*build, 0, plans)
+        G.release(gs)
 
 
 def _concat(rows: List[DayOutputs]) -> DayOutputs:

@@ -128,11 +128,23 @@ its run ends (``release``), unless a :func:`reusing` scope is open, in
 which it stays idle for the scope's later runs until the outermost
 scope ends; a failed run's set is freed at once, after the abort.
 
+Every entry that launches work on a set's card (``acquire``, ``start``
+with its warm-ups, captures and assembly, ``step``, ``settle``) makes
+that card current for its duration (:func:`on_device`) and restores the
+caller's current device after: the kernels launch on the current device,
+and a run is bit for bit the same whichever device its caller had
+current.
+
 On the CPU a GraphSet is a model of the same machinery for the tests:
 each (span, key) records its body (the span and the copies around it) at
 its warm-up and calls it again on later days, and each fold site makes
 its picks with the twin inside the producer's call, whose entry in the
-picks table names the branch that runs; the host reads no count.
+picks table names the branch that runs; the host reads no count. On a
+shard the model has its gates too: a collective of a replay that is
+given up on a peer sets the set's stop word and ends its span
+(``mesh.Stopped``, as an aborted collective returns on the card and the
+gate after it runs nothing), and so does every later collective while
+the word is set (``GATED`` counts them).
 """
 from __future__ import annotations
 
@@ -147,14 +159,14 @@ import torch
 
 from . import step as S
 from .daygraph import (FOLDS, DayGraph, Fold, GraphError, check_body_nodes,
-                       fold_nodes)
+                       destroy_graphs, fold_nodes, split)
 from .schedule import Schedules
 from .state import AgentState, DayCarry
 from .. import kernels
 from ..parallel import mesh
 
 __all__ = ["GraphError", "GraphSet", "acquire", "release", "drop_idle",
-           "idle", "reusing", "set_key"]
+           "idle", "on_device", "reusing", "set_key"]
 
 _CAPTURE_LOCK = threading.Lock()
 _IDLE_LOCK = threading.Lock()
@@ -173,9 +185,28 @@ DEVICE_CARRY = tuple(f for f in DayCarry._fields
                      if f not in ("day", "weekly_leftover"))
 
 
+# the CPU model's gates: spans ended at a collective once the stop word
+# was set ("ended"), conditionals whose producer was cut off
+# ("skipped"), spans that ran to their end with the word set
+# ("completed": none past a collective, so 0 where every span has one)
+GATED = Counter()
+
+
 class _Entry(NamedTuple):
     run: object            # the CUDAGraph, or on the CPU the body
     tally: Counter         # launches (and collectives) of one run
+    # on a gated set's card: the span cut after each of its collectives
+    # (graphs daygraph.split made)
+    pieces: tuple = ()
+
+
+def on_device(device):
+    """A scope in which ``device`` (a CUDA device) is the current device,
+    the caller's restored after; nothing for the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def shard_key(shard) -> tuple:
@@ -299,6 +330,9 @@ class GraphSet:
         # the events of the last AHEAD days launched on a collective set,
         # oldest first
         self._ahead = deque()
+        # what the set's captured days read before each piece of a span
+        # on a shard (the model's too)
+        self.stop_word = mesh.StopWord(self.collective)
         if not self.model:
             self.pool = torch.cuda.graph_pool_handle()
             self.stream = torch.cuda.Stream(dev)
@@ -309,6 +343,17 @@ class GraphSet:
                 # the agent group's communicator is made by its first
                 # collective, which a capture cannot hold
                 shard.sum(torch.zeros(1, dtype=torch.int32, device=dev))
+
+    @property
+    def stop_dev(self):
+        """The stop word's device address, which the gates read (None on
+        a set without gates)."""
+        return self.stop_word.dev
+
+    def stop(self) -> None:
+        """Set the stop word: no piece of a captured span runs from here
+        on (mesh.give_up, before it aborts the agent group)."""
+        self.stop_word.set()
 
     def fits(self, key: tuple, rows: int) -> bool:
         """Whether a build of ``key`` with ``rows`` schedule rows can run
@@ -362,19 +407,20 @@ class GraphSet:
             why = (f"its {', '.join(differ)} differ" if differ
                    else f"{rows} days on a set of {self.rows}")
             raise GraphError(f"a build does not fit the set: {why}")
-        for dst, src in zip(self.arrays, arrays):
-            dst.copy_(src)
-        self.mobility[:rows].copy_(schedules.mobility)
-        self.mask_p[:rows].copy_(schedules.mask_p)
-        for plan in plans:
-            hkey = host_key(plan)
-            if hkey not in self.days:
-                self._build(hkey, plan.day)
-        for dst, src in zip(self.state, state):
-            dst.copy_(src)
-        for f in DEVICE_CARRY:
-            self.carry[f].copy_(getattr(carry, f))
-        self.counter.fill_(day)
+        with on_device(self.device):
+            for dst, src in zip(self.arrays, arrays):
+                dst.copy_(src)
+            self.mobility[:rows].copy_(schedules.mobility)
+            self.mask_p[:rows].copy_(schedules.mask_p)
+            for plan in plans:
+                hkey = host_key(plan)
+                if hkey not in self.days:
+                    self._build(hkey, plan.day)
+            for dst, src in zip(self.state, state):
+                dst.copy_(src)
+            for f in DEVICE_CARRY:
+                self.carry[f].copy_(getattr(carry, f))
+            self.counter.fill_(day)
 
     def step(self, plans: List[S.DayPlan]) -> None:
         """Run the planned days, one day-graph launch each (the state,
@@ -383,11 +429,15 @@ class GraphSet:
         up before it raises (see the module docstring)."""
         stream = (None if self.model
                   else torch.cuda.current_stream(self.device).cuda_stream)
-        with self._watching() as watch:
-            watch = watch if self.collective else None
+        with on_device(self.device), self._watching() as watch, \
+                mesh.replaying(self if self.model else None):
             for plan in plans:
                 try:
-                    self._day(plan, stream, watch)
+                    self._day(plan, stream,
+                              watch if self.collective else None)
+                    if self.model and watch is not None:
+                        # the host's look at its peers after a launch
+                        watch.check()
                 except BaseException as e:
                     self._give_up(e, f"day {plan.day}")
                     raise
@@ -421,7 +471,7 @@ class GraphSet:
         if not self.collective:
             return
         try:
-            with self.shard.watch() as watch:
+            with on_device(self.device), self.shard.watch() as watch:
                 watch.wait(self._ahead[-1].query)
         except BaseException as e:
             self._give_up(e, what)
@@ -634,14 +684,19 @@ class GraphSet:
             return _Entry(body, Counter())
         g = torch.cuda.CUDAGraph(keep_graph=True)
         t0 = time.perf_counter()
+        pieces = ()
         with _CAPTURE_LOCK:
             try:
-                with kernels.capturing() as tally:
+                with kernels.capturing(guards=self.collective) as tally:
                     with torch.cuda.graph(g, pool=self.pool,
                                           stream=self.stream,
                                           capture_error_mode="thread_local"):
                         body()
+                    guards = kernels.guards()
                 check_body_nodes(g.raw_cuda_graph(), f"span {name} {key}")
+                if self.collective:
+                    pieces = split(g.raw_cuda_graph(), guards,
+                                   f"span {name} {key}: its pieces")
             except Exception as e:
                 hint = ("" if self.shard is None else
                         " (over NCCL, with NCCL_GRAPH_MIXING_SUPPORT=0 set "
@@ -651,7 +706,7 @@ class GraphSet:
                 raise GraphError(f"capture of span {name} {key} failed: "
                                  f"{e}{hint}") from e
         S.STATS["capture_s"] += time.perf_counter() - t0
-        return _Entry(g, tally)
+        return _Entry(g, tally, pieces)
 
     @property
     def collective(self) -> bool:
@@ -668,14 +723,17 @@ class GraphSet:
         with _IDLE_LOCK:
             if self in _IDLE:
                 _IDLE.remove(self)
-        for day in self.days.values():
-            if not self.model:
-                day.close()
-        for entry in self.bodies.values():
-            if entry is not None and not self.model:
-                entry.run.reset()
-        self.days.clear()
-        self.bodies.clear()
+        with on_device(self.device):
+            for day in self.days.values():
+                if not self.model:
+                    day.close()
+            for entry in self.bodies.values():
+                if entry is not None and not self.model:
+                    destroy_graphs(entry.pieces)
+                    entry.run.reset()
+            self.days.clear()
+            self.bodies.clear()
+            self.stop_word.free()
 
     def _model_day(self, hkey: tuple, nodes) -> None:
         """The CPU model of a day graph's launch: recorded spans, and the
@@ -683,10 +741,16 @@ class GraphSet:
         choosing each tier."""
         for node in nodes:
             if isinstance(node, S.Span):
-                self.entry(hkey, node.name, node.key).run()
+                self._model_span(self.entry(hkey, node.name, node.key))
                 continue
             col, _, _ = self.layout[node.name]
             branch = int(self.picks[int(self.counter), col])
+            if branch < 0 and self.stop_word.is_set():
+                # its producer lay past a given-up collective (on the
+                # card the node takes a stale branch, whose gated
+                # pieces run nothing past their first collective)
+                GATED["skipped"] += 1
+                continue
             if branch < 0:
                 raise GraphError(f"day graph {hkey}: no pick of {node.name} "
                                  "was made before its node")
@@ -694,7 +758,21 @@ class GraphSet:
                 if branch:
                     self._model_day(hkey, node.body)
             else:
-                self.entry(hkey, node.name, node.keys()[branch]).run()
+                self._model_span(self.entry(hkey, node.name,
+                                            node.keys()[branch]))
+
+    def _model_span(self, entry) -> None:
+        """A recorded span; a collective given up in it, or any
+        collective once the stop word is set (mesh.Stopped), ends it, as
+        the gate after a collective does on the card. A span that runs
+        to its end with the word set counts as ``completed``."""
+        try:
+            entry.run()
+        except mesh.Stopped:
+            GATED["ended"] += 1
+            return
+        if self.stop_word.is_set():
+            GATED["completed"] += 1
 
 
 _INT_OUTS = tuple(f for f in S.DayOutputs._fields
@@ -727,7 +805,8 @@ def acquire(cfg, arrays, schedules, state, carry, device,
         _IDLE[:] = [gs for gs in _IDLE if gs.device != key[1]]
     for gs in freed:
         gs.close()
-    return GraphSet(cfg, arrays, schedules, state, carry, device, shard)
+    with on_device(device):
+        return GraphSet(cfg, arrays, schedules, state, carry, device, shard)
 
 
 def release(gs: GraphSet) -> None:

@@ -101,14 +101,39 @@ def warming():
 
 
 @contextmanager
-def capturing():
-    """This thread's launches meanwhile go into the Counter it yields."""
+def capturing(guards: bool = False):
+    """This thread's launches meanwhile go into the Counter it yields;
+    with ``guards``, the points after its captured collectives go into
+    :func:`guards` (:func:`guard_point`)."""
     tally = Counter()
     _capture.tally = tally
+    _capture.guards = [] if guards else None
     try:
         yield tally
     finally:
         _capture.tally = None
+
+
+def guard_point(stream: int) -> None:
+    """The capture on ``stream`` (a cudaStream_t) has just captured a
+    collective: the nodes it ends with (the capture's dependencies) are
+    where a piece of the span ends (core/daygraph.py: the gates of a
+    graphed shard)."""
+    guards = getattr(_capture, "guards", None)
+    if guards is None or getattr(_capture, "tally", None) is None:
+        return
+    import ctypes
+    from . import build
+    nodes, n = (ctypes.c_void_p * 8)(), ctypes.c_int()
+    build.check(build.lib().reina_dg_capture_leaf(stream, nodes,
+                                                  ctypes.byref(n)),
+                "the nodes that end a captured collective")
+    guards.extend(nodes[i] for i in range(n.value))
+
+
+def guards() -> list:
+    """The guard points of this thread's capture, in capture order."""
+    return list(getattr(_capture, "guards", None) or [])
 
 
 @contextmanager

@@ -2,6 +2,7 @@
 turns.
 
     python -m reina_tpu_torch.kernels.ab [--other DIR] [--rounds 1]
+                                         [--sharded]
 
 DIR is another checkout of this repository (for example an earlier
 commit unpacked with ``git archive``). Each tree runs in an interpreter
@@ -49,6 +50,17 @@ order other, this, this, other (``--rounds`` times); without
     blocks of 1,024 and 2,048 agents (8 and 16 agents a thread at 4
     warps), its registers and spills, the count of each global load and
     store instruction in its PTX by width, and its time.
+
+With ``--sharded`` each run times the sharded forms of the ledger and
+the prefix instead (an agent-sharded run's entries, every slab of k in
+turn in one process, the exchange between the slabs by stacking, as
+``checks.sharded_checks`` runs them), for k = 2, 4 and 8:
+``ledger_k<k>_ms`` (``checks.sharded_ledger``), ``prefix_k<k>_ms`` (the
+day step's pair, ``newly`` and the weights by variant:
+``checks.sharded_prefix``) and ``pick_k<k>_ms`` (the slot pick's
+prefix with its count and picks: ``checks.sharded_fold_check``'s
+kernel), each with its ``device_us`` and ``kernels_per_call`` (device
+operations a call, memsets and copies included) for all k slabs.
 
 The ``_ms`` times are ``checks.time_ms``: cold L2, median of 7. Needs a
 CUDA device.
@@ -207,8 +219,48 @@ print("AB " + sys.argv[1] + " " + json.dumps(out), flush=True)
 '''
 
 
-def run_tree(tree: Path, label: str) -> dict:
-    r = subprocess.run([sys.executable, "-c", _CHILD, label], cwd=tree,
+_SHARDED_CHILD = r'''
+import json, sys
+from collections import defaultdict
+import torch
+sys.path.insert(0, ".")
+from reina_tpu_torch.kernels import checks
+s = checks._streams(checks.HUS_N, 0, "cuda")
+codes = s["var"].to(torch.int32)
+init = torch.tensor([300, 60], dtype=torch.int32, device="cuda")
+out = {"device_us": {}, "kernels_per_call": {}}
+for k in (2, 4, 8):
+    fns = {
+        f"ledger_k{k}": lambda k=k: checks.sharded_ledger(
+            s["rel"], s["req"], init, s["offset"], k, True),
+        f"prefix_k{k}": lambda k=k: (
+            checks.sharded_prefix(s["newly"], None, 1, k, True),
+            checks.sharded_prefix(s["w"], codes, checks.V, k, True)),
+        f"pick_k{k}": checks.sharded_fold_check(checks.HUS_N, 0, "cuda",
+                                                k).kernel,
+    }
+    for name, f in fns.items():
+        out[name + "_ms"] = checks.time_ms(f)
+        f()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                f()
+            torch.cuda.synchronize()
+        by, count = defaultdict(float), 0
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by[e.name[:80]] += e.time_range.elapsed_us() / 20
+                count += 1
+        out["device_us"][name] = dict(by)
+        out["kernels_per_call"][name] = count / 20
+print("AB " + sys.argv[1] + " " + json.dumps(out), flush=True)
+'''
+
+
+def run_tree(tree: Path, label: str, child: str = _CHILD) -> dict:
+    r = subprocess.run([sys.executable, "-c", child, label], cwd=tree,
                        capture_output=True, text=True, timeout=600)
     if r.returncode != 0:
         raise SystemExit(f"{label} ({tree}) failed:\n{r.stderr[-4000:]}")
@@ -239,8 +291,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", type=Path)
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--sharded", action="store_true")
     args = ap.parse_args(argv)
-    runs = in_turns(args.other, args.rounds, run_tree)
+    child = _SHARDED_CHILD if args.sharded else _CHILD
+    runs = in_turns(args.other, args.rounds,
+                    lambda tree, label: run_tree(tree, label, child))
     for label, rs in runs.items():
         keys = sorted(k for k in rs[0] if k.endswith("_ms"))
         print(f"{label}: " + ", ".join(

@@ -56,12 +56,11 @@ _SIGNATURES = {
     "reina_fn_onehot_output_masks": [_P] * 12 + [_L] + [_I] * 5 + [_P, _P],
     "reina_bihistogram": [_P] * 3 + [_I] + [_P] * 3 + [_L, _I, _I, _P, _P],
     "reina_post": [_P, _P, _I, _P, _L, _P, _P],
-    "reina_ledger_fold_slab": [_P] * 6 + [_L, _L, _L, _P, _I, _P, _P],
+    "reina_ledger_fold_slab": [_P] * 7 + [_L, _L, _L, _P, _I, _P, _P],
     "reina_ledger_emit_slab": [_P] * 10 + [_L, _L, _L, _P, _I, _I, _I, _P,
                                            _P],
-    "reina_prefix_row_totals": [_P, _P, _P, _L, _I, _P, _P],
-    "reina_prefix_emit_slab": [_P] * 6 + [_L, _L, _L, _I, _I, _P, _P, _P,
-                                          _P],
+    "reina_prefix_row_totals": [_P] * 5 + [_L] + [_I] * 5 + [_P, _P],
+    "reina_prefix_emit_slab": [_P] * 8 + [_L] + [_I] * 5 + [_P] * 4,
     "reina_draw": [_P, _L, _L, _U, _U, _P, _I, _F, _F, _P],
     "reina_gamma_fixed": [_P, _L, _I, _P, _P, _I, _P, _P, _P],
     "reina_binomial_fixed": [_P, _P, _P, _L, _P, _P, _I, _P, _P],
@@ -77,6 +76,11 @@ _SIGNATURES = {
     "reina_dg_launch": [_P, _P],
     "reina_dg_destroy": [_P, _P],
     "reina_dg_node_types": [_P, _IP],
+    "reina_stop_alloc": [_PP, _PP],
+    "reina_stop_free": [_P],
+    "reina_dg_gate": [_P, _P, _P, _PP, _PP],
+    "reina_dg_capture_leaf": [_P, _PP, _IP],
+    "reina_dg_split": [_P, _PP, _I, _PP, _IP],
     "reina_error_string": [_I],
 }
 # entry points that return other than a cudaError_t

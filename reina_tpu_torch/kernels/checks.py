@@ -511,23 +511,26 @@ def sharded_ledger(rel, req, init, offset, k: int, kernel: bool):
 
 def sharded_prefix(w, codes, n_seg: int, k: int, kernel: bool,
                    rows: int = 2048):
-    """The sharded prefix over k slabs in one process, the row totals
-    exchanged by stacking: (the (n_seg·N,) prefix in the unsharded
-    order, every slab's segment ends (k, n_seg))."""
+    """The sharded prefix over k slabs in one process, the slabs'
+    messages exchanged by stacking: (the (n_seg·N,) prefix in the
+    unsharded order, every slab's segment ends (k, n_seg))."""
     n = w.shape[0]
     nl = n // k
     parts = _slabs([w, codes], k)
     if kernel:
-        tot = torch.stack([fusedmap.prefix_row_totals(x, c, n_seg)
-                           for x, c in parts])
-        outs = [fusedmap.prefix_emit_slab(x, c, n_seg, j * nl // 128, n, tot,
-                                          rows)
+        done = [fusedmap.prefix_row_totals(x, c, n_seg, j * nl // 128, n,
+                                           rows)
                 for j, (x, c) in enumerate(parts)]
+        msgs = torch.stack([m for m, _ in done])
+        outs = [fusedmap.prefix_emit_slab(x, c, n_seg, j * nl // 128, n,
+                                          msgs, sc, rows)
+                for j, ((x, c), (_, sc)) in enumerate(zip(parts, done))]
     else:
-        tot = torch.stack([fusedmap.row_totals_twin(x, c, n_seg)
-                           for x, c in parts])
+        msgs = torch.stack([fusedmap.row_totals_twin(x, c, n_seg,
+                                                     j * nl // 128, n, rows)
+                            for j, (x, c) in enumerate(parts)])
         outs = [fusedmap.concat_prefix_twin_sharded(x, c, n_seg,
-                                                    j * nl // 128, n, tot,
+                                                    j * nl // 128, n, msgs,
                                                     rows)
                 for j, (x, c) in enumerate(parts)]
     out = torch.stack([o.reshape(n_seg, nl) for o, _ in outs], 1)
@@ -636,7 +639,7 @@ def sharded_ledger_offset_ms(n: int, seed: int, dev, k: int):
 class _Slab:
     """Slab ``index`` of ``k`` of an agent axis of ``n`` in one process:
     the shard a sharded entry takes, whose all-gather hands back the
-    slabs' stacked row totals (``gathered``)."""
+    slabs' stacked messages (``gathered``)."""
 
     def __init__(self, n: int, k: int, index: int, gathered):
         self.n, self.k, self.index = n, k, index
@@ -651,9 +654,9 @@ class _Slab:
 def _sharded_fold_pair(name, counts, n, dev, k, w=None, seed=0, days=4,
                        day=2):
     """(kernel, twin): :func:`_fold_pair`'s prefix count ``name`` (n_new,
-    n_d, n_f) on k slabs of the agent axis in one process, the row totals
-    exchanged by stacking: each slab's emit makes the count and the picks
-    into tables of its own (each rank's), as
+    n_d, n_f) on k slabs of the agent axis in one process, the slabs'
+    messages exchanged by stacking: each slab's emit makes the count and
+    the picks into tables of its own (each rank's), as
     ``fusedmap.sharded_prefix_count`` under a fold site; the twin is the
     sharded twin, then the picks' twin. Each returns the slabs' prefixes
     in the unsharded order, then for every slab the count, the day's
@@ -674,10 +677,12 @@ def _sharded_fold_pair(name, counts, n, dev, k, w=None, seed=0, days=4,
 
     def side(kernel):
         def run():
-            tot = torch.stack([fusedmap.prefix_row_totals(x, None, 1)
+            tot = torch.stack([fusedmap.prefix_row_totals(
+                                   x, None, 1, j * nl // 128, n)[0]
                                if kernel and x.is_cuda else
-                               fusedmap.row_totals_twin(x, None, 1)
-                               for x in parts])
+                               fusedmap.row_totals_twin(
+                                   x, None, 1, j * nl // 128, n)
+                               for j, x in enumerate(parts)])
             cums, rest = [], []
             for j, x in enumerate(parts):
                 table = torch.full((days, len(step.PICK_COLS)), -1,

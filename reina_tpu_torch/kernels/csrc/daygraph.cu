@@ -30,9 +30,25 @@
 // enclosing graph or of a nested body (kernels/cond_parts.py checks each
 // layout the day uses on the card). Every entry point returns a
 // cudaError_t.
+//
+// The gates of a graphed shard of the agent axis (core/graphs.py): a
+// span that holds captured NCCL collectives is split after each of them
+// into pieces (reina_dg_split: the nodes before and at the first
+// collective, then up to the next, ...), and each piece runs inside an
+// if node whose handle stop_gate sets from the graph set's stop word, a
+// word of host-mapped pinned memory (reina_stop_alloc). The host sets the
+// word before it aborts the agent group's communicator
+// (parallel/mesh.py:give_up), which ends a collective stuck on a lost
+// peer: every piece after it, of that day and of the days queued behind
+// it, then reads the word and runs nothing, so no kernel ever reads what
+// the aborted collective left in its buffers. A gate is one one-thread
+// kernel and one conditional node: ~9.6 µs of a chain on an H100, of
+// which the conditional node ~6.2 (kernels/gate_parts.py).
 #include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <vector>
 
 #include "pick.cuh"
 
@@ -64,6 +80,16 @@ max_pick_kernel(const int* __restrict__ x, long long n, int* out, Fold f) {
     *out = m;
     reina::take_fold(f);
   }
+}
+
+// Runs its if node's body only while the stop word is 0; volatile: the
+// host writes the word while the card runs. No fence before the read:
+// the host sets the word before it aborts the group, and the collective
+// before the gate returns only once the abort has reached the card
+// (kernels/gate_parts.py: a system fence cost 2.3 µs a gate).
+__global__ void stop_gate(cudaGraphConditionalHandle h,
+                          const volatile int* stop) {
+  cudaGraphSetConditional(h, *stop == 0 ? 1u : 0u);
 }
 
 cudaError_t add_node(cudaGraphNode_t* node, cudaGraph_t graph,
@@ -232,6 +258,145 @@ extern "C" int reina_dg_node_types(void* graph, int* counts) {
   }
   delete[] nodes;
   return (int)err;
+}
+
+// A graph set's stop word: one int of host-mapped pinned memory, zeroed;
+// *host its host address, *dev its device address.
+extern "C" int reina_stop_alloc(void** host, void** dev) {
+  cudaError_t err =
+      cudaHostAlloc(host, 64, cudaHostAllocMapped | cudaHostAllocPortable);
+  if (err != cudaSuccess) return (int)err;
+  *(volatile int*)*host = 0;
+  return (int)cudaHostGetDevicePointer(dev, *host, 0);
+}
+
+extern "C" int reina_stop_free(void* host) {
+  return (int)cudaFreeHost(host);
+}
+
+// A gate of `graph` after `dep`: stop_gate (reading the stop word at its
+// device address `stop`) then an if node; *body: the if node's body,
+// which runs only while the word is 0; *node: the if node.
+extern "C" int reina_dg_gate(void* graph, void* dep, void* stop, void** node,
+                             void** body) {
+  cudaGraph_t g = (cudaGraph_t)graph;
+  cudaGraphConditionalHandle h;
+  cudaError_t err = cudaGraphConditionalHandleCreate(&h, g, 0, 0);
+  if (err != cudaSuccess) return (int)err;
+  cudaKernelNodeParams kp = {};
+  void* args[] = {&h, &stop};
+  kp.func = (void*)stop_gate;
+  kp.gridDim = dim3(1);
+  kp.blockDim = dim3(1);
+  kp.kernelParams = args;
+  cudaGraphNode_t d = (cudaGraphNode_t)dep, kn;
+  err = cudaGraphAddKernelNode(&kn, g, &d, d == nullptr ? 0 : 1, &kp);
+  if (err != cudaSuccess) return (int)err;
+  cudaGraphNodeParams p = {};
+  p.type = cudaGraphNodeTypeConditional;
+  p.conditional.handle = h;
+  p.conditional.type = cudaGraphCondTypeIf;
+  p.conditional.size = 1;
+  err = add_node((cudaGraphNode_t*)node, g, kn, &p);
+  if (err != cudaSuccess) return (int)err;
+  *body = (void*)p.conditional.phGraph_out[0];
+  return 0;
+}
+
+// The nodes a stream under capture has just captured (its capture
+// dependencies, at most 8, into nodes[0, *n)): where a collective ends,
+// a piece of its span ends.
+extern "C" int reina_dg_capture_leaf(void* stream, void** nodes, int* n) {
+  cudaStreamCaptureStatus st;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t nd = 0;
+#if CUDART_VERSION >= 13000
+  cudaError_t err = cudaStreamGetCaptureInfo((cudaStream_t)stream, &st,
+                                             nullptr, nullptr, &deps,
+                                             nullptr, &nd);
+#else
+  cudaError_t err = cudaStreamGetCaptureInfo((cudaStream_t)stream, &st,
+                                             nullptr, nullptr, &deps, &nd);
+#endif
+  if (err != cudaSuccess) return (int)err;
+  if (st != cudaStreamCaptureStatusActive || nd < 1 || nd > 8)
+    return (int)cudaErrorStreamCaptureUnmatched;
+  for (size_t i = 0; i < nd; ++i) nodes[i] = (void*)deps[i];
+  *n = (int)nd;
+  return 0;
+}
+
+// Splits a captured span `graph` at its guard nodes (guards[0, ng), in
+// capture order): piece i holds the nodes that guard i depends on (itself
+// among them) and no earlier guard does; the last piece holds the rest.
+// Each piece that holds a node is a new graph (a clone of `graph` less
+// the other pieces' nodes; every edge between two pieces runs from an
+// earlier piece to a later one, so running the pieces in order keeps
+// every dependency), into pieces[0, *n), in order.
+extern "C" int reina_dg_split(void* graph, void* const* guards, int ng,
+                              void** pieces, int* n) {
+  cudaGraph_t g = (cudaGraph_t)graph;
+  *n = 0;
+  size_t nn = 0, ne = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &nn);
+  if (err != cudaSuccess) return (int)err;
+  std::vector<cudaGraphNode_t> nodes(nn);
+  if (nn) err = cudaGraphGetNodes(g, nodes.data(), &nn);
+  if (err != cudaSuccess) return (int)err;
+#if CUDART_VERSION >= 13000
+  err = cudaGraphGetEdges(g, nullptr, nullptr, nullptr, &ne);
+#else
+  err = cudaGraphGetEdges(g, nullptr, nullptr, &ne);
+#endif
+  if (err != cudaSuccess) return (int)err;
+  std::vector<cudaGraphNode_t> from(ne), to(ne);
+  if (ne) {
+#if CUDART_VERSION >= 13000
+    err = cudaGraphGetEdges(g, from.data(), to.data(), nullptr, &ne);
+#else
+    err = cudaGraphGetEdges(g, from.data(), to.data(), &ne);
+#endif
+    if (err != cudaSuccess) return (int)err;
+  }
+  auto index = [&](cudaGraphNode_t v) {
+    for (size_t i = 0; i < nn; ++i)
+      if (nodes[i] == v) return (long)i;
+    return -1L;
+  };
+  std::vector<int> piece(nn, ng);
+  for (int p = 0; p < ng; ++p) {
+    const long gi = index((cudaGraphNode_t)guards[p]);
+    if (gi < 0) return (int)cudaErrorInvalidValue;
+    std::vector<long> stack{gi};
+    while (!stack.empty()) {
+      const long v = stack.back();
+      stack.pop_back();
+      if (piece[v] != ng) continue;
+      piece[v] = p;
+      for (size_t e = 0; e < ne; ++e)
+        if (to[e] == nodes[v]) stack.push_back(index(from[e]));
+    }
+  }
+  for (int p = 0; p <= ng; ++p) {
+    bool any = false;
+    for (size_t i = 0; i < nn; ++i) any |= piece[i] == p;
+    if (!any) continue;
+    cudaGraph_t c;
+    err = cudaGraphClone(&c, g);
+    if (err != cudaSuccess) return (int)err;
+    for (size_t i = 0; i < nn && err == cudaSuccess; ++i) {
+      if (piece[i] == p) continue;
+      cudaGraphNode_t ci;
+      err = cudaGraphNodeFindInClone(&ci, nodes[i], c);
+      if (err == cudaSuccess) err = cudaGraphDestroyNode(ci);
+    }
+    if (err != cudaSuccess) {
+      cudaGraphDestroy(c);
+      return (int)err;
+    }
+    pieces[(*n)++] = (void*)c;
+  }
+  return 0;
 }
 
 extern "C" const char* reina_error_string(int err) {

@@ -45,24 +45,34 @@
 // Nothing agent-sized but the grants is written.
 //
 // The sharded form (the JAX package's _grants_sharded with the kernel's
-// base and emit_carry, reina_tpu/ops/clamped.py:247-294) splits the same
-// three launches at the tile scan, for one contiguous slab of the agent
-// axis whose first position is ``base``. The cyclic mask is taken at the
-// global position (the kernels get offset - base; in a captured day each
-// launch reads the day's offset from device memory and subtracts base,
-// as the unsharded launches read it):
+// base and emit_carry, reina_tpu/ops/clamped.py:247-294) runs the same
+// fold and emit for one contiguous slab of the agent axis whose first
+// position is ``base``, in two launches around the all-gather of every
+// slab's folds. The cyclic mask is taken at the global position (the
+// kernels get offset - base; in a captured day each launch reads the
+// day's offset from device memory and subtracts base, as the unsharded
+// launches read it):
 //
-//   K1 ledger_tile_fold   as above, on the slab;
-//   K2 ledger_slab_scan   the tile scan, and the slab's two folds out:
-//                         all of it, and its positions before offset;
+//   F  ledger_fold_slab   K1 on the slab; then a ticket a ledger (one
+//                         atomicAdd a CTA after a __threadfence) finds the
+//                         CTA that finishes last, and that CTA scans the
+//                         tile folds and writes the slab's two folds out:
+//                         all of it, and its positions before offset; it
+//                         zeroes the ticket for the next launch. One
+//                         launch, no grid barrier, no memset.
 //   (the caller all-gathers every slab's folds, in slab order)
-//   K3 ledger_emit_slab   each CTA folds the folds of the slabs before
-//                         its own into its carry and computes the
-//                         boundary scalars from all of them, then emits
-//                         as K3 above.
+//   E  ledger_emit_slab   warp 0 of each CTA folds the k slabs' folds with
+//                         a shuffle scan (32 slabs a round): the carry of
+//                         the slabs before its own, and the boundary
+//                         scalars from all of them; then it emits as K3.
+//
+// What bounds the sharded form is not its bytes (a slab of HUS's ledgers
+// is a few MB) but its launches and the serial steps between them: the
+// tile scan and the fold of the k slabs, each now inside a launch that
+// runs anyway.
 //
 // The monoid is exact in int64, so the grants and finals equal the
-// unsharded launch's bit for bit for any slab count.
+// unsharded launch's bit for bit for any slab count and association.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -303,23 +313,54 @@ __device__ __forceinline__ Tup load_tup(const long long* p) {
   return Tup{p[0], p[1], p[2]};
 }
 
-// K2 of a slab (one CTA per ledger): excl as K2's, and folds[6 * led ..].
-// offset is local: offset - base, any value (off_dev as K1's).
-__global__ void ledger_slab_scan(const Tup* tiles, Tup* excl, const Tup* pre,
-                                 long long n, long long offset,
-                                 const int* off_dev, long long base,
-                                 int ntiles, long long* folds) {
+// A fold written by another CTA of the launch, read through L2.
+__device__ __forceinline__ Tup load_tup_cg(const Tup* p) {
+  const long long* q = reinterpret_cast<const long long*>(p);
+  return Tup{__ldcg(q), __ldcg(q + 1), __ldcg(q + 2)};
+}
+
+// F: K1 on a slab, then the slab scan in the CTA that finishes last:
+// excl as K2's, and folds[6 * led ..]: the slab's fold, then the fold of
+// its positions before offset. offset is local (offset - base, any value;
+// off_dev as K1's). tick: L ints, zero, left zeroed.
+__global__ void __launch_bounds__(THREADS, 3)
+ledger_fold_slab(Ledgers lg, long long n, long long offset, const int* off_dev,
+                 long long base, Tup* tiles, Tup* excl, Tup* pre, int* tick,
+                 long long* folds) {
   if (off_dev) offset = *off_dev - base;
   __shared__ Tup buf[33];
-  const int led = blockIdx.x;
+  __shared__ int last;
+  const int led = blockIdx.y, ntiles = gridDim.x;
+  const long long i = (long long)blockIdx.x * TILE + ITEMS * threadIdx.x;
+  {
+    Agents a;
+    Tup ex;
+    const Tup total = scan_tile(lg, n, offset, i, a, ex, buf);
+    if (threadIdx.x == 0) tiles[(long long)led * ntiles + blockIdx.x] = total;
+    if (offset >= i && offset < i + ITEMS)
+      pre[led] = combine(ex, fold(a, i, offset, offset));
+  }
+  // the CTA's writes, one release by thread 0, then the ticket; the last
+  // CTA zeroes it for the next launch
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(tick + led, 1) == ntiles - 1;
+    if (last) {
+      tick[led] = 0;
+      __threadfence();
+    }
+  }
+  __syncthreads();
+  if (!last) return;
   const Tup* tl = tiles + (long long)led * ntiles;
   Tup* el = excl + (long long)led * ntiles;
   Tup carry = tup_id();
-  for (int base = 0; base < ntiles; base += SCAN_THREADS) {
-    const int j = base + threadIdx.x;
+  for (int t0 = 0; t0 < ntiles; t0 += THREADS) {
+    const int j = t0 + threadIdx.x;
     Tup ex;
-    const Tup total = block_exclusive<SCAN_THREADS / 32>(
-        j < ntiles ? tl[j] : tup_id(), ex, buf);
+    const Tup total = block_exclusive<WARPS>(
+        j < ntiles ? load_tup_cg(tl + j) : tup_id(), ex, buf);
     if (j < ntiles) el[j] = combine(carry, ex);
     carry = combine(carry, total);
   }
@@ -327,16 +368,24 @@ __global__ void ledger_slab_scan(const Tup* tiles, Tup* excl, const Tup* pre,
   if (threadIdx.x != 0) return;
   const Tup before = offset <= 0  ? tup_id()
                      : offset >= n ? carry
-                                   : combine(el[offset / TILE], pre[led]);
+                                   : combine(el[offset / TILE],
+                                             load_tup_cg(pre + led));
   long long* f = folds + 6 * led;
   f[0] = carry.s, f[1] = carry.ka, f[2] = carry.kf;
   f[3] = before.s, f[4] = before.ka, f[5] = before.kf;
 }
 
-// K3 of a slab: all_folds holds every slab's folds, (k, L, 6) int64 in
-// slab order; this slab is number index. Thread 0 of each CTA folds the
-// slabs before this one into the carry and all of them into the
-// boundary scalars; the CTAs of tile 0 write the finals.
+__device__ __forceinline__ Tup shfl_tup(const Tup& x, int src) {
+  return Tup{__shfl_sync(FULL, x.s, src), __shfl_sync(FULL, x.ka, src),
+             __shfl_sync(FULL, x.kf, src)};
+}
+
+// E: all_folds holds every slab's folds, (k, L, 6) int64 in slab order;
+// this slab is number index. Warp 0 of each CTA folds them, 32 slabs a
+// round, each round an inclusive shuffle scan (the left operand the
+// earlier slab) appended to the rounds before: the carry of the slabs
+// before this one, and the boundary scalars from all of them. The CTAs
+// of tile 0 write the finals.
 __global__ void __launch_bounds__(THREADS, 3)
 ledger_emit_slab(Ledgers lg, long long n, long long offset,
                  const int* off_dev, long long base, const Tup* excl,
@@ -347,21 +396,41 @@ ledger_emit_slab(Ledgers lg, long long n, long long offset,
   __shared__ Tup carry_in;
   __shared__ long long scal[2];
   const int led = blockIdx.y;
-  if (threadIdx.x == 0) {
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
     Tup c = tup_id(), total = tup_id(), at_off = tup_id();
-    for (int j = 0; j < k; ++j) {
-      const long long* f = all_folds + 6 * ((long long)j * L + led);
-      if (j == index) c = total;
-      total = combine(total, load_tup(f));
-      at_off = combine(at_off, load_tup(f + 3));
+    for (int j0 = 0; j0 < k; j0 += 32) {
+      const int m = min(32, k - j0);
+      Tup f = tup_id(), g = tup_id();
+      if (lane < m) {
+        const long long* p =
+            all_folds + 6 * ((long long)(j0 + lane) * L + led);
+        f = load_tup(p);
+        g = load_tup(p + 3);
+      }
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const Tup y = shfl_up(f, d), z = shfl_up(g, d);
+        if (lane >= d) f = combine(y, f), g = combine(z, g);
+      }
+      // index, j0 and m are the same in every lane: each shuffle below
+      // has the whole warp
+      if (index == j0) c = total;
+      else if (index > j0 && index < j0 + m)
+        c = combine(total, shfl_tup(f, index - j0 - 1));
+      total = combine(total, shfl_tup(f, m - 1));
+      at_off = combine(at_off, shfl_tup(g, m - 1));
     }
-    const long long c_off = at_off.s;
-    const long long base_a = init[led] - c_off;
-    const long long final_a = total.s + max(base_a, total.ka);
-    carry_in = c;
-    scal[0] = base_a;
-    scal[1] = final_a;
-    if (blockIdx.x == 0) finals[led] = (int)(c_off + max(final_a, at_off.kf));
+    if (lane == 0) {
+      const long long c_off = at_off.s;
+      const long long base_a = init[led] - c_off;
+      const long long final_a = total.s + max(base_a, total.ka);
+      carry_in = c;
+      scal[0] = base_a;
+      scal[1] = final_a;
+      if (blockIdx.x == 0)
+        finals[led] = (int)(c_off + max(final_a, at_off.kf));
+    }
   }
   __syncthreads();
   const long long i = (long long)blockIdx.x * TILE + ITEMS * threadIdx.x;
@@ -430,19 +499,21 @@ Ledgers ledgers(const void* rel0, const void* rel1, const void* req0,
 }
 }  // namespace
 
-// The sharded form, launches 1 and 2, on a slab of n agents whose first
+// The sharded form's fold (one launch) on a slab of n agents whose first
 // global position is base: 0 <= offset < the global length, the host's
 // offset or, where off_dev is not NULL, the int32 it points to, read by
-// each launch (a captured day's offset, from its day row). scratch:
+// the launch (a captured day's offset, from its day row). scratch:
 // int64, 6 * L * ceil(n / 4096) + 3 * L entries, kept for the emit;
-// folds: (L, 6) int64 out. events: NULL, or 3 CUDA events recorded
-// before K1 and after each launch.
+// tick: L ints, zero, which the launch leaves zeroed; folds: (L, 6)
+// int64 out. events: NULL, or 2 CUDA events recorded before and after
+// the launch.
 extern "C" int reina_ledger_fold_slab(const void* rel0, const void* rel1,
                                       const void* req0, const void* req1,
-                                      void* scratch, void* folds, long long n,
-                                      long long base, long long offset,
-                                      const void* off_dev, int L,
-                                      void* const* events, void* stream) {
+                                      void* scratch, void* tick, void* folds,
+                                      long long n, long long base,
+                                      long long offset, const void* off_dev,
+                                      int L, void* const* events,
+                                      void* stream) {
   const int* od = (const int*)off_dev;
   cudaStream_t st = (cudaStream_t)stream;
   const Ledgers lg = ledgers(rel0, rel1, req0, req1, nullptr, nullptr);
@@ -450,22 +521,18 @@ extern "C" int reina_ledger_fold_slab(const void* rel0, const void* rel1,
   Tup* tiles = (Tup*)scratch;
   Tup* excl = tiles + (long long)L * ntiles;
   Tup* pre = excl + (long long)L * ntiles;
-  const long long off = offset - base;
   if (events) cudaEventRecord((cudaEvent_t)events[0], st);
-  ledger_tile_fold<<<dim3(ntiles, L), THREADS, 0, st>>>(lg, n, off, od, base,
-                                                        tiles, pre);
+  ledger_fold_slab<<<dim3(ntiles, L), THREADS, 0, st>>>(
+      lg, n, offset - base, od, base, tiles, excl, pre, (int*)tick,
+      (long long*)folds);
   if (events) cudaEventRecord((cudaEvent_t)events[1], st);
-  ledger_slab_scan<<<L, SCAN_THREADS, 0, st>>>(tiles, excl, pre, n, off, od,
-                                               base, ntiles,
-                                               (long long*)folds);
-  if (events) cudaEventRecord((cudaEvent_t)events[2], st);
   return (int)cudaGetLastError();
 }
 
-// The sharded form, launch 3: the slab's grants and the global finals
-// from every slab's folds (all_folds: (k, L, 6) int64 on the device;
-// this slab is number index) and the scratch of its fold launches.
-// offset, off_dev: as the fold launches'. events: NULL, or 2 CUDA events
+// The sharded form's emit (one launch): the slab's grants and the global
+// finals from every slab's folds (all_folds: (k, L, 6) int64 on the
+// device; this slab is number index) and the scratch of its fold launch.
+// offset, off_dev: as the fold launch's. events: NULL, or 2 CUDA events
 // recorded before and after the launch.
 extern "C" int reina_ledger_emit_slab(const void* rel0, const void* rel1,
                                       const void* req0, const void* req1,

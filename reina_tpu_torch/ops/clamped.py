@@ -19,7 +19,8 @@ slab folds its positions (the cyclic mask at the global position), the
 slabs' folds are all-gathered, and each slab emits its grants from the
 folds of the slabs before it; the global boundary scalars come from all
 of them. ``grants_twin_sharded`` is that closed form per slab, and
-``kernels/csrc/ledger.cu`` has it as a fold entry and an emit entry.
+``kernels/csrc/ledger.cu`` has it as a fold entry and an emit entry,
+one launch each.
 Every form takes the sweep's offset as a host int or as a 0-d int32
 tensor on the streams' device, which the kernels read when they run: a
 captured day's offset comes from its day row.
@@ -29,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
+from .fusedmap import _scratch
 
 _NEG = -(1 << 30)
 I32 = torch.int32
@@ -183,14 +185,16 @@ def _offset_arg(offset, dev, n: int, what: str):
 
 def ledger_fold_slab(releases, requests, offset, base: int,
                      n_global: int, events=None):
-    """The sharded ledger's fold entry (kernels/csrc/ledger.cu, two
-    launches) on a slab of (n,) int32 releases and bool requests whose
-    first position is ``base`` of ``n_global``: returns the slab's
-    folds, (L, 2, 3) int64 as ``slab_folds_twin``'s, and the scratch
-    that ``ledger_emit_slab`` takes. ``offset``: the sweep's global
-    offset, an int or a 0-d int32 tensor on the streams' device that the
-    launches read when they run. ``events``: None, or 3 recorded CUDA
-    events, recorded again before the first launch and after each."""
+    """The sharded ledger's fold entry (kernels/csrc/ledger.cu, one
+    launch: the tile folds, and the slab scan in the CTA that finishes
+    last, whose tickets are a scratch that every launch leaves zeroed,
+    ``fusedmap._scratch``) on a slab of (n,) int32 releases and bool
+    requests whose first position is ``base`` of ``n_global``: returns
+    the slab's folds, (L, 2, 3) int64 as ``slab_folds_twin``'s, and the
+    scratch that ``ledger_emit_slab`` takes. ``offset``: the sweep's
+    global offset, an int or a 0-d int32 tensor on the streams' device
+    that the launch reads when it runs. ``events``: None, or 2 recorded
+    CUDA events, recorded again before and after the launch."""
     L, n, dev = _check_streams(releases, requests, "ledger fold entry")
     if not 0 <= base <= n_global - n:
         raise ValueError(f"ledger fold entry: slab [{base}, {base + n}) "
@@ -199,7 +203,10 @@ def ledger_fold_slab(releases, requests, offset, base: int,
     from ..kernels import build
     req = [q.view(torch.uint8) for q in requests]
     ntiles = (n + 4095) // 4096
+    # tile folds, their exclusive scan, the fold of offset's tile before
+    # offset (3 int64 each); the tickets, which every launch leaves zeroed
     scratch = torch.empty(6 * L * ntiles + 3 * L, dtype=I64, device=dev)
+    tick = _scratch(dev, "ledger_sharded.fold", L)
     folds = torch.empty((L, 2, 3), dtype=I64, device=dev)
 
     def ptr(lst, i):
@@ -208,9 +215,9 @@ def ledger_fold_slab(releases, requests, offset, base: int,
     kernels.launched("ledger_sharded.fold")
     build.check(build.lib().reina_ledger_fold_slab(
         ptr(releases, 0), ptr(releases, 1), ptr(req, 0), ptr(req, 1),
-        scratch.data_ptr(), folds.data_ptr(), n, int(base), offset, off_dev,
-        L, build.event_handles(events), build.stream_of(releases[0])),
-        "ledger_sharded.fold")
+        scratch.data_ptr(), tick.data_ptr(), folds.data_ptr(), n, int(base),
+        offset, off_dev, L, build.event_handles(events),
+        build.stream_of(releases[0])), "ledger_sharded.fold")
     return folds, scratch
 
 

@@ -29,6 +29,7 @@ function itself (the twin) on the CPU, its kernel on CUDA
 """
 from __future__ import annotations
 
+import functools
 import threading
 from typing import Callable, Sequence
 
@@ -39,6 +40,9 @@ from .. import kernels
 LANE = 128
 # shared memory a block can hold on sm_90
 MAX_BLOCK_SMEM = 232448
+# the largest logical block the sharded prefix's entries take (a CTA of
+# 256 threads folds a block's last value, 8 rows a thread)
+MAX_SHARD_BLOCK = 2048
 # kernels/csrc/onehot.cu: its instances (masks a call) and its bins
 ONEHOT_MAX_K = 16
 ONEHOT_MAX_BINS_BYTES = 48 * 1024
@@ -418,6 +422,16 @@ def _prefix(weights, codes, n_seg, max_block_rows, events, count=None,
 
 # ---------------------------------------------------------------------------
 # the sharded prefix: one slab of whole rows of the global layout a rank
+#
+# Slab j of k holds rows [j·Rl, (j+1)·Rl) of the global layout; a logical
+# block may straddle slab edges. Each slab sends the others its message,
+# (n_seg, M) floats: the row totals of its head and tail rows (those in
+# blocks that straddle its edges), then the last value of each of its
+# whole blocks (the same scan as the unsharded kernel's, on the same row
+# totals). From the gathered messages each slab rebuilds the last value
+# of every block, and the row offsets of its own rows: its whole blocks'
+# from its own row totals, its straddling blocks' from the gathered
+# totals. kernels/csrc/prefix.cu does the same in two launches.
 
 def _lane_scans(weights, codes, n_seg: int):
     """(n_seg, rows, LANE) Hillis-Steele scans of each row's lanes, the
@@ -429,18 +443,92 @@ def _lane_scans(weights, codes, n_seg: int):
     return _hs_scan(x, -1)
 
 
-def row_totals_twin(weights, codes, n_seg: int) -> torch.Tensor:
-    """(n_seg, rows) row totals of a slab of whole rows: the last lane
-    of each row's lane scan."""
-    return _lane_scans(weights, codes, n_seg)[..., LANE - 1].contiguous()
+def _block_scan(t):
+    """The row offsets d = r - t and the last value of blocks of row
+    totals ``t`` (..., blk): the reference's row-total scan."""
+    r = _hs_scan(t, -1)
+    return r - t, t[..., -1] + (r[..., -1] - t[..., -1])
 
 
-def _check_shard_layout(n: int, n_global: int, row0: int):
-    if n_global % (8 * LANE) or n % LANE or not (
-            0 <= row0 * LANE <= n_global - n):
+def _block_last(t):
+    """The last value of ``_block_scan`` of row totals ``t`` (..., blk),
+    without the scan, as kernels/csrc/prefix.cu's ``block_last``: the
+    scan's last output is a balanced pairwise tree over the rows
+    right-aligned in a power-of-two array, zeros in front."""
+    blk = t.shape[-1]
+    width = 1 << max(blk - 1, 1).bit_length()
+    x = torch.cat([torch.zeros(t.shape[:-1] + (width - blk,), dtype=t.dtype,
+                               device=t.device), t], -1)
+    while x.shape[-1] > 1:
+        x = x[..., 1::2] + x[..., 0::2]
+    return t[..., -1] + (x[..., 0] - t[..., -1])
+
+
+@functools.lru_cache(maxsize=None)
+def slab_layout(rl: int, blk: int, j: int):
+    """(a, h, t, fw, W) of slab j of slabs of ``rl`` rows in blocks of
+    ``blk`` rows: its first row a; its h head rows [a, a + h) and t tail
+    rows [a + rl - t, a + rl), which lie in blocks that straddle a slab
+    edge; its W whole blocks from block fw."""
+    a = j * rl
+    b = a + rl
+    fws, lwe = -(-a // blk) * blk, b // blk * blk
+    h = min(fws, b) - a
+    t = b - max(lwe, a + h)
+    return a, h, t, fws // blk, (lwe - fws) // blk if lwe > fws else 0
+
+
+@functools.lru_cache(maxsize=None)
+def straddling(rl: int, blk: int, k: int):
+    """The blocks of a segment that straddle a slab edge, in order."""
+    out = []
+    for e in range(1, k):
+        r = e * rl
+        if r % blk and (not out or out[-1] != r // blk):
+            out.append(r // blk)
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def message_width(rl: int, blk: int, k: int) -> int:
+    """M: the floats a segment of every slab's message holds (the widest
+    slab's head, tail and whole blocks)."""
+    return max(h + t + w for _, h, t, _, w in
+               (slab_layout(rl, blk, j) for j in range(k)))
+
+
+def _shard_shape(n: int, n_global: int, row0: int, max_block_rows: int):
+    """(R, rl, blk, k, j) of a slab of n agents from row ``row0`` of
+    ``n_global``; raises ValueError where the slabs are not k equal slabs
+    of whole rows or N % 1024 != 0."""
+    if n_global % (8 * LANE) or n % LANE or n_global % n \
+            or row0 % (n // LANE) or not 0 <= row0 * LANE <= n_global - n:
         raise ValueError(f"sharded prefix: a slab of {n} agents from row "
                          f"{row0} of {n_global} (needs N % 1024 == 0 and "
-                         "whole rows)")
+                         "equal slabs of whole rows)")
+    R, rl = n_global // LANE, n // LANE
+    return R, rl, _largest_block(R, max_block_rows, 8), n_global // n, \
+        row0 // rl
+
+
+def row_totals_twin(weights, codes, n_seg: int, row0: int, n_global: int,
+                    max_block_rows: int = 2048) -> torch.Tensor:
+    """(n_seg, M) the message of a slab of whole rows from global row
+    ``row0`` of ``n_global`` agents: its head's and tail's row totals
+    (the last lane of each row's lane scan), then its whole blocks' last
+    values, zeros after."""
+    R, rl, blk, k, j = _shard_shape(weights.shape[0], n_global, row0,
+                                    max_block_rows)
+    tot = _lane_scans(weights, codes, n_seg)[..., LANE - 1]
+    _, h, t, _, W = slab_layout(rl, blk, j)
+    msg = torch.zeros((n_seg, message_width(rl, blk, k)),
+                      dtype=weights.dtype, device=weights.device)
+    msg[:, :h] = tot[:, :h]
+    msg[:, h:h + t] = tot[:, rl - t:]
+    if W:
+        msg[:, h + t:h + t + W] = _block_last(
+            tot[:, h:h + W * blk].reshape(n_seg, W, blk))
+    return msg
 
 
 def concat_prefix_twin_sharded(weights, codes, n_seg: int, row0: int,
@@ -449,94 +537,131 @@ def concat_prefix_twin_sharded(weights, codes, n_seg: int, row0: int,
     """The slab's part of ``concat_prefix_twin`` over the whole axis, as
     (n_seg·n,) (segment s at [s·n, (s+1)·n)), and each segment's last
     prefix value (n_seg,). The slab is rows [row0, row0 + n / LANE) of
-    the global layout; ``gathered``: (k, n_seg, rows) every slab's
-    ``row_totals_twin`` in slab order. The row-offset scans of every
-    block and the carry chain from block 0 repeat the one-card
-    association."""
+    the global layout; ``gathered``: (k, n_seg, M) every slab's
+    ``row_totals_twin`` in slab order. The row-offset scans and the carry
+    chain from block 0 repeat the one-card association."""
     n = weights.shape[0]
-    _check_shard_layout(n, n_global, row0)
-    R, Rl = n_global // LANE, n // LANE
-    blk = _largest_block(R, max_block_rows, 8)
+    R, rl, blk, k, j = _shard_shape(n, n_global, row0, max_block_rows)
     G = R // blk
-    t = gathered.permute(1, 0, 2).reshape(n_seg * G, blk)
-    r = _hs_scan(t, -1)
-    d = (r - t).reshape(n_seg, R)[:, row0:row0 + Rl]
-    last = t[:, -1] + (r[:, -1] - t[:, -1])
-    carries, c = [], torch.zeros((), dtype=weights.dtype,
-                                 device=weights.device)
-    for b in range(n_seg * G):
+    dev = weights.device
+    lay = [slab_layout(rl, blk, q) for q in range(k)]
+    scans = _lane_scans(weights, codes, n_seg)
+    tot = scans[..., LANE - 1]
+    a = lay[j][0]
+    d = torch.zeros((n_seg, rl), dtype=weights.dtype, device=dev)
+    last = torch.zeros((n_seg, G), dtype=weights.dtype, device=dev)
+    for B in range(G):
+        r0 = B * blk
+        q = r0 // rl
+        if (r0 + blk - 1) // rl == q:            # inside slab q
+            _, h, t, fw, _ = lay[q]
+            last[:, B] = gathered[q, :, h + t + B - fw]
+            if q == j:
+                d[:, r0 - a:r0 - a + blk] = _block_scan(
+                    tot[:, r0 - a:r0 - a + blk])[0]
+            continue
+        rows = torch.arange(r0, r0 + blk)
+        qs = rows // rl
+        at = torch.tensor([r - lay[x][0] if r < lay[x][0] + lay[x][1]
+                           else lay[x][1] + r - (lay[x][0] + rl - lay[x][2])
+                           for r, x in zip(rows.tolist(), qs.tolist())])
+        tb = gathered[qs, :, at].T
+        last[:, B] = _block_last(tb)
+        mine = qs == j
+        if mine.any():
+            db = _block_scan(tb)[0]
+            d[:, (rows[mine] - a).to(dev)] = db[:, mine.to(dev)]
+    carries, c = [], torch.zeros((), dtype=weights.dtype, device=dev)
+    for h in last.reshape(-1):
         carries.append(c)
-        c = last[b] + c
+        c = h + c
     carry = torch.stack(carries).reshape(n_seg, G)
-    row_block = (row0 + torch.arange(Rl, device=weights.device)) // blk
-    out = ((_lane_scans(weights, codes, n_seg) + d[..., None])
-           + carry[:, row_block][..., None])
-    ends = last.reshape(n_seg, G)[:, -1] + carry[:, -1]
+    row_block = (row0 + torch.arange(rl, device=dev)) // blk
+    out = (scans + d[..., None]) + carry[:, row_block][..., None]
+    ends = last[:, -1] + carry[:, -1]
     return out.reshape(n_seg * n), ends
 
 
-def prefix_row_totals(weights, codes, n_seg: int, events=None):
+def prefix_row_totals(weights, codes, n_seg: int, row0: int, n_global: int,
+                      max_block_rows: int = 2048, events=None):
     """The sharded prefix's first entry (kernels/csrc/prefix.cu, one
-    launch): ``row_totals_twin`` of a slab of whole rows on CUDA.
-    ``events``: None, or 2 recorded CUDA events."""
+    launch) on a slab of whole rows from global row ``row0`` of
+    ``n_global`` agents: the slab's message, ``row_totals_twin``'s, and
+    the scratch that ``prefix_emit_slab`` takes (its row totals); its
+    whole blocks' tickets are a scratch of its own that every launch
+    leaves zeroed (:func:`_scratch`). ``events``: None, or 2 recorded
+    CUDA events."""
     _check_prefix_inputs(weights, codes, n_seg, "prefix row totals")
     n = weights.shape[0]
-    if n % LANE:
-        raise ValueError(f"prefix row totals: {n} agents are not whole "
-                         "rows of 128")
+    R, rl, blk, k, j = _shard_shape(n, n_global, row0, max_block_rows)
+    if blk > MAX_SHARD_BLOCK:
+        raise ValueError(f"prefix row totals: blocks of {blk} rows, the "
+                         f"sharded entries take at most {MAX_SHARD_BLOCK}")
     from ..kernels import build
-    td = torch.empty((n_seg, n // LANE), dtype=torch.float32,
-                     device=weights.device)
+    dev = weights.device
+    W = slab_layout(rl, blk, j)[4]
+    M = message_width(rl, blk, k)
+    td = torch.empty(n_seg * rl, dtype=torch.float32, device=dev)
+    # the message's padding past a slab's own width is never read
+    msg = torch.empty((n_seg, M), dtype=torch.float32, device=dev)
+    tick = _scratch(dev, "concat_prefix_sharded.totals", max(W, 1))
     kernels.launched("concat_prefix_sharded.totals")
     build.check(build.lib().reina_prefix_row_totals(
         weights.data_ptr(), None if codes is None else codes.data_ptr(),
-        td.data_ptr(), n, n_seg, build.event_handles(events),
-        build.stream_of(weights)), "concat_prefix_sharded.totals")
-    return td
+        td.data_ptr(), msg.data_ptr(), tick.data_ptr(), n, k, j, n_seg, blk,
+        M, build.event_handles(events), build.stream_of(weights)),
+        "concat_prefix_sharded.totals")
+    return msg, td
 
 
 def prefix_emit_slab(weights, codes, n_seg: int, row0: int, n_global: int,
-                     gathered, max_block_rows: int = 2048, events=None,
-                     count=None, fold=None):
-    """The sharded prefix's second entry (one cooperative launch):
-    ``concat_prefix_twin_sharded`` on CUDA, from the slabs' gathered row
-    totals ((k, n_seg, rows) float32 on the weights' device). ``count``:
-    None, or a 0-d int32 on the weights' device into which the launch
-    writes segment 0's last value (the global count, the same on every
-    slab) and then makes the picks of ``fold`` (a daygraph.Fold's
-    ``args``, or None)."""
+                     gathered, scratch, max_block_rows: int = 2048,
+                     events=None, count=None, fold=None):
+    """The sharded prefix's second entry (one launch):
+    ``concat_prefix_twin_sharded`` on CUDA, from the slabs' gathered
+    messages ((k, n_seg, M) float32 on the weights' device) and the
+    scratch of this slab's ``prefix_row_totals``. ``count``: None, or a
+    0-d int32 on the weights' device into which the launch writes
+    segment 0's last value (the global count, the same on every slab)
+    and then makes the picks of ``fold`` (a daygraph.Fold's ``args``, or
+    None)."""
     _check_prefix_inputs(weights, codes, n_seg, "prefix emit entry")
     n = weights.shape[0]
-    _check_shard_layout(n, n_global, row0)
-    Rl, R = n // LANE, n_global // LANE
-    k = n_global // n
-    if n * k != n_global or gathered.shape != (k, n_seg, Rl) \
-            or gathered.dtype != torch.float32 \
-            or gathered.device != weights.device \
-            or not gathered.is_contiguous():
-        raise TypeError(f"prefix emit entry takes ({k}, {n_seg}, {Rl}) "
-                        "contiguous f32 row totals on the weights' device")
-    blk = _largest_block(R, max_block_rows, 8)
+    R, rl, blk, k, j = _shard_shape(n, n_global, row0, max_block_rows)
+    M = message_width(rl, blk, k)
+    dev = weights.device
+    if gathered.shape != (k, n_seg, M) or gathered.dtype != torch.float32 \
+            or gathered.device != dev or not gathered.is_contiguous():
+        raise TypeError(f"prefix emit entry takes ({k}, {n_seg}, {M}) "
+                        "contiguous f32 messages on the weights' device")
+    if scratch.shape != (n_seg * rl,) or scratch.dtype != torch.float32 \
+            or scratch.device != dev:
+        raise TypeError("prefix emit entry takes the scratch of its slab's "
+                        "row totals entry")
     nb = n_seg * (R // blk)
-    if 4 * max(3 * blk, nb) > MAX_BLOCK_SMEM:
-        raise ValueError(f"prefix emit entry: {nb} blocks of {blk} rows "
-                         "exceed a block's shared memory")
+    if blk > MAX_SHARD_BLOCK or k > 64 or \
+            4 * (max(3 * blk, nb) + 8) + 24 * k + 4 * nb > MAX_BLOCK_SMEM:
+        raise ValueError(f"prefix emit entry: {k} slabs, {nb} blocks of "
+                         f"{blk} rows exceed what a block holds")
     if count is not None and (count.dtype != torch.int32
-                              or count.numel() != 1
-                              or count.device != weights.device):
+                              or count.numel() != 1 or count.device != dev):
         raise TypeError("prefix emit entry writes its count into one int32 "
                         "on the weights' device")
     from ..kernels import build
-    dev = weights.device
     out = torch.empty(n_seg * n, dtype=torch.float32, device=dev)
     ends = torch.empty(n_seg, dtype=torch.float32, device=dev)
-    scratch = torch.empty(n_seg * R + nb, dtype=torch.float32, device=dev)
+    # the straddling blocks' last values; the roles' flags and tickets,
+    # which every launch leaves zeroed
+    hs = torch.empty(max(n_seg * len(straddling(rl, blk, k)), 1),
+                     dtype=torch.float32, device=dev)
+    work = _scratch(dev, "concat_prefix_sharded.emit", nb + 2)
     kernels.launched("concat_prefix_sharded.emit" if fold is None
                      else "concat_prefix_sharded.pick")
     build.check(build.lib().reina_prefix_emit_slab(
         weights.data_ptr(), None if codes is None else codes.data_ptr(),
-        gathered.data_ptr(), out.data_ptr(), ends.data_ptr(),
-        scratch.data_ptr(), n, n_global, int(row0), n_seg, blk,
+        gathered.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        ends.data_ptr(), hs.data_ptr(), work.data_ptr(), n, k, j, n_seg, blk,
+        M,
         None if count is None else count.data_ptr(), fold,
         build.event_handles(events), build.stream_of(weights)),
         "concat_prefix_sharded.emit")
@@ -547,20 +672,22 @@ def sharded_concat_prefix(weights, codes, n_seg: int, shard,
                           max_block_rows: int = 2048):
     """This rank's slab of ``fused_concat_prefix`` over the whole agent
     axis in an agent-sharded run, (n_seg·n,) with segment s at
-    [s·n, (s+1)·n), and each segment's last value (n_seg,): row totals,
-    their all-gather over the agent group (``shard``,
+    [s·n, (s+1)·n), and each segment's last value (n_seg,): the slab's
+    message, their all-gather over the agent group (``shard``,
     parallel.mesh.AgentShard), then the emit. The twins on the CPU, the
     kernel's two entries on CUDA."""
     dev = _same_device([weights] + ([] if codes is None else [codes]))
     row0 = shard.lo // LANE
     if dev.type == "cpu":
-        tot = row_totals_twin(weights, codes, n_seg)
+        msg = row_totals_twin(weights, codes, n_seg, row0, shard.n,
+                              max_block_rows)
         return concat_prefix_twin_sharded(
-            weights, codes, n_seg, row0, shard.n, shard.all_gather(tot),
+            weights, codes, n_seg, row0, shard.n, shard.all_gather(msg),
             max_block_rows)
-    tot = prefix_row_totals(weights, codes, n_seg)
+    msg, scratch = prefix_row_totals(weights, codes, n_seg, row0, shard.n,
+                                     max_block_rows)
     return prefix_emit_slab(weights, codes, n_seg, row0, shard.n,
-                            shard.all_gather(tot), max_block_rows)
+                            shard.all_gather(msg), scratch, max_block_rows)
 
 
 def sharded_prefix_count(weights, shard, name=None, given=None,
@@ -570,15 +697,16 @@ def sharded_prefix_count(weights, shard, name=None, given=None,
     0-d int32, the global count, which every rank computes alike; on
     CUDA the emit launch writes it (into the fold site's buffer where the
     graph runner set one for ``name``) and makes the site's tier picks
-    after the row totals' all-gather, so every rank picks the same
+    after the messages' all-gather, so every rank picks the same
     branches. ``given``, ``site``: as ``prefix_count``'s."""
     if site is None and name is not None:
         site = kernels.fold_site(name)
     row0 = shard.lo // LANE
     if weights.device.type == "cpu":
-        tot = row_totals_twin(weights, None, 1)
+        msg = row_totals_twin(weights, None, 1, row0, shard.n,
+                              max_block_rows)
         cum, ends = concat_prefix_twin_sharded(
-            weights, None, 1, row0, shard.n, shard.all_gather(tot),
+            weights, None, 1, row0, shard.n, shard.all_gather(msg),
             max_block_rows)
         count = ends[0].to(torch.int32)
         if site is not None and site.armed:
@@ -589,8 +717,9 @@ def sharded_prefix_count(weights, shard, name=None, given=None,
         out = torch.empty((), dtype=torch.int32, device=weights.device)
     fold = (site.args({name: out, **(given or {})})
             if site is not None and site.armed else None)
-    tot = prefix_row_totals(weights, None, 1)
+    msg, scratch = prefix_row_totals(weights, None, 1, row0, shard.n,
+                                     max_block_rows)
     cum, _ = prefix_emit_slab(weights, None, 1, row0, shard.n,
-                              shard.all_gather(tot), max_block_rows,
+                              shard.all_gather(msg), scratch, max_block_rows,
                               count=out, fold=fold)
     return cum, out

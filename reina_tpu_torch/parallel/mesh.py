@@ -56,14 +56,33 @@ blocks the host (over gloo; an NCCL collective is queued on the card
 and the host waits at its next read, :meth:`AgentShard.before_read`),
 an agreement, the sync points and the bounded run-ahead of a graphed
 shard (core/graphs.py), and the world's gather of the seed axis
-(:func:`gather_placed`), so that a failure in one agent group of a
-(seed × agent) mesh makes every rank raise. Over NCCL :func:`make_mesh`
+(:func:`gather_placed`), a sharded checkpoint's gathers and its
+agreement that the file is written (:meth:`AgentShard.barrier`), so that
+a failure in one agent group of a (seed × agent) mesh makes every rank
+raise.
+
+The bootstrap is watched too. :func:`init_distributed` starts the
+heartbeat as soon as the world exists, and :func:`make_mesh`, before it
+makes any group, waits through the store until every rank of the world
+has arrived (a Watch poll: a rank that never arrives or whose heartbeat
+stops raises CollectiveError within ``LIVENESS_S``). Over NCCL it then
 makes every communicator of the mesh at once, while every rank is
-there: made later, inside a wait, its bootstrap would block on a lost
-peer where no poll reaches.
+there, each by one eager collective on a thread of its own that a Watch
+waits for: NCCL's bootstrap blocks its thread on a lost peer, where no
+poll reaches, so the waiting thread gives up instead and aborts the
+groups.
+
+A graphed shard's captured days read a stop word (:class:`StopWord`,
+host-mapped memory that each graph set on a card holds) after each
+collective: :func:`give_up` sets it in every set that holds the group's
+captured collectives before it aborts the group, so that nothing the
+aborted collectives fed runs on the card: not the rest of the day in
+flight, nor the days queued behind it (core/graphs.py). The card stays
+usable.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 import pickle
@@ -103,7 +122,7 @@ _LOCK = threading.Lock()
 # this thread's (Watch, whether it waits for collectives on a card)
 # (:func:`watching`)
 _watch = threading.local()
-# agreements made on each agent group (:func:`agree`), by group name
+# rounds of words in the store (:func:`_words`), by their keys' prefix
 _AGREED = Counter()
 # the groups this process has aborted, by name
 _ABORTED = set()
@@ -162,7 +181,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
     and memcpy nodes, and the run loop launches no eager collective on a
     communicator while a day graph is outstanding (it fetches first). A
     process group made elsewhere needs the same setting for the graphed
-    agent axis.
+    agent axis. In a world of several ranks it starts this process's
+    heartbeat in the world's store (:func:`make_mesh` watches it).
     """
     env = os.environ
     if dist.is_available() and dist.is_initialized():
@@ -188,6 +208,8 @@ def init_distributed(coordinator_address: Optional[str] = None,
         os.environ.setdefault("NCCL_GRAPH_MIXING_SUPPORT", "0")
     dist.init_process_group(backend, init_method=init_method,
                             world_size=num_processes, rank=process_id)
+    if dist.get_world_size() > 1:
+        _heartbeat()
     return dist.get_world_size()
 
 
@@ -216,8 +238,11 @@ def make_mesh(n_seed: Optional[int] = None, n_agent: Optional[int] = None,
     """Reshape the world's ranks into (n_seed, n_agent), as the JAX
     package's ``make_mesh`` reshapes its devices (all seed by default).
     ``device``: this rank's device, ``cuda:LOCAL_RANK`` by default. In a
-    world of several ranks it starts this process's heartbeat and, over
-    NCCL, makes the communicators of this rank's two groups."""
+    world of several ranks it starts this process's heartbeat, waits
+    until every rank of the world has arrived (:func:`_arrive`: a rank
+    lost before it raises CollectiveError on the others) and, over NCCL,
+    makes the communicators of this rank's two groups (:func:`_connect`,
+    watched as well)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
     if n_seed is None and n_agent is None:
@@ -241,6 +266,8 @@ def make_mesh(n_seed: Optional[int] = None, n_agent: Optional[int] = None,
         # of groups made before them, the same on every rank, names the
         # mesh
         name = f"reina/mesh/{dist.distributed_c10d._world.group_count}"
+        _heartbeat()
+        _arrive(name, world)
         for s in range(n_seed):
             g = dist.new_group([s * n_agent + a for a in range(n_agent)])
             if s == rank // n_agent:
@@ -249,15 +276,70 @@ def make_mesh(n_seed: Optional[int] = None, n_agent: Optional[int] = None,
             g = dist.new_group([s * n_agent + a for s in range(n_seed)])
             if a == rank % n_agent:
                 seed_group = g
-        _heartbeat()
         if backend == "nccl":
-            for g, size in ((agent_group, n_agent), (seed_group, n_seed)):
-                if size > 1:
-                    dist.all_reduce(torch.zeros(1, device=device), group=g)
+            _connect(name, device, [g for g, size in ((agent_group, n_agent),
+                                                      (seed_group, n_seed))
+                                    if size > 1])
     return Mesh(n_seed=n_seed, n_agent=n_agent, rank=rank,
                 seed_index=rank // n_agent, agent_index=rank % n_agent,
                 device=device, backend=backend,
                 agent_group=agent_group, seed_group=seed_group, name=name)
+
+
+def _arrive(name: str, world: int) -> None:
+    """Wait, through the world's store, until every rank of the world has
+    reached the making of mesh ``name``: a Watch poll on every rank's
+    heartbeat, so that a rank that never arrives (lost before it, or
+    never started) makes the others raise CollectiveError within
+    ``LIVENESS_S``, before any group's rendezvous or communicator could
+    block on it."""
+    _words(name + "/arrived", dist.get_rank(), world, b"1",
+           Watch([(name + "/failed", "another rank of the mesh failed")],
+                 range(world), "world"))
+
+
+def _connect(name: str, device, groups) -> None:
+    """Make the NCCL communicators of ``groups`` now, by one eager
+    collective each on a thread of its own (NCCL's bootstrap blocks its
+    thread on a lost peer, where no poll reaches), while a Watch on the
+    world waits for it: a rank lost meanwhile makes this one abort the
+    groups and raise CollectiveError."""
+    if not groups:
+        return
+    done, failed = threading.Event(), []
+
+    def bootstrap():
+        try:
+            with torch.cuda.device(device):
+                for g in groups:
+                    dist.all_reduce(torch.zeros(1, device=device), group=g)
+                torch.cuda.synchronize(device)
+        except BaseException as e:       # reported on the waiting thread
+            failed.append(e)
+        done.set()
+
+    t = threading.Thread(target=bootstrap, name="reina-bootstrap",
+                         daemon=True)
+    t.start()
+    try:
+        with Watch([(name + "/failed", "another rank of the mesh failed")],
+                   range(dist.get_world_size()), "world") as w:
+            w.wait(done.is_set, poll=1e-3)
+    except CollectiveError:
+        _mark_mesh(name)
+        for g in groups:
+            threading.Thread(target=_abort_quietly, args=(g,),
+                             name="reina-abort", daemon=True).start()
+        raise
+    if failed:
+        raise failed[0]
+
+
+def _abort_quietly(group) -> None:
+    try:
+        dist.distributed_c10d._abort_process_group(group)
+    except BaseException:   # the group's bootstrap failed: nothing to end
+        pass
 
 
 # ---------------------------------------------------------------------------
@@ -289,12 +371,14 @@ def _count(t: torch.Tensor, staged: bool, backend, factor: int = 1) -> None:
 def all_reduce(t: torch.Tensor, group, backend, op=dist.ReduceOp.SUM):
     """The reduction of ``t`` over ``group``, in ``t`` itself (a
     contiguous tensor that the caller made for it); returns ``t``."""
+    _stopped()
     staged = _staged(t, backend)
     _count(t, staged, backend)
     w = _watched(t)
     if not staged:
         _wait(dist.all_reduce(t, op=op, group=group, async_op=w is not None),
               w)
+        _guard(t)
         return t
     buf = t.cpu()
     _wait(dist.all_reduce(buf, op=op, group=group, async_op=w is not None), w)
@@ -304,6 +388,7 @@ def all_reduce(t: torch.Tensor, group, backend, op=dist.ReduceOp.SUM):
 def all_gather(t: torch.Tensor, group, backend) -> torch.Tensor:
     """(k, *t.shape): ``t`` of every rank of ``group``, in rank order,
     by one ``all_gather_into_tensor`` into a buffer made here."""
+    _stopped()
     k = dist.get_world_size(group)
     staged = _staged(t, backend)
     _count(t, staged, backend, k)
@@ -312,7 +397,15 @@ def all_gather(t: torch.Tensor, group, backend) -> torch.Tensor:
     w = _watched(t)
     _wait(dist.all_gather_into_tensor(buf, src.reshape(-1), group=group,
                                       async_op=w is not None), w)
+    _guard(t)
     return buf.to(t.device).view((k,) + tuple(t.shape))
+
+
+def _guard(t: torch.Tensor) -> None:
+    """Under a capture on a card: the collective just captured ends a
+    piece of its span, after which the span's stop-word gate goes."""
+    if t.is_cuda and torch.cuda.is_current_stream_capturing():
+        kernels.guard_point(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def _watched(t: torch.Tensor) -> Optional["Watch"]:
@@ -333,15 +426,81 @@ def _wait(work, watch: Optional["Watch"]) -> None:
     None``: poll it on the host, giving it up (CollectiveError) as soon
     as ``watch`` sees a peer's failure. A collective that fails itself
     (gloo's, when a peer's process ends) raises the peer's failure where
-    the store already shows it, else its own error."""
+    the store already shows it, else its own error. In a replay of a
+    graph set's CPU model a peer's failure stops the set instead
+    (:class:`Stopped`)."""
     if work is None:
         return
-    watch.wait(work.is_completed)
     try:
-        work.wait()
-    except RuntimeError:
-        watch.look()
+        watch.wait(work.is_completed)
+        try:
+            work.wait()
+        except RuntimeError:
+            watch.look()
+            raise
+    except CollectiveError:
+        _stopped_replay()
         raise
+
+
+class Stopped(CollectiveError):
+    """A collective of a graph set's CPU model given up in a replay: as an
+    aborted NCCL collective returns on the card, after which the set's
+    stop word ends the span and skips every later one (core/graphs.py)."""
+
+
+def _stopped_replay() -> None:
+    """In the replay of a graph set's CPU model (``_watch.replay``): set
+    the set's stop word, as the card's host does before it aborts the
+    group, and end the span in flight (Stopped)."""
+    gs = getattr(_watch, "replay", None)
+    if gs is not None:
+        gs.stop_word.set()
+        raise Stopped("a collective of the day in flight was given up: "
+                      "the stop word ends the span")
+
+
+def _stopped() -> None:
+    """In a replay of a graph set's CPU model whose stop word is set: end
+    the span at this collective (Stopped), as on the card the gate after
+    a collective of an aborted group runs nothing."""
+    gs = getattr(_watch, "replay", None)
+    if gs is not None and gs.stop_word.is_set():
+        raise Stopped("the stop word is set: the span ends at its "
+                      "collective")
+
+
+class StopWord:
+    """A graph set's stop word: on a card one int in host-mapped pinned
+    memory (``dev``: its device address, which the captured days' gate
+    kernels read), set by the host without going through a stream, so
+    that it takes effect while the card is stuck behind an aborted
+    collective; on the CPU a flag (the graph runner's model)."""
+
+    def __init__(self, card: bool):
+        self.host = self.dev = None
+        self._set = False
+        if card:
+            from ..kernels import build
+            host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+            build.check(build.lib().reina_stop_alloc(ctypes.byref(host),
+                                                     ctypes.byref(dev)),
+                        "stop word")
+            self.host, self.dev = host.value, dev.value
+
+    def set(self) -> None:
+        self._set = True
+        if self.host is not None:
+            ctypes.c_int.from_address(self.host).value = 1
+
+    def is_set(self) -> bool:
+        return self._set
+
+    def free(self) -> None:
+        if self.host is not None:
+            from ..kernels import build
+            build.lib().reina_stop_free(self.host)
+            self.host = self.dev = None
 
 
 def _store():
@@ -494,6 +653,19 @@ def watching(shard, cards: bool = True):
             _watch.current = prev
 
 
+@contextmanager
+def replaying(gs):
+    """This thread meanwhile replays graph set ``gs``'s CPU model (None:
+    nothing): a watched collective given up in it stops the set
+    (:func:`_stopped_replay`)."""
+    prev = getattr(_watch, "replay", None)
+    _watch.replay = gs
+    try:
+        yield
+    finally:
+        _watch.replay = prev
+
+
 def hold(group, holder) -> None:
     """Note that ``holder`` (a graph set, with ``close()``) holds
     captured collectives of ``group``: :func:`give_up` frees it."""
@@ -511,7 +683,11 @@ def unhold(group, holder) -> None:
 def _mark(where) -> None:
     if isinstance(where, AgentShard):
         _store().set(_keys(where) + "/failed", b"1")
-    _store().set(where.name + "/failed", b"1")
+    _mark_mesh(where.name)
+
+
+def _mark_mesh(name: str) -> None:
+    _store().set(name + "/failed", b"1")
 
 
 def give_up(where, group=None) -> Optional[str]:
@@ -522,17 +698,22 @@ def give_up(where, group=None) -> Optional[str]:
     (2) It aborts ``group`` (an AgentShard's agent group by default, a
     Mesh's none), which ends the collectives left on the card; the group
     is not used again. (3) It frees what holds captured collectives of
-    the group (:func:`hold`). NCCL's abort sets its flag at once, which
-    ends the captured collectives on the card, and then returns only
-    once every graph that holds one of them is destroyed, as its
-    teardown does; and a graph in flight cannot be destroyed until it
-    has run. So the abort runs on a thread while the card runs out what
-    was queued (``DRAIN_S`` at most), then the holders are freed and the
-    abort joined. Once a group; nothing without a world. Returns None,
-    or what went wrong after the abort, for the caller's error: the
-    card's CUDA context ended (the holders are freed all the same), or
-    the card or the abort not done within ``DRAIN_S`` (the holders are
-    left as they are: freeing a graph in flight waits for it)."""
+    the group (:func:`hold`). Before the abort it sets each holder's
+    stop word (``stop()``), which every captured span reads after each
+    of its collectives: what the aborted
+    collectives left in their buffers then feeds nothing on the card,
+    and the days queued behind run no span. NCCL's abort sets its flag
+    at once, which ends the captured collectives on the card, and then
+    returns only once every graph that holds one of them is destroyed,
+    as its teardown does; and a graph in flight cannot be destroyed
+    until it has run. So the abort runs on a thread while the card runs
+    out what was queued (``DRAIN_S`` at most; the stopped days take
+    microseconds), then the holders are freed and the abort joined.
+    Once a group; nothing without a world. Returns None, or what went
+    wrong after the abort, for the caller's error: the card's CUDA
+    context ended (the holders are freed all the same), or the card or
+    the abort not done within ``DRAIN_S`` (the holders are left as they
+    are: freeing a graph in flight waits for it)."""
     if not _in_world(where):
         return None
     _mark(where)
@@ -545,6 +726,8 @@ def give_up(where, group=None) -> Optional[str]:
             return None
         _ABORTED.add(group.group_name)
         held = _HOLDERS.pop(group.group_name, [])
+    for h in held:
+        h.stop()
     if not held:
         dist.distributed_c10d._abort_process_group(group)
         return None
@@ -593,29 +776,39 @@ def agree(shard, failed: bool) -> bool:
     CollectiveError. Without a world it returns ``failed``."""
     if not _in_world(shard):
         return failed
-    store, base = _store(), _keys(shard)
     if failed:
         _mark(shard)
+    return b"1" in _words(_keys(shard), shard.index, shard.k,
+                          b"1" if failed else b"0",
+                          Watch([], shard.ranks, "agent group"))
+
+
+def _words(base: str, index: int, k: int, word: bytes, watch: Watch) -> list:
+    """Write this rank's ``word`` as number ``index`` of the next round
+    of ``base``'s words in the world's store, then wait (``watch``'s
+    poll) until all ``k`` of the round are there; returns them in
+    order."""
+    store = _store()
     with _LOCK:
         seq = _AGREED[base]
         _AGREED[base] += 1
-    store.set(f"{base}/{seq}/{shard.index}", b"1" if failed else b"0")
-    words = [f"{base}/{seq}/{j}" for j in range(shard.k)]
-    with Watch([], shard.ranks, "agent group") as w:
-        w.wait(lambda: store.check(words), poll=1e-3)
-    return any(store.get(w) == b"1" for w in words)
+    store.set(f"{base}/{seq}/{index}", word)
+    keys = [f"{base}/{seq}/{j}" for j in range(k)]
+    with watch as w:
+        w.wait(lambda: store.check(keys), poll=1e-3)
+    return [store.get(x) for x in keys]
 
 
-def gather_objects(obj, group, watch: Watch) -> list:
+def gather_objects(obj, group, watch: Watch, device) -> list:
     """Every rank's ``obj`` over ``group``, in rank order (pickled): its
     size, then its bytes padded to the largest, by two
-    ``all_gather_into_tensor``s (on the rank's card over NCCL), each
-    waited for by ``watch``."""
+    ``all_gather_into_tensor``s (over NCCL on ``device``, the rank's
+    card, whatever device is current), each waited for by ``watch``."""
     k = dist.get_world_size(group)
     with _LOCK:
         STATS["calls"] += 1
-    dev = (torch.device("cuda", torch.cuda.current_device())
-           if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    dev = (torch.device(device) if dist.get_backend(group) == "nccl"
+           else torch.device("cpu"))
     data = pickle.dumps(obj)
     sizes = torch.empty(k, dtype=torch.int64, device=dev)
     _wait(dist.all_gather_into_tensor(
@@ -767,9 +960,13 @@ class AgentShard:
     # -- whole state (checkpoints)
 
     def barrier(self) -> None:
-        with _LOCK:
-            STATS["calls"] += 1
-        dist.barrier(group=self.group)
+        """Wait until every rank of the agent group has reached this
+        point, through the world's store (a word a rank), polled by
+        :meth:`watch`: a failure mark or a lost rank meanwhile raises
+        CollectiveError. Never a collective that blocks the host."""
+        if _in_world(self):
+            _words(_keys(self) + "/barrier", self.index, self.k, b"1",
+                   self.watch())
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
         """The full (N, ...) tensor from every rank's (n_local, ...)
@@ -854,7 +1051,7 @@ def gather_placed(mesh: Optional[Mesh], positions: List[int],
     try:
         with watch:
             parts = gather_objects(list(zip(positions, results)),
-                                   mesh.seed_group, watch)
+                                   mesh.seed_group, watch, mesh.device)
     except CollectiveError:
         give_up(mesh, mesh.seed_group)
         raise

@@ -510,7 +510,7 @@ def test_sharded_forms_match_twins(k):
 
 def test_sharded_entries_raise():
     """The sharded entries launch or raise: a slab that is not 16-byte
-    aligned or not whole rows, a wrong dtype, folds or gathered totals
+    aligned or not whole rows, a wrong dtype, folds or gathered messages
     of the wrong shape, a scratch from another slab, tensors on the CPU.
     No launch is counted."""
     _need_cuda()
@@ -548,24 +548,29 @@ def test_sharded_entries_raise():
         clamped.ledger_emit_slab(*slab, init, 5, 0, both, 0, scratch[:-1])
     w, codes = s["w"], s["var"].to(torch.int32)
     with pytest.raises(TypeError, match="aligned"):
-        fusedmap.prefix_row_totals(w[1:half + 1], None, 1)
+        fusedmap.prefix_row_totals(w[1:half + 1], None, 1, 0, n)
     with pytest.raises(ValueError, match="whole rows"):
-        fusedmap.prefix_row_totals(w[:100], None, 1)
+        fusedmap.prefix_row_totals(w[:100], None, 1, 0, n)
     with pytest.raises(TypeError):
-        fusedmap.prefix_row_totals(w[:half].double(), None, 1)
+        fusedmap.prefix_row_totals(w[:half].double(), None, 1, 0, n)
     with pytest.raises(TypeError):
-        fusedmap.prefix_row_totals(w[:half], codes[:half].long(), 2)
-    tot = fusedmap.prefix_row_totals(w[:half], codes[:half], 2)
+        fusedmap.prefix_row_totals(w[:half], codes[:half].long(), 2, 0, n)
+    tot, sc = fusedmap.prefix_row_totals(w[:half], codes[:half], 2, 0, n)
     gathered = torch.stack([tot, tot])
     for bad in (gathered[:1].contiguous(), gathered.double(),
                 gathered[:, :1].contiguous()):
         with pytest.raises(TypeError):
-            fusedmap.prefix_emit_slab(w[:half], codes[:half], 2, 0, n, bad)
+            fusedmap.prefix_emit_slab(w[:half], codes[:half], 2, 0, n, bad,
+                                      sc)
+    with pytest.raises(TypeError, match="scratch"):
+        fusedmap.prefix_emit_slab(w[:half], codes[:half], 2, 0, n, gathered,
+                                  sc[:-1])
     with pytest.raises(ValueError):
         fusedmap.prefix_emit_slab(w[:half], codes[:half], 2, 0, n + 512,
-                                  gathered)
+                                  gathered, sc)
     with pytest.raises(ValueError):
-        fusedmap.prefix_emit_slab(w[:half], codes[:half], 2, 40, n, gathered)
+        fusedmap.prefix_emit_slab(w[:half], codes[:half], 2, 40, n, gathered,
+                                  sc)
     after = kernels.launches()
     assert after["ledger_sharded.emit"] == before["ledger_sharded.emit"]
     assert (after["concat_prefix_sharded.emit"]
@@ -586,6 +591,95 @@ STEP_IVS = [
     ["build-new-icu-units", "2020-03-03", 5],
     ["build-new-hospital-beds", "2020-03-03", 20],
 ]
+
+
+def test_gates_stop_a_split_span():
+    """The gates of a graphed shard (csrc/daygraph.cu) on one card: a span
+    captured with two guard points (where a captured collective would
+    end), split into its three pieces, each assembled behind a gate on a
+    stop word, runs whole while the word is 0 and runs no piece once the
+    host has set it."""
+    _need_cuda()
+    import ctypes
+    from reina_tpu_torch.core import daygraph
+    from reina_tpu_torch.kernels import build
+    from reina_tpu_torch.parallel import mesh as M
+    x = torch.zeros(3, device="cuda")
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with kernels.capturing(guards=True):
+        with torch.cuda.graph(g, stream=torch.cuda.Stream()):
+            for i in range(3):
+                x[i].add_(1)
+                if i < 2:
+                    kernels.guard_point(
+                        torch.cuda.current_stream().cuda_stream)
+        guards = kernels.guards()
+    pieces = daygraph.split(g.raw_cuda_graph(), guards, "test span")
+    assert len(guards) == 2 and len(pieces) == 3
+    word = M.StopWord(True)
+    lib = build.lib()
+    top, ex = ctypes.c_void_p(), ctypes.c_void_p()
+    daygraph._check(lib.reina_dg_create(ctypes.byref(top)), "create")
+    dep = None
+    for p in pieces:
+        node, body, child = ctypes.c_void_p(), ctypes.c_void_p(), \
+            ctypes.c_void_p()
+        daygraph._check(lib.reina_dg_gate(top, dep, word.dev,
+                                          ctypes.byref(node),
+                                          ctypes.byref(body)), "gate")
+        daygraph._check(lib.reina_dg_child(body, None, p,
+                                           ctypes.byref(child)), "piece")
+        dep = node
+    daygraph._check(lib.reina_dg_instantiate(top, ctypes.byref(ex)),
+                    "instantiate")
+    stream = torch.cuda.current_stream().cuda_stream
+    try:
+        for stop, want in ((False, [1, 1, 1]), (False, [2, 2, 2]),
+                           (True, [2, 2, 2])):
+            if stop:
+                word.set()
+            daygraph._check(lib.reina_dg_launch(ex, stream), "launch")
+            torch.cuda.synchronize()
+            assert x.tolist() == want, (stop, x.tolist())
+    finally:
+        lib.reina_dg_destroy(top, ex)
+        daygraph.destroy_graphs(pieces)
+        word.free()
+        g.reset()
+
+
+def test_graphed_run_on_a_card_not_current():
+    """A graphed run of a build on cuda:1 while cuda:0 is current equals,
+    bit for bit (outputs, final state and carry, picks), the same run
+    with cuda:1 current, and leaves cuda:0 current: every entry that
+    launches on a run's card makes that card current for its duration
+    (the ctypes kernels launch on the current device)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from reina_tpu_torch import convert
+    from reina_tpu_torch.core import graphs as G
+    from reina_tpu_torch.core.engine import run_days
+    from reina_tpu_torch.testing import build_synthetic_run
+    run = build_synthetic_run("cuda:1", n_agents=20000, days=25, seed=3,
+                              interventions=IVS)
+    got = {}
+    for current in (1, 0):
+        G.drop_idle()
+        with torch.cuda.device(current):
+            picks = []
+            out, state, carry, _ = run_days(run, chunk_days=8, picks=picks)
+            assert torch.cuda.current_device() == current
+        got[current] = (out, convert.to_numpy(state), convert.to_numpy(carry),
+                        np.asarray(picks))
+    assert got[1][3].shape[0] == 24 and (got[1][3] >= 0).any()
+    for f, a, b in zip(got[1][0]._fields, got[1][0], got[0][0]):
+        np.testing.assert_array_equal(a, b, err_msg=f"out.{f}")
+    for i, what in ((1, "state"), (2, "carry")):
+        for f, a in got[1][i].items():
+            np.testing.assert_array_equal(np.asarray(a),
+                                          np.asarray(got[0][i][f]),
+                                          err_msg=f"{what}.{f}")
+    np.testing.assert_array_equal(got[1][3], got[0][3])
 
 
 def test_graphed_run_equals_eager():

@@ -181,10 +181,13 @@ def _refuse():
 
 def _failed_replay(run, rank: int) -> str:
     """A graphed run whose third day fails on rank 1 (the CPU model's
-    launch of a day), while rank 0 waits in that day's first collective."""
+    launch of a day), while rank 0 waits in that day's first collective;
+    then the spans the model's gates ended and skipped (``G.GATED``)."""
     from reina_tpu_torch.core import graphs as G
-    return _failing_run(run, rank, G.GraphSet, "_model_day",
-                        _on_call(3, _refuse))
+    G.GATED.clear()
+    msg = _failing_run(run, rank, G.GraphSet, "_model_day",
+                       _on_call(3, _refuse))
+    return f"{msg}\n{G.GATED['ended']} {G.GATED['completed']}"
 
 
 def _killed(work: str):
@@ -353,24 +356,55 @@ def _killed_child(rank: int, work: str) -> None:
     torch.distributed.destroy_process_group()
 
 
+def _lost_child(rank: int, work: str, case: str) -> None:
+    """One rank of a world of two over gloo, the liveness bound lowered
+    to ``LOST_S``, whose rank ends its process: ``boot``, rank 1 after
+    ``init_distributed``, before ``make_mesh`` (rank 0 raises in the
+    mesh's watched bootstrap); ``ckpt``, rank 0 inside ``save_sharded``,
+    as it writes the file (rank 1 raises in the group's agreement that it
+    is written). The survivor writes when it raised and what."""
+    torch.set_num_threads(1)
+    from reina_tpu_torch.core import checkpoint
+    from reina_tpu_torch.core.engine import run_days
+    from reina_tpu_torch.parallel import mesh as M
+
+    M.LIVENESS_S = LOST_S
+    M.init_distributed(f"file://{work}/store", 2, rank, backend="gloo")
+    lost = 1 if case == "boot" else 0
+    if case == "boot" and rank == lost:
+        _killed(work)()
+    t0 = time.time()
+    try:
+        agents = M.make_mesh(1, 2, device="cpu")
+        if case == "ckpt":
+            if rank == lost:
+                checkpoint.save_checkpoint = lambda *a, **k: _killed(work)()
+            run_days(_build(), n_days=AT + 1, checkpoint_dir=f"{work}/ck",
+                     checkpoint_every=AT, mesh=agents)
+        msg = "no error"
+    except Exception as e:
+        msg = f"{type(e).__name__}: {e}"
+    with open(f"{work}/lost_{rank}.txt", "w") as f:
+        f.write(f"{t0:.3f} {time.time():.3f} {msg}")
+    torch.distributed.destroy_process_group()
+
+
 def _usable(run, alone) -> str:
     """"True" where this process's one-card graphed run equals
-    ``alone``; "context: ..." where its card's CUDA context has ended (a
-    CUDA error that a ``torch.cuda.synchronize()`` then raises too);
-    else what went wrong ("False", or the error)."""
+    ``alone``; else what went wrong ("False", or the error, with whether
+    a ``torch.cuda.synchronize()`` then fails too: an ended CUDA
+    context)."""
     from reina_tpu_torch.core.engine import run_days
     try:
         out = run_days(run, chunk_days=4)[0]
         return str(all(np.array_equal(a, b) for a, b in zip(alone, out)))
     except Exception as e:
         first = str(e).strip().splitlines()[0][:300]
-        if "CUDA" not in str(e):
-            return f"{type(e).__name__}: {first}"
         try:
             torch.cuda.synchronize()
         except RuntimeError:
-            return f"context: {first}"
-        return f"{type(e).__name__} on a working context: {first}"
+            return f"{type(e).__name__} on an ended context: {first}"
+        return f"{type(e).__name__}: {first}"
 
 
 def _nccl_child(rank: int, work: str, port: str, case: str) -> None:
@@ -383,8 +417,7 @@ def _nccl_child(rank: int, work: str, port: str, case: str) -> None:
     failure, the rank's one-card graphed run against the same run made
     first (``_usable``). Each rank writes the seconds to its raise;
     then, where its card is usable, tears the world down and writes
-    that's seconds, else leaves at once (the teardown fails on an ended
-    context)."""
+    that's seconds, else leaves at once (the test fails then)."""
     import faulthandler
     # a rank still running near the test's limit prints where it is
     faulthandler.dump_traceback_later(NCCL_S - 60, exit=False)
@@ -494,8 +527,10 @@ def runs(tmp_path_factory):
              checkpoint_every=AT)
     run_days(small, n_days=AT + 1, checkpoint_dir=f"{work[4]}/ck1g",
              checkpoint_every=AT)
-    os.makedirs(base / "killed")
-    killed = _spawn(2, str(base / "killed"), "killed")
+    lost = {}
+    for case in ("killed", "boot", "ckpt"):
+        os.makedirs(base / case)
+        lost[case] = _spawn(2, str(base / case), case)
     procs = _spawn(2, work[2]) + _spawn(4, work[4])
     try:
         one = run_days(run, chunk_days=4)[:3]
@@ -505,11 +540,13 @@ def runs(tmp_path_factory):
         plain = _plain_days(small)
     finally:
         try:
-            _wait(killed, limit=120, codes={1: 3})
-        except (AssertionError, subprocess.TimeoutExpired) as e:
-            # the killed-rank world's own test reports it
-            with open(base / "killed" / "error.txt", "w") as f:
-                f.write(repr(e)[-4000:])
+            for case, ps in lost.items():
+                try:
+                    _wait(ps, limit=120, codes={0 if case == "ckpt" else 1: 3})
+                except (AssertionError, subprocess.TimeoutExpired) as e:
+                    # each lost-rank world's own test reports it
+                    with open(base / case / "error.txt", "w") as f:
+                        f.write(repr(e)[-4000:])
         finally:
             _wait(procs)
     return run, one, ens, sweep, work, (small, small_one, plain)
@@ -657,6 +694,18 @@ def test_failed_replay_raises_on_every_rank(runs):
     assert max(s0, s1) < 60, (s0, s1)
 
 
+def test_failed_replay_stops_the_survivors_day(runs):
+    """The graph runner's CPU model of the gates (F1): on rank 0, whose
+    collective of day 2 was given up on rank 1's mark, that collective
+    ended its span (as an aborted collective returns on the card and the
+    gate after it runs nothing) and set the stop word; no span of the
+    survivor ran past a collective after it (0 ran to their end)."""
+    ended, completed = (int(x) for x in _failed(runs, "replay")[0][1]
+                        .rsplit("\n", 1)[1].split())
+    assert ended >= 1, (ended, completed)
+    assert completed == 0, (ended, completed)
+
+
 def test_killed_rank_raises_on_the_other(runs):
     """Rank 1's process ends mid-run (``_killed_child``): rank 0 raises
     GraphError naming the lost rank within the liveness bound plus 10 s
@@ -670,6 +719,39 @@ def test_killed_rank_raises_on_the_other(runs):
     assert msg.startswith("GraphError") and "rank 1 is lost" in msg, msg
     assert float(t1) - died < LOST_S + 10, (float(t1) - died, msg)
     assert float(t1) - float(t0) < 60, (float(t1) - float(t0), msg)
+
+
+def _lost(runs, case: str):
+    """(seconds from the lost rank's end to the survivor's raise, the
+    survivor's message) of a lost-rank world of the fixture."""
+    work = os.path.join(os.path.dirname(runs[4][2]), case)
+    assert not os.path.exists(f"{work}/error.txt"), open(
+        f"{work}/error.txt").read()
+    died = float(open(f"{work}/killed_at.txt").read())
+    survivor = 0 if case == "boot" else 1
+    t0, t1, msg = open(f"{work}/lost_{survivor}.txt").read().split(" ", 2)
+    return float(t1) - died, msg
+
+
+def test_rank_lost_before_make_mesh_raises_on_the_other(runs):
+    """F3: rank 1 ends its process after init_distributed, before
+    make_mesh: rank 0, waiting in the mesh's watched bootstrap before it
+    makes any group, raises CollectiveError naming the lost rank within
+    the liveness bound plus 10 s (over gloo; no group rendezvous ever
+    blocks on the lost rank)."""
+    late, msg = _lost(runs, "boot")
+    assert msg.startswith("CollectiveError") and "rank 1 is lost" in msg, msg
+    assert late < LOST_S + 10, (late, msg)
+
+
+def test_rank_lost_in_sharded_checkpoint_raises_on_the_other(runs):
+    """F4: rank 0 ends its process inside save_sharded, as it writes the
+    file: rank 1, waiting in the group's agreement through the store
+    that the file is written, raises CollectiveError naming the lost
+    rank within the liveness bound plus 10 s."""
+    late, msg = _lost(runs, "ckpt")
+    assert msg.startswith("CollectiveError") and "rank 0 is lost" in msg, msg
+    assert late < LOST_S + 10, (late, msg)
 
 
 def test_failed_group_raises_on_every_rank_of_the_mesh(runs):
@@ -832,10 +914,10 @@ def test_graphed_agent_axis_over_nccl(tmp_path):
     replay whose day-graph launch of day ``KILL_AT`` raises on rank 1
     raises GraphError on both within 5 s of each other; rank 1's process
     ending at that launch makes rank 0 raise within the liveness bound
-    plus 10 s. After each, a rank's one-card graphed run equals the one
-    made before, or its card's CUDA context ended (confirmed by a
-    failing synchronize), and then it leaves without the teardown.
-    Prints each rank's seconds."""
+    plus 10 s. After each, every rank left has a usable card (the stop
+    word kept what the aborted collectives left from every kernel): its
+    one-card graphed run equals the one made before, and its world's
+    teardown returns. Prints each rank's seconds."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     import socket
@@ -866,7 +948,7 @@ def test_graphed_agent_axis_over_nccl(tmp_path):
         after = open(f"{tmp_path}/usable_{case}_{r}.txt").read()
         print(f"{case}: rank {r} raised after {sec} s: {msg[:400]}; "
               f"one-card run after: {after}")
-        assert after == "True" or after.startswith("context"), after
+        assert after == "True", after
         return float(at), float(sec), msg, after
 
     for case in ("nccl", "replay"):
@@ -892,13 +974,9 @@ def test_graphed_agent_axis_over_nccl(tmp_path):
     for case, ranks in (("replay", 2), ("killed", 1)):
         for r in range(ranks):
             path = f"{tmp_path}/down_{case}_{r}.txt"
-            usable = open(f"{tmp_path}/usable_{case}_{r}.txt").read()
-            # a usable card tears its world down; an ended one leaves
-            assert os.path.exists(path) == (usable == "True"), (case, r)
-            if usable == "True":
-                print(f"{case}: rank {r}'s destroy_process_group "
-                      f"{open(path).read()} s")
-                assert float(open(path).read()) < 60
+            print(f"{case}: rank {r}'s destroy_process_group "
+                  f"{open(path).read()} s")
+            assert float(open(path).read()) < 60
 
 
 if __name__ == "__main__":
@@ -907,5 +985,7 @@ if __name__ == "__main__":
         _nccl_child(int(sys.argv[1]), sys.argv[3], sys.argv[5], sys.argv[4])
     elif sys.argv[4:5] == ["killed"]:
         _killed_child(int(sys.argv[1]), sys.argv[3])
+    elif sys.argv[4:5] in (["boot"], ["ckpt"]):
+        _lost_child(int(sys.argv[1]), sys.argv[3], sys.argv[4])
     else:
         _child(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

@@ -413,10 +413,10 @@ def test_prefix_kernel_model(n_seg, blk):
 
 def _slab_fold_model(rel, req, offset, base, tile):
     """ledger.cu's fold entry on a slab from global position ``base``:
-    the tile folds (the cyclic mask at the global position) and their
-    scan; returns the slab's folds (its whole fold and the fold of its
-    positions before offset, per ledger) and, per ledger, the tile
-    scans the emit entry rescans."""
+    the tile folds (the cyclic mask at the global position), then, in
+    the CTA whose ticket comes last, their scan; returns the slab's folds
+    (its whole fold and the fold of its positions before offset, per
+    ledger) and, per ledger, the tile scans the emit entry rescans."""
     n = rel[0].shape[0]
     ntiles = -(-n // tile)
     idx = torch.arange(ntiles * tile)
@@ -432,9 +432,9 @@ def _slab_fold_model(rel, req, offset, base, tile):
         ka = torch.where(idx >= off, kf, NEG_INF)
         e = tuple(torch.where(valid, v, i).reshape(ntiles, tile)
                   for v, i in zip((s, ka, kf), ID))
-        inc = _scan(e)                                          # K1
+        inc = _scan(e)                                          # each CTA
         pre = ID if o == 0 else tuple(v[t_off, o - 1] for v in inc)
-        tinc = _scan(tuple(v[:, -1] for v in inc))              # K2
+        tinc = _scan(tuple(v[:, -1] for v in inc))              # last CTA
         excl = _shift(tinc, 1)
         total = tuple(v[-1] for v in tinc)
         if off <= 0:
@@ -450,16 +450,18 @@ def _slab_fold_model(rel, req, offset, base, tile):
 
 
 def _slab_emit_model(scans, init, offset, base, all_folds, index, n):
-    """ledger.cu's emit entry: the carry from the slabs before this one,
-    the boundary scalars from all of them, then the tile rescans."""
+    """ledger.cu's emit entry: warp 0's shuffle scan of the k slabs'
+    folds (32 slabs a round; here k <= 32) gives the carry from the slabs
+    before this one and, from all of them, the boundary scalars; then
+    the tile rescans."""
     granted, finals = [], []
     for led, ((inc, excl, r, q), i0) in enumerate(zip(scans, init)):
-        carry = total = at_off = tuple(torch.as_tensor(v) for v in ID)
-        for j in range(all_folds.shape[0]):
-            if j == index:
-                carry = total
-            total = _combine(total, tuple(all_folds[j, led, 0]))
-            at_off = _combine(at_off, tuple(all_folds[j, led, 1]))
+        f = _scan(tuple(all_folds[:, led, 0, c] for c in range(3)))
+        g = _scan(tuple(all_folds[:, led, 1, c] for c in range(3)))
+        total = tuple(v[-1] for v in f)
+        at_off = tuple(v[-1] for v in g)
+        carry = (tuple(torch.as_tensor(v) for v in ID) if index == 0
+                 else tuple(v[index - 1] for v in f))
         base_a = int(i0) - at_off[0]
         final_a = total[0] + torch.maximum(base_a, total[1])
         finals.append(at_off[0] + torch.maximum(final_a, at_off[2]))
@@ -564,54 +566,140 @@ def test_sharded_ledger_matches_jax(k, monkeypatch):
             np.testing.assert_array_equal(fin.numpy(), np.asarray(jfin))
 
 
+def _hs_rows(t):
+    """prefix.cu's hs_rows: the Hillis-Steele scan of row totals along
+    the last axis."""
+    r, kk = t, 1
+    while kk < t.shape[-1]:
+        r = r + torch.cat([torch.zeros_like(r[..., :kk]), r[..., :-kk]], -1)
+        kk *= 2
+    return r
+
+
+def _tree_last(tb):
+    """prefix.cu's block_last of row totals tb (blk <= 2048): right-aligned
+    in 2048 slots, zeros in front; 8 slots a thread as a tree, then the 32
+    lanes of a warp and the 8 warps by xor-shuffles."""
+    blk = tb.shape[-1]
+    x = torch.cat([torch.zeros(2048 - blk), tb]).reshape(8, 32, 8)
+    v = [x[..., j] for j in range(8)]
+    x = ((v[7] + v[6]) + (v[5] + v[4])) + ((v[3] + v[2]) + (v[1] + v[0]))
+    m = 1
+    while m < 32:
+        x = x + x[:, torch.arange(32) ^ m]
+        m *= 2
+    y = x[:, 0]
+    m = 1
+    while m < 8:
+        y = y + y[torch.arange(8) ^ m]
+        m *= 2
+    return tb[-1] + (y[0] - tb[-1])
+
+
 def _sharded_prefix_model(w, codes, n_seg, max_block_rows, k):
-    """prefix.cu's two sharded entries slab by slab: the slab's row
-    totals as a pairwise tree; then, from the stacked totals, each
-    logical block's row-offset scan and last value, the serial carry,
-    and (x_ls + d) + carry on the slab's rows only. Returns the slabs'
-    outputs put back into the unsharded (n_seg·N,) order, and the
-    segments' last values."""
+    """prefix.cu's two sharded entries slab by slab. Launch 1: the slab's
+    row totals as a pairwise tree; its message (head and tail totals,
+    then each whole block's last value by block_last). Launch 2, from the
+    stacked messages: a role a block of the slab's own and a block that
+    straddles a slab edge: an own block's phase 2 (the row offsets of
+    the slab's rows in it), a straddling block's last value by
+    block_last; every block's last value from the message of the slab
+    that holds it or from its role, the serial carry, and (x_ls + d) +
+    carry on the slab's rows only. Returns the slabs' outputs put back
+    into the unsharded (n_seg·N,) order, and the segments' last
+    values."""
     N = w.shape[0]
     R, nl = N // fusedmap.LANE, N // k
     Rl = R // k
     blk = fusedmap._largest_block(R, max_block_rows, 8)
     G = R // blk
+    M = fusedmap.message_width(Rl, blk, k)
+    lay = [fusedmap.slab_layout(Rl, blk, j) for j in range(k)]
 
     def seg(x, c, s):
         return x if c is None else torch.where(c == s, x, torch.zeros(()))
 
-    totals = []
-    for j in range(k):                                        # launch 1
+    def rows_of(j):
         x = w[j * nl:(j + 1) * nl].reshape(Rl, 32, 4)
         c = None if codes is None else codes[j * nl:(j + 1) * nl].reshape(
             Rl, 32, 4)
-        totals.append(torch.stack([_row_total(seg(x, c, s))[:, 31]
-                                   for s in range(n_seg)]))
-    gathered = torch.stack(totals)                            # (k, n_seg, Rl)
+        return x, c
+
+    msgs, tds = [], []
+    for j in range(k):                                        # launch 1
+        x, c = rows_of(j)
+        td = torch.stack([_row_total(seg(x, c, s))[:, 31]
+                          for s in range(n_seg)])
+        a, h, t, fw, W = lay[j]
+        msg = torch.zeros(n_seg, M)
+        msg[:, :h], msg[:, h:h + t] = td[:, :h], td[:, Rl - t:]
+        for wb in range(W):                                   # ticket's CTA
+            for s in range(n_seg):
+                msg[s, h + t + wb] = _tree_last(
+                    td[s, h + wb * blk:h + (wb + 1) * blk])
+        msgs.append(msg)
+        tds.append(td)
+    gathered = torch.stack(msgs)                              # (k, n_seg, M)
+    strad = fusedmap.straddling(Rl, blk, k)
     out = torch.zeros(n_seg, N)
     for j in range(k):                                        # launch 2
-        t = gathered.permute(1, 0, 2).reshape(n_seg * G, blk)
-        r, kk = t, 1
-        while kk < blk:
-            r = r + torch.cat([torch.zeros_like(r[:, :kk]), r[:, :-kk]], 1)
-            kk *= 2
-        d = (r - t).reshape(n_seg, R)
-        last = t[:, -1] + (r[:, -1] - t[:, -1])
-        carry, c_ = [], torch.zeros(())
-        for h in last:
-            carry.append(c_)
-            c_ = h + c_
-        carry = torch.stack(carry).reshape(n_seg, G)
-        ends = last.reshape(n_seg, G)[:, -1] + carry[:, -1]
-        rows = torch.arange(j * Rl, (j + 1) * Rl)
-        x = w[j * nl:(j + 1) * nl].reshape(Rl, 32, 4)
-        c = None if codes is None else codes[j * nl:(j + 1) * nl].reshape(
-            Rl, 32, 4)
+        a = lay[j][0]
+        td = tds[j].clone()
+        own = range(a // blk, (a + Rl - 1) // blk + 1)
+
+        def total(s, r):
+            q = r // Rl
+            if q == j:
+                return tds[j][s, r - a]
+            aq, hq, tq, _, _ = lay[q]
+            return gathered[q, s, r - aq if r < aq + hq
+                            else hq + r - (aq + Rl - tq)]
+        hs = {}
+        for s in range(n_seg):                                # the roles
+            for B in sorted(set(own) | set(strad)):
+                tb = torch.stack([total(s, B * blk + i) for i in range(blk)])
+                if B in strad:
+                    hs[s, B] = _tree_last(tb)
+                if B in own:
+                    rb = _hs_rows(tb)
+                    for i in range(blk):
+                        if a <= B * blk + i < a + Rl:
+                            td[s, B * blk + i - a] = rb[i] - tb[i]
+
+        def last(s, B):
+            q = B * blk // Rl
+            if (B * blk + blk - 1) // Rl == q:
+                _, hq, tq, fwq, _ = lay[q]
+                return gathered[q, s, hq + tq + B - fwq]
+            return hs[s, B]
+        carry, c_ = {}, torch.zeros(())
         for s in range(n_seg):
-            o = ((_row_lane_scan(seg(x, c, s)) + d[s, rows][:, None, None])
-                 + carry[s, rows // blk][:, None, None])
+            for B in range(G):
+                carry[s, B] = c_
+                c_ = last(s, B) + c_
+        ends = torch.stack([last(s, G - 1) + carry[s, G - 1]
+                            for s in range(n_seg)])
+        x, c = rows_of(j)
+        rows = torch.arange(a, a + Rl)
+        for s in range(n_seg):
+            cb = torch.stack([carry[s, int(r) // blk] for r in rows])
+            o = ((_row_lane_scan(seg(x, c, s)) + td[s][:, None, None])
+                 + cb[:, None, None])
             out[s, j * nl:(j + 1) * nl] = o.reshape(-1)
     return out.reshape(-1), ends
+
+
+@pytest.mark.parametrize("blk", [1, 8, 24, 1464, 2048])
+def test_block_last_equals_the_scans_last(blk):
+    """prefix.cu's block_last (and the twin's ``_block_last``) equals the
+    last value of the row-offset scan, bit for bit, on real-valued row
+    totals of a block of blk rows (1,464: HUS's block)."""
+    r = np.random.default_rng(blk)
+    for scale in (1.0, 3e4):
+        tb = _t((r.random(blk) * scale).astype(np.float32))
+        want = fusedmap._block_scan(tb)[1]
+        for got in (_tree_last(tb), fusedmap._block_last(tb)):
+            assert got.view(torch.int32) == want.view(torch.int32)
 
 
 @pytest.mark.parametrize("blk", [8, 16, 24])
@@ -621,7 +709,8 @@ def test_sharded_prefix_kernel_model(k, n_seg, blk):
     """The sharded prefix's two entries, slab by slab, and
     concat_prefix_twin_sharded equal concat_prefix_twin bit for bit on
     real-valued weights. 48 rows in slabs of 24, 16, 12 or 6: slab edges
-    on block edges and inside blocks of 8, 16 and 24 rows."""
+    on block edges and inside blocks of 8, 16 and 24 rows, slabs with
+    whole blocks and none, blocks that straddle one edge and several."""
     r = np.random.default_rng(13)
     N = 48 * fusedmap.LANE
     w = _t((r.random(N) * 3).astype(np.float32))
@@ -635,8 +724,13 @@ def test_sharded_prefix_kernel_model(k, n_seg, blk):
     parts = [(w[j * nl:(j + 1) * nl],
               None if codes is None else codes[j * nl:(j + 1) * nl])
              for j in range(k)]
-    gathered = torch.stack([fusedmap.row_totals_twin(x, c, n_seg)
-                            for x, c in parts])
+    gathered = torch.stack([
+        fusedmap.row_totals_twin(x, c, n_seg, j * nl // fusedmap.LANE, N,
+                                 blk)
+        for j, (x, c) in enumerate(parts)])
+    # a slab sends its head, tail and whole blocks, not all its rows
+    # (where its edges fall inside blocks, it may send all of them)
+    assert gathered.shape[2] == fusedmap.message_width(48 // k, blk, k)
     for j, (x, c) in enumerate(parts):
         out, tends = fusedmap.concat_prefix_twin_sharded(
             x, c, n_seg, j * nl // fusedmap.LANE, N, gathered, blk)

@@ -315,8 +315,8 @@ def test_runs_without_jax(tmp_path):
     runs it through the day-graph model (and a second build of its shapes
     on the same graph set, and the model on an agent shard of a mesh of
     one rank, with the sharded emit's fold), makes the fused tier picks'
-    CPU form, imports the conditional-node and NCCL-capture probes and
-    the seed-spread tools,
+    CPU form, imports the conditional-node, gate and NCCL-capture probes
+    and the seed-spread tools,
     its CLI simulates a small area and samples the explorer on the CPU,
     its GraphQL server answers an area and an explorer query, and it
     runs an ensemble (also on a mesh of one rank over torch.distributed),
@@ -346,7 +346,7 @@ def test_runs_without_jax(tmp_path):
         "assert (g.by_group == out.by_group).all() and len(picks) == 2\n"
         # the fused tier picks' CPU form, the probe of their graph layouts
         "from reina_tpu_torch.kernels import checks, cond_parts, "
-        "nccl_parts\n"
+        "gate_parts, nccl_parts\n"
         "k, t = checks._fold_pair('n_d', {'ct_cases': 1, 'n_d': 9}, 2048,"
         " 'cpu')\n"
         "assert all(torch.equal(a, b) for a, b in zip(k(), t()))\n"
