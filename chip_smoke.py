@@ -350,10 +350,10 @@ def graphs_phase(run, out, state, carry, wall: float, stats: dict,
           f"{arrays_b / 2**30:.4f} GiB, schedule tables "
           f"{tables_b / 2**30:.4f} GiB ({gs.rows} days)")
     print(f"graphs: {stats.get('captures', 0)} spans captured in "
-          f"{stats.get('capture_s', 0.0):.3f} s (span, key): {captured}; "
-          f"{len(day_graphs)} day graphs (ct_active, vacc, "
+          f"{stats.get('graphs.capture_s', 0.0):.3f} s (span, key): "
+          f"{captured}; {len(day_graphs)} day graphs (ct_active, vacc, "
           f"imports) {day_graphs} assembled in "
-          f"{stats.get('assemble_s', 0.0):.3f} s; "
+          f"{stats.get('graphs.assemble_s', 0.0):.3f} s; "
           f"{stats.get('launches', 0) / steps:.2f} day-graph launches and "
           f"{stats.get('reads', 0) / steps:.2f} host reads a day; graphed "
           f"{wall / steps * 1000:.2f} ms/day with the builds, peak "
@@ -1328,11 +1328,12 @@ def cli_phase() -> None:
     """Two CLI runs in this process; the second hits the build cache."""
     import numpy as np
     from reina_tpu_torch import cli, kernels
+    from reina_tpu_torch.core.step import STATS
     from reina_tpu_torch.simulation import BUILD_CACHE, simulate_individuals
 
     results = []
     for seed, want in ((1, "built"), (2, "reseeded")):
-        hits, reseeds = BUILD_CACHE.hits, BUILD_CACHE.reseeds
+        hits, reseeds = STATS["build.hits"], STATS["build.reseeds"]
         kernels.reset_launches()
         t0 = time.perf_counter()
         rc = cli.main(["simulate", "--days", str(CLI_DAYS), "--seed",
@@ -1346,8 +1347,8 @@ def cli_phase() -> None:
             fail(f"cli seed {seed}: exit code {rc}")
         if outcome != want:
             fail(f"cli seed {seed}: build {outcome}, want {want}")
-        if want == "reseeded" and (BUILD_CACHE.hits != hits + 1
-                                   or BUILD_CACHE.reseeds != reseeds + 1):
+        if want == "reseeded" and (STATS["build.hits"] != hits + 1
+                                   or STATS["build.reseeds"] != reseeds + 1):
             fail("cli: the second call did not hit the cache and reseed")
         steps = CLI_DAYS - 1
         check_launched(launches, day_launches(steps, 1), "cli")
@@ -1397,7 +1398,6 @@ def served_run(client: Client, name: str, seed_arg: str, want: str,
     seconds))."""
     from reina_tpu_torch import kernels
     from reina_tpu_torch.core import step
-    from reina_tpu_torch.simulation import BUILD_CACHE
 
     kernels.reset_launches()
     step.reset_stats()
@@ -1424,8 +1424,10 @@ def served_run(client: Client, name: str, seed_arg: str, want: str,
     t_done = time.perf_counter() - t0
     launches = kernels.launches()
     st = dict(step.STATS)
-    outcome, build_s = BUILD_CACHE.last
-    print(f"serve run {name}: build {outcome} {build_s:.3f} s; "
+    outcome, build_s = served_build(st)
+    print(f"serve run {name}: build {outcome} {build_s:.3f} s (host "
+          f"compile {st.get('build.compile_s', 0.0):.3f} s, upload "
+          f"{st.get('build.upload_s', 0.0):.3f} s); "
           f"phase running at {t_running:.3f} s, first partial at "
           f"{t_partial:.3f} s (polled every {first_poll} s until then), "
           f"finished at {t_done:.3f} s (polled every {POLL_S} s), "
@@ -1445,6 +1447,17 @@ def served_run(client: Client, name: str, seed_arg: str, want: str,
     return run_id, metrics, st, (t_partial, build_s)
 
 
+def served_build(st: dict):
+    """A served run's build as its worker's build cache counted it in
+    ``st`` (step.STATS since the run began): its outcome and the seconds
+    of its host compile and upload."""
+    outcome = ("built" if st.get("build.misses") else
+               "reseeded" if st.get("build.reseeds") else
+               "cached" if st.get("build.hits") else "")
+    return outcome, (st.get("build.compile_s", 0.0)
+                     + st.get("build.upload_s", 0.0))
+
+
 def poll(client: Client, run_id: str) -> dict:
     return client.post(WEBUI_POLL, {"id": run_id})["simulationResults"]
 
@@ -1455,11 +1468,12 @@ def warm_hit_run(base: str) -> None:
     cancelled, as the registry cancels a run its client left (the
     default session runs 565 days)."""
     from reina_tpu_torch import kernels
+    from reina_tpu_torch.core import step
     from reina_tpu_torch.runtime import runner
-    from reina_tpu_torch.simulation import BUILD_CACHE
 
     client = Client(base)
     kernels.reset_launches()
+    before = dict(step.STATS)
     t0 = time.perf_counter()
     run_id = client.post("mutation { runSimulation { runId } }"
                          )["runSimulation"]["runId"]
@@ -1476,7 +1490,8 @@ def warm_hit_run(base: str) -> None:
         if now > 300:
             fail("serve run W: no partial result in 300 s")
         time.sleep(POLL_S)
-    outcome, build_s = BUILD_CACHE.last
+    outcome, build_s = served_build({k: v - before.get(k, 0)
+                                     for k, v in step.STATS.items()})
     runner.REGISTRY.reap(run_id)
     while not res["finished"]:
         if time.perf_counter() - t0 > 600:
@@ -1559,14 +1574,10 @@ def concurrent_runs(base: str) -> None:
 
 
 def build_split(a_times) -> None:
-    """Run A's first partials and builds (each a build-cache miss): their
-    medians, the build's share, and one build of the same variables split
-    into the host compile and the upload to the card."""
+    """Run A's first partials and builds (each a build-cache miss, its
+    host compile and upload printed with the run): their medians and the
+    build's share."""
     import numpy as np
-    import torch
-    from reina_tpu_torch import convert
-    from reina_tpu_torch.config.variables import VARIABLE_DEFAULTS
-    from reina_tpu_torch.core.engine import host_compile
 
     partial, build = (np.array(x) for x in zip(*a_times))
     print(f"serve run A x{len(a_times)}: first partial "
@@ -1576,19 +1587,6 @@ def build_split(a_times) -> None:
           f"{np.median(build):.3f} s, the build "
           f"{np.median(build / partial) * 100:.1f}% of the first partial "
           f"(median); the rest {np.median(partial - build):.3f} s")
-    v = dict(VARIABLE_DEFAULTS, simulation_days=DAYS)
-    t0 = time.perf_counter()
-    _, arrays, sched, state, carry, _ = host_compile(v)
-    t1 = time.perf_counter()
-    up = (convert.model_arrays(arrays, "cuda"), convert.schedules(sched,
-                                                                  "cuda"),
-          convert.agent_state(state, "cuda"), convert.day_carry(carry,
-                                                                "cuda"))
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    print(f"serve run A's build split: host compile {t1 - t0:.3f} s, "
-          f"upload {t2 - t1:.3f} s")
-    del up
 
 
 def serving_phase(main_all_infected, main_susceptible) -> None:

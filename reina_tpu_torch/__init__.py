@@ -18,7 +18,7 @@ Layout:
 
   config/      variables, interventions, scenarios, settings (copies)
   data/        dataset loaders and their .npz archives (copies)
-  utils/       locale, memoize (calcfunc), perf (PerfCounter)
+  utils/       locale, memoize (calcfunc), perf (counters and spans)
   core/        constants, params, schedule, state (numpy host compile,
                carried over from the JAX package), step (the day as
                spans), graphs (the spans as CUDA graphs), engine,

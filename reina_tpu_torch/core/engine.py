@@ -37,6 +37,7 @@ from .step import (DayOutputs, EngineConfig, ModelArrays, SchedRow,
 from ..ops import prng
 from ..config.interventions import get_active_interventions
 from ..data import loaders
+from ..utils import perf
 
 
 @dataclass
@@ -180,17 +181,21 @@ def build_run(variables: Dict[str, Any], device,
               cfg_overrides: Optional[Dict[str, Any]] = None,
               age_counts_override: Optional[np.ndarray] = None,
               pad_multiple: int = 1024) -> CompiledRun:
-    """Compile a full simulation from resolved variables onto ``device``."""
+    """Compile a full simulation from resolved variables onto ``device``:
+    the host compile (span ``build.compile``), then its arrays,
+    schedules, state and carry put on the device (``build.upload``)."""
     from .. import convert
     device = torch.device(device)
-    cfg, arrays, sched_np, state_np, carry_np, meta = host_compile(
-        variables, cfg_overrides, age_counts_override, pad_multiple)
+    with perf.span("build.compile"):
+        cfg, arrays, sched_np, state_np, carry_np, meta = host_compile(
+            variables, cfg_overrides, age_counts_override, pad_multiple)
+    with perf.span("build.upload"):
+        on_device = dict(arrays=convert.model_arrays(arrays, device),
+                         schedules=convert.schedules(sched_np, device),
+                         init_state=convert.agent_state(state_np, device),
+                         init_carry=convert.day_carry(carry_np, device))
     return CompiledRun(
-        cfg=cfg,
-        arrays=convert.model_arrays(arrays, device),
-        schedules=convert.schedules(sched_np, device),
-        init_state=convert.agent_state(state_np, device),
-        init_carry=convert.day_carry(carry_np, device),
+        cfg=cfg, **on_device,
         days=meta["days"], start_date=meta["start_date"],
         random_seed=meta["random_seed"],
         variant_names=meta["variant_names"],
@@ -287,25 +292,41 @@ def fetch_packed(outs: DayOutputs, tail):
     and an int tensor ``tail`` (the problem bits first, then whatever the
     run loop fetches with them) to the host in one int32 and one float32
     transfer; returns (numpy DayOutputs, ``tail`` as a flat int32
-    array). Host leaves pass through as numpy."""
+    array). Host leaves pass through as numpy. The host's wait for the
+    card (``wait_for``) and the copies with the unpacking (span
+    ``run.fetch``) are timed apart."""
     leaves = list(outs)
     on_dev = [isinstance(x, torch.Tensor) for x in leaves]
     is_int = [d and not x.is_floating_point() for x, d in zip(leaves, on_dev)]
     ints = [x for x, b in zip(leaves, is_int) if b]
     flts = [x for x, d, b in zip(leaves, on_dev, is_int) if d and not b]
     pi, pf = pack_leaves(ints + [tail.reshape(-1)], flts)
-    pi, pf = pi.cpu().numpy(), pf.cpu().numpy()
-    out, oi, of = [], 0, 0
-    for x, d, b in zip(leaves, on_dev, is_int):
-        if not d:
-            out.append(np.asarray(x))
-            continue
-        n = x.numel()
-        dt = torch.empty(0, dtype=x.dtype).numpy().dtype
-        src = pi[oi:oi + n] if b else pf[of:of + n]
-        out.append(src.reshape(tuple(x.shape)).astype(dt))
-        oi, of = (oi + n, of) if b else (oi, of + n)
+    wait_for(pi)
+    with perf.span("run.fetch"):
+        pi, pf = pi.cpu().numpy(), pf.cpu().numpy()
+        out, oi, of = [], 0, 0
+        for x, d, b in zip(leaves, on_dev, is_int):
+            if not d:
+                out.append(np.asarray(x))
+                continue
+            n = x.numel()
+            dt = torch.empty(0, dtype=x.dtype).numpy().dtype
+            src = pi[oi:oi + n] if b else pf[of:of + n]
+            out.append(src.reshape(tuple(x.shape)).astype(dt))
+            oi, of = (oi + n, of) if b else (oi, of + n)
     return DayOutputs(*out), pi[oi:]
+
+
+def wait_for(t: torch.Tensor) -> None:
+    """The host waits (span ``run.wait``) until the card has run what is
+    queued on its current stream, through a CUDA event recorded after
+    ``t``'s work, so that the copy to the host that follows waits for
+    nothing; on the CPU there is nothing to wait for."""
+    with perf.span("run.wait"):
+        if t.is_cuda:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(t.device))
+            ev.synchronize()
 
 
 def run_chunk(cfg: EngineConfig, arrays: ModelArrays, schedules: Schedules,
@@ -348,6 +369,10 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
     the host in one packed transfer and the problem bitmask is checked:
     the end of every chunk with a callback, a checkpoint directory or an
     agent-sharded mesh, else the end of the run (as the JAX package).
+    Spans (utils/perf.py): ``run.prepare`` from the call to the first
+    chunk, ``run.launch`` each chunk's launches (the plain step's whole
+    work), ``run.wait`` and ``run.fetch`` each sync point's wait for the
+    card and its copies to the host.
 
     ``graphs``: step the days as CUDA graphs (core/graphs.py), one launch
     a day with its tier picks on the device, bit-identical to the plain
@@ -400,6 +425,7 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
     from . import graphs as G
     from .. import convert
     from ..parallel import mesh as M
+    t_entry = perf.now()
     n_days = n_days if n_days is not None else run.days
     base_key = prng.PRNGKey(run.random_seed if seed is None else seed)
     cfg = run.cfg
@@ -455,7 +481,9 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
             rows.append(out_np)
             pending = []
         else:
-            tail = tail_t.cpu().numpy()
+            wait_for(tail_t)
+            with perf.span("run.fetch"):
+                tail = tail_t.cpu().numpy()
         if gs is not None:
             problem, day_picks = gs.synced(tail)
             if picks is not None:
@@ -481,42 +509,45 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
     # collectives on a card are queued, its host reads watched
     try:
         with G.on_device(device), M.watching(shard, cards=False):
-            # device-resident until a sync point, then fetched rows
-            pending = [_stack_device([snapshot_outputs(
-                cfg, arrays, state, carry, np.float32(1.0), shard)])]
-            if latest:
-                st_np, cr_np, saved_out = ckpt.load_checkpoint(latest)
-                state = convert.agent_state(st_np, device)
-                carry = convert.day_carry(cr_np, device)
-                if shard is not None:
-                    state, carry = M.place_state_carry(mesh, state, carry,
-                                                       cfg.max_infectees)
-                day = carry.day
-                if saved_out is not None:
-                    pending, rows = [], [saved_out]
-            steps_left = (n_days - 1) - day
-            synced = day0 = day
-            leftover = carry.weekly_leftover
-            if graphs and steps_left > 0:
-                gs = G.acquire(cfg, arrays, schedules, state, carry, device,
-                               shard)
-                plans = gs.prepare(host_sched, base_key, day, steps_left,
-                                   leftover, run.init_state.age.shape[0])
-                gs.start(cfg, arrays, schedules, state, carry, day, plans)
+            with perf.span("run.prepare", start=t_entry):
+                # device-resident until a sync point, then fetched rows
+                pending = [_stack_device([snapshot_outputs(
+                    cfg, arrays, state, carry, np.float32(1.0), shard)])]
+                if latest:
+                    st_np, cr_np, saved_out = ckpt.load_checkpoint(latest)
+                    state = convert.agent_state(st_np, device)
+                    carry = convert.day_carry(cr_np, device)
+                    if shard is not None:
+                        state, carry = M.place_state_carry(
+                            mesh, state, carry, cfg.max_infectees)
+                    day = carry.day
+                    if saved_out is not None:
+                        pending, rows = [], [saved_out]
+                steps_left = (n_days - 1) - day
+                synced = day0 = day
+                leftover = carry.weekly_leftover
+                if graphs and steps_left > 0:
+                    gs = G.acquire(cfg, arrays, schedules, state, carry,
+                                   device, shard)
+                    plans = gs.prepare(host_sched, base_key, day, steps_left,
+                                       leftover, run.init_state.age.shape[0])
+                    gs.start(cfg, arrays, schedules, state, carry, day,
+                             plans)
             while steps_left > 0:
                 this_chunk = min(chunk_days, steps_left)
                 t0 = time.perf_counter()
-                if gs is not None:
-                    chunk = plans[day - day0:day - day0 + this_chunk]
-                    gs.step(chunk)
-                    for plan in chunk:
-                        bits |= plan.problem      # known from the schedule
-                    leftover = chunk[-1].leftover
-                else:
-                    state, carry, outs = run_chunk(
-                        cfg, arrays, schedules, host_sched, state, carry,
-                        base_key, this_chunk, day, shard, picks)
-                    pending.append(_stack_device(outs))
+                with perf.span("run.launch"):
+                    if gs is not None:
+                        chunk = plans[day - day0:day - day0 + this_chunk]
+                        gs.step(chunk)
+                        for plan in chunk:
+                            bits |= plan.problem  # known from the schedule
+                        leftover = chunk[-1].leftover
+                    else:
+                        state, carry, outs = run_chunk(
+                            cfg, arrays, schedules, host_sched, state, carry,
+                            base_key, this_chunk, day, shard, picks)
+                        pending.append(_stack_device(outs))
                 day += this_chunk
                 steps_left -= this_chunk
                 since_ckpt += this_chunk

@@ -75,8 +75,9 @@ the device's branch tallies (the picks are inside the spans' launches:
 ``fused_concat_prefix.pick``, ``daygraph.max_pick``). The
 warm-ups launch their kernels eagerly and count them there, each also
 in ``kernels.WARMUPS``. ``step.STATS`` counts the captures, the day
-graphs built, their seconds and the day-graph launches beside the
-days.
+graphs built and the day-graph launches beside the days (a chunk's at
+its end), and the spans ``graphs.capture`` and ``graphs.assemble``
+time the captures and assemblies on a card (utils/perf.py).
 
 On a rank of an agent-sharded run (``shard``, parallel/mesh.py:
 AgentShard; over NCCL, a rank a card) the set holds the slab's static
@@ -150,7 +151,6 @@ from __future__ import annotations
 
 import contextlib
 import threading
-import time
 from collections import Counter, deque
 from typing import Dict, List, NamedTuple
 
@@ -164,6 +164,7 @@ from .schedule import Schedules
 from .state import AgentState, DayCarry
 from .. import kernels
 from ..parallel import mesh
+from ..utils import perf
 
 __all__ = ["GraphError", "GraphSet", "acquire", "release", "drop_idle",
            "idle", "on_device", "reusing", "set_key"]
@@ -429,20 +430,24 @@ class GraphSet:
         up before it raises (see the module docstring)."""
         stream = (None if self.model
                   else torch.cuda.current_stream(self.device).cuda_stream)
-        with on_device(self.device), self._watching() as watch, \
-                mesh.replaying(self if self.model else None):
-            for plan in plans:
-                try:
-                    self._day(plan, stream,
-                              watch if self.collective else None)
-                    if self.model and watch is not None:
-                        # the host's look at its peers after a launch
-                        watch.check()
-                except BaseException as e:
-                    self._give_up(e, f"day {plan.day}")
-                    raise
-                S.STATS["launches"] += 1
-                S.STATS["days"] += 1
+        launched = 0
+        try:
+            with on_device(self.device), self._watching() as watch, \
+                    mesh.replaying(self if self.model else None):
+                for plan in plans:
+                    try:
+                        self._day(plan, stream,
+                                  watch if self.collective else None)
+                        if self.model and watch is not None:
+                            # the host's look at its peers after a launch
+                            watch.check()
+                    except BaseException as e:
+                        self._give_up(e, f"day {plan.day}")
+                        raise
+                    launched += 1
+        finally:
+            perf.count("launches", launched)
+            perf.count("days", launched)
 
     def _day(self, plan: S.DayPlan, stream, watch) -> None:
         hkey = host_key(plan)
@@ -577,13 +582,12 @@ class GraphSet:
                 entry, err = None, e
             self._agree(err, what)
             self.bodies[(name, key)] = entry
-        S.STATS["day_graphs"] += 1
+        perf.count("day_graphs")
         if self.model:
             self.days[hkey] = nodes
             return
-        t0 = time.perf_counter()
-        self.days[hkey] = DayGraph(hkey, nodes, self)
-        S.STATS["assemble_s"] += time.perf_counter() - t0
+        with perf.span("graphs.assemble"):
+            self.days[hkey] = DayGraph(hkey, nodes, self)
 
     def _watching(self):
         return mesh.watching(self.shard)
@@ -679,13 +683,12 @@ class GraphSet:
     def capture(self, name: str, key: tuple, body) -> _Entry:
         """Capture ``body`` as span ``name``'s graph at ``key`` (on the CPU
         record it), with the launches it makes."""
-        S.STATS["captures"] += 1
+        perf.count("captures")
         if self.model:
             return _Entry(body, Counter())
         g = torch.cuda.CUDAGraph(keep_graph=True)
-        t0 = time.perf_counter()
         pieces = ()
-        with _CAPTURE_LOCK:
+        with perf.span("graphs.capture"), _CAPTURE_LOCK:
             try:
                 with kernels.capturing(guards=self.collective) as tally:
                     with torch.cuda.graph(g, pool=self.pool,
@@ -705,7 +708,6 @@ class GraphSet:
                         "collective is kernel and memcpy nodes only)")
                 raise GraphError(f"capture of span {name} {key} failed: "
                                  f"{e}{hint}") from e
-        S.STATS["capture_s"] += time.perf_counter() - t0
         return _Entry(g, tally, pieces)
 
     @property

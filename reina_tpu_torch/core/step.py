@@ -74,7 +74,6 @@ each of those points is the plain op.
 from __future__ import annotations
 
 from bisect import bisect_left
-from collections import Counter
 from dataclasses import dataclass
 from itertools import product
 from typing import Callable, Dict, NamedTuple, Optional
@@ -93,6 +92,9 @@ from ..ops.fusedmap import (fused_bihistogram, fused_concat_prefix,
                             sharded_concat_prefix, sharded_prefix_count)
 from ..ops import random as samplers
 from ..ops.random import binomial_fixed, gamma_fixed_pair, searchsorted
+from ..utils import perf
+# the program's counters (utils/perf.py), read here as step.STATS
+from ..utils.perf import STATS, reset_stats  # noqa: F401
 
 I8, I16, I32, I64 = torch.int8, torch.int16, torch.int32, torch.int64
 F32 = torch.float32
@@ -1250,14 +1252,6 @@ def span_c(cfg, arrays, din, state, carry, env, end: int, shard=None):
 # the spans that open a day (and load its row) and the one that ends it
 FIRST_SPANS = ("A", "AB")
 LAST_SPAN = "C"
-# days run and host reads of device values in them, in every mode, and
-# the graph runner's captures, capture seconds and day-graph launches
-# (for the profiles; reset_stats() clears them)
-STATS = Counter()
-
-
-def reset_stats() -> None:
-    STATS.clear()
 
 
 # ---------------------------------------------------------------------------
@@ -1365,7 +1359,7 @@ def run_day(cfg: EngineConfig, arrays: ModelArrays, plan: DayPlan,
 
     def count(p: Pick) -> int:
         if p.src not in reads:
-            STATS["reads"] += 1
+            perf.count("reads")
             if shard is not None:
                 shard.before_read(env[p.src])
             reads[p.src] = env[p.src].tolist()
@@ -1396,7 +1390,7 @@ def run_day(cfg: EngineConfig, arrays: ModelArrays, plan: DayPlan,
         env.update(node.fn(cfg, arrays, din, state, carry, env, *key,
                            shard=shard))
 
-    STATS["days"] += 1
+    perf.count("days")
     out = env["out"]._replace(mobility_limitation=plan.mobility_limitation)
     return (env["state"], DayCarry(day=plan.day + 1,
                                    weekly_leftover=plan.leftover,

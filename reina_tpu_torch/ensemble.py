@@ -33,6 +33,7 @@ import numpy as np
 from .core import graphs
 from .core.engine import CompiledRun, build_run, run_days, stack_outputs
 from .core.step import DayOutputs, snapshot_outputs
+from .utils import perf
 
 
 def check_batch_size(batch_size: int) -> None:
@@ -59,7 +60,8 @@ def run_ensemble(run: CompiledRun, seeds: List[int], batch_size: int = 1,
     members, graphed on an agent axis over NCCL, then the seed axis
     gathers them. A rank that fails marks the mesh failed, and the other
     ranks' runs and gathers give up on that mark or on a lost rank
-    (parallel/mesh.py), so that every rank raises."""
+    (parallel/mesh.py), so that every rank raises. Each member of this
+    rank is a span ``ensemble.member`` (utils/perf.py)."""
     from .parallel.mesh import batch_placement, gather_placed
     check_batch_size(batch_size)
     steps = (n_days if n_days is not None else run.days) - 1
@@ -68,9 +70,10 @@ def run_ensemble(run: CompiledRun, seeds: List[int], batch_size: int = 1,
     # the members share one graph set, also on an agent axis over NCCL
     with graphs.reusing():
         for i in mine:
-            out, _, _, _ = run_days(run, n_days=steps + 1, seed=seeds[i],
-                                    mesh=mesh)
-            members.append(DayOutputs(*(x[1:] for x in out)))
+            with perf.span("ensemble.member"):
+                out, _, _, _ = run_days(run, n_days=steps + 1, seed=seeds[i],
+                                        mesh=mesh)
+                members.append(DayOutputs(*(x[1:] for x in out)))
     return stack_members(gather_placed(mesh, mine, members, len(seeds)))
 
 

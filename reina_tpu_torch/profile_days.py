@@ -142,9 +142,9 @@ def main(argv=None) -> int:
             st = dict(step.STATS)
             print(f"{mode}: start {time.perf_counter() - t0:.3f} s with "
                   f"{st.get('captures', 0)} captures in "
-                  f"{st.get('capture_s', 0.0):.3f} s and "
+                  f"{st.get('graphs.capture_s', 0.0):.3f} s and "
                   f"{len(gs.days)} day graphs assembled in "
-                  f"{st.get('assemble_s', 0.0):.3f} s")
+                  f"{st.get('graphs.assemble_s', 0.0):.3f} s")
         wall, st = window(graphed)
         with torch.profiler.profile(activities=acts) as prof:
             c0 = time.process_time()

@@ -21,6 +21,9 @@ preserved:
     None}`` (``simulation.daily_columns`` / ``age_group_cube``)
   * at most MAX_CONCURRENT_RUNS live workers, else "System busy"
   * cooperative cancellation via the step callback
+
+A run is a span ``serve.run`` (utils/perf.py) from its admission to its
+terminal write, under its run id, whatever thread ends it.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from . import cache
 from ..config import settings
 from ..core.engine import ExecutionInterrupted
 from ..simulation import simulate_individuals
+from ..utils import perf
 from ..utils.memoize import generate_cache_key
 
 logger = logging.getLogger(__name__)
@@ -54,6 +58,8 @@ class SimulationThread(threading.Thread):
 
     def __init__(self, variables: Dict, device="cuda"):
         super().__init__(daemon=True)
+        # the start of its span serve.run: its admission
+        self.admitted = perf.now()
         self.variables = variables
         self.device = device
         self.uuid = str(uuid.uuid4())
@@ -117,11 +123,14 @@ class SimulationThread(threading.Thread):
             # so a stale False can never overwrite the final True
             hb_stop.set()
             hb.join(timeout=5.0)
-            if error is not None:
-                cache.set("%s-error" % self.cache_key, error,
+            # counted before a client can read that the run finished
+            with perf.span("serve.run", id=self.cache_key,
+                           start=self.admitted):
+                if error is not None:
+                    cache.set("%s-error" % self.cache_key, error,
+                              self.cache_expiration)
+                cache.set("%s-phase" % self.cache_key, "finished",
                           self.cache_expiration)
-            cache.set("%s-phase" % self.cache_key, "finished",
-                      self.cache_expiration)
             cache.set("%s-finished" % self.cache_key, True,
                       self.cache_expiration)
 

@@ -18,6 +18,7 @@ import json
 import threading
 import time
 from collections import OrderedDict
+from contextlib import nullcontext
 from datetime import date
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -30,7 +31,7 @@ from .core.engine import CompiledRun, build_run, reseed_run, run_days
 from .core.params import DISEASE_PARAMS
 from .core.step import GROUP_ROW
 from .utils.memoize import calcfunc
-from .utils.perf import PerfCounter
+from .utils import perf
 
 # Daily output attribute sets (reference calc/simulation.py:17-47)
 POP_ATTRS = [
@@ -66,14 +67,21 @@ class BuildCache:
     on it, so a hit with another seed goes through ``reseed_run``
     instead of a rebuild. At most one build runs per key at a time;
     concurrent misses for one key wait for it. A CompiledRun is
-    read-only to the engine, so threads may share it."""
+    read-only to the engine, so threads may share it. ``step.STATS``
+    counts ``build.misses``, ``build.hits`` and ``build.reseeds``;
+    ``last`` is the calling thread's last (outcome, seconds)."""
 
     def __init__(self):
         self._runs: "OrderedDict[str, CompiledRun]" = OrderedDict()
         self._lock = threading.Lock()
         self._key_locks: Dict[str, threading.Lock] = {}
-        self.hits = self.misses = self.reseeds = 0
-        self.last: Tuple[str, float] = ("", 0.0)   # (outcome, seconds)
+        self._local = threading.local()
+
+    @property
+    def last(self) -> Tuple[str, float]:
+        """This thread's last ``get``: its outcome (built, cached or
+        reseeded) and seconds; ("", 0.0) before its first."""
+        return getattr(self._local, "last", ("", 0.0))
 
     @staticmethod
     def key(variables: Dict, device: torch.device) -> str:
@@ -99,18 +107,16 @@ class BuildCache:
                         old, _ = self._runs.popitem(last=False)
                         self._key_locks.pop(old, None)
                     self._runs[key] = run
-                    self.misses += 1
+                perf.count("build.misses")
                 outcome = "built"
             else:
-                with self._lock:
-                    self.hits += 1
+                perf.count("build.hits")
                 outcome = "cached"
         if run.random_seed != seed:
             run = reseed_run(run, seed)
-            with self._lock:
-                self.reseeds += 1
+            perf.count("build.reseeds")
             outcome = "reseeded"
-        self.last = (outcome, time.perf_counter() - t0)
+        self._local.last = (outcome, time.perf_counter() - t0)
         return run
 
 
@@ -205,7 +211,7 @@ def simulate_individuals(step_callback: Optional[Callable] = None,
     receives the partial daily columns; returning a falsy value cancels
     the run (→ ExecutionInterrupted)."""
     dev = resolve_device(device)
-    pc = PerfCounter()
+    pc = perf.PerfCounter()
     run = _cached_build_run(variables, dev)
     pc.measure()
 
@@ -219,19 +225,23 @@ def simulate_individuals(step_callback: Optional[Callable] = None,
 
     def day_cb(day_idx, partial):
         nonlocal done
-        rows = day_idx + 1
-        ms = pc.measure()
-        # wall-µs per infected agent per day (calc/simulation.py:212),
-        # averaged over the chunk just computed
-        infected = partial.by_group[:rows, GROUP_ROW["infected"]].sum(axis=1)
-        per_day_ms = ms / max(rows - done, 1)
-        for d in range(done, rows):
-            us_rows[d] = per_day_ms * 1000 / infected[d] if infected[d] else 0
-        done = rows
-        if step_callback is None:
-            return True
-        return bool(step_callback(daily_columns(
-            partial, run.variant_names, run.start_date, rows, us_rows)))
+        # with a callback: its partial result (the server's cache write)
+        with perf.span("serve.publish") if step_callback else nullcontext():
+            rows = day_idx + 1
+            ms = pc.measure()
+            # wall-µs per infected agent per day (calc/simulation.py:212),
+            # averaged over the chunk just computed
+            infected = partial.by_group[:rows,
+                                        GROUP_ROW["infected"]].sum(axis=1)
+            per_day_ms = ms / max(rows - done, 1)
+            for d in range(done, rows):
+                us_rows[d] = (per_day_ms * 1000 / infected[d] if infected[d]
+                              else 0)
+            done = rows
+            if step_callback is None:
+                return True
+            return bool(step_callback(daily_columns(
+                partial, run.variant_names, run.start_date, rows, us_rows)))
 
     out, _, _, _ = run_days(run, n_days=n_days, chunk_days=chunk,
                             day_callback=day_cb)

@@ -22,6 +22,7 @@ from reina_tpu.testing import build_synthetic_run as jax_build
 from reina_tpu_torch import convert, simulation
 from reina_tpu_torch.core import checkpoint as ckpt
 from reina_tpu_torch.core.engine import reseed_run, run_days
+from reina_tpu_torch.core.step import STATS
 from reina_tpu_torch.testing import build_synthetic_run, synthetic_variables
 
 torch.set_num_threads(1)
@@ -158,13 +159,15 @@ def test_build_cache_keys_and_reseeds(monkeypatch):
     monkeypatch.setattr(simulation, "build_run", fake_build)
     cache = simulation.BuildCache()
     v = synthetic_variables(days=3, seed=1)
+    before = dict(STATS)
     a = cache.get(v, "cpu")
     assert cache.last[0] == "built" and built == [(1, "cpu")]
     assert cache.get(v, "cpu") is a and cache.last[0] == "cached"
     b = cache.get(dict(v, random_seed=2), "cpu")
     assert cache.last[0] == "reseeded" and b.random_seed == 2
     assert b.arrays is a.arrays and len(built) == 1
-    assert (cache.hits, cache.misses, cache.reseeds) == (2, 1, 1)
+    assert tuple(STATS[f"build.{k}"] - before.get(f"build.{k}", 0)
+                 for k in ("hits", "misses", "reseeds")) == (2, 1, 1)
     # the device is part of the key; at most two entries are kept
     cache.get(v, "meta")
     cache.get(dict(v, simulation_days=4), "cpu")

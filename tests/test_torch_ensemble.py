@@ -9,7 +9,8 @@ package's functions on the same numpy inputs.
 Checks and tolerances:
   * ensemble (4,000 agents, 9 days): member s equals ``run_days`` with
     seed s, rows 1.., exactly in every field; batch sizes 1 and 2 give
-    equal arrays.
+    equal arrays; each member is a span ``ensemble.member`` over its
+    run loop's spans, a graphed (model) run a ``run.launch`` a chunk.
   * Monte-Carlo (Alavieska, 8 days, 2 runs): the day-0 row uses
     ``mobility_scalar[0]``; the CSV is byte-equal to the one the JAX
     package's pandas assembly writes from the same numpy outputs; the
@@ -43,6 +44,7 @@ from reina_tpu_torch.ensemble import (DESCRIBE_STATS, describe,
 from reina_tpu_torch.testing import (build_synthetic_run,
                                      synthetic_age_counts,
                                      synthetic_variables)
+from reina_tpu_torch.utils import perf
 
 SEEDS = [5, 6, 7]
 MC_RUNS = 2
@@ -101,6 +103,54 @@ def test_ensemble_batch_size_changes_nothing(ensemble):
     _assert_outputs_equal(run_ensemble(run, SEEDS, batch_size=1), outs)
     with pytest.raises(ValueError, match="batch_size"):
         run_ensemble(run, SEEDS, batch_size=0)
+
+
+def _spans(id_):
+    """The ring's spans of request ``id_``: {name: [(parent, seconds)]}."""
+    got = {}
+    for name, i, parent, a, b in list(perf.RING):
+        if i == id_:
+            got.setdefault(name, []).append((parent, (b - a) / 1e9))
+    return got
+
+
+def test_members_are_spans_with_their_run_loops(ensemble):
+    """Two members: two ensemble.member spans, each the parent of its
+    run's run.prepare, one run.launch (8 days in one chunk) and the
+    run.wait and run.fetch of its one sync point."""
+    run, _ = ensemble
+    n = perf.STATS["ensemble.member_n"]
+    with perf.span("t.members", id="members"):
+        run_ensemble(run, SEEDS[:2])
+    assert perf.STATS["ensemble.member_n"] - n == 2
+    got = _spans("members")
+    assert {k: len(v) for k, v in got.items()} == {
+        "ensemble.member": 2, "run.prepare": 2, "run.launch": 2,
+        "run.wait": 2, "run.fetch": 2, "t.members": 1}
+    assert all(p == "ensemble.member" for k in ("run.prepare", "run.launch",
+                                               "run.wait", "run.fetch")
+               for p, _ in got[k])
+    member = sum(s for _, s in got["ensemble.member"])
+    assert sum(s for k in ("run.prepare", "run.launch", "run.wait",
+                           "run.fetch") for _, s in got[k]) <= member
+
+
+@pytest.mark.parametrize("callback,syncs", [(False, 1), (True, 3)])
+def test_graphed_run_loop_spans(ensemble, callback, syncs):
+    """The graph runner's CPU model over 8 days in chunks of 3: a
+    run.launch a chunk with its day-graph launches counted at the
+    chunk's end, a run.wait and run.fetch a sync point (the run's end,
+    or every chunk with a callback)."""
+    run, _ = ensemble
+    before = {k: perf.STATS[k] for k in ("days", "launches")}
+    with perf.span("t.graphed", id=f"graphed-{callback}"):
+        run_days(run, graphs=True, chunk_days=3,
+                 day_callback=(lambda day, out: True) if callback else None)
+    got = {k: len(v) for k, v in _spans(f"graphed-{callback}").items()}
+    assert got == {"run.prepare": 1, "run.launch": 3, "run.wait": syncs,
+                   "run.fetch": syncs, "t.graphed": 1}
+    assert {k: perf.STATS[k] - v for k, v in before.items()} == {
+        "days": 8, "launches": 8}
 
 
 # ---- Monte-Carlo

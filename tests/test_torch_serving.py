@@ -650,12 +650,13 @@ def test_served_run_equals_simulate_individuals(server, small_run):
     same variables."""
     from reina_tpu_torch.config.variables import VariableStore
     from reina_tpu_torch.runtime.graphql.server import dump_session
-    from reina_tpu_torch.simulation import BUILD_CACHE
     from reina_tpu_torch.utils import memoize
+    from reina_tpu_torch.utils.perf import STATS
 
     memoize.clear_cache()   # a fresh run, not the memoized result
     _, _, _, cols = small_run
     cookie = "reina_session=" + dump_session(VariableStore(dict(_SMALL)))
+    before = dict(STATS.items())
     out, cookie = _post(server, "mutation { runSimulation { runId } }",
                         cookie=cookie)
     run_id = out["data"]["runSimulation"]["runId"]
@@ -671,7 +672,10 @@ def test_served_run_equals_simulate_individuals(server, small_run):
             break
         time.sleep(0.1)
     assert res["finished"] and res["phase"] == "finished"
-    assert BUILD_CACHE.last[0] in ("cached", "reseeded")
+    # the served run took its build from the cache (a hit, maybe
+    # reseeded), on its worker thread: no build
+    assert STATS["build.misses"] == before.get("build.misses", 0)
+    assert STATS["build.hits"] > before.get("build.hits", 0)
     m = {x["type"]: x for x in res["predictedMetrics"]["metrics"]}
     assert len(res["predictedMetrics"]["dates"]) == 12
     assert m["all_infected"]["intValues"] == cols["all_infected"].tolist()
