@@ -370,9 +370,11 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
     the end of every chunk with a callback, a checkpoint directory or an
     agent-sharded mesh, else the end of the run (as the JAX package).
     Spans (utils/perf.py): ``run.prepare`` from the call to the first
-    chunk, ``run.launch`` each chunk's launches (the plain step's whole
-    work), ``run.wait`` and ``run.fetch`` each sync point's wait for the
-    card and its copies to the host.
+    chunk, inside it ``run.plan`` a graphed run's planning of its days
+    (their day rows, keys and tables), ``run.launch`` each chunk's
+    launches (the plain step's whole work, its planning a day at a time
+    included), ``run.wait`` and ``run.fetch`` each sync point's wait for
+    the card and its copies to the host.
 
     ``graphs``: step the days as CUDA graphs (core/graphs.py), one launch
     a day with its tier picks on the device, bit-identical to the plain
@@ -529,8 +531,10 @@ def run_days(run: CompiledRun, n_days: Optional[int] = None,
                 if graphs and steps_left > 0:
                     gs = G.acquire(cfg, arrays, schedules, state, carry,
                                    device, shard)
-                    plans = gs.prepare(host_sched, base_key, day, steps_left,
-                                       leftover, run.init_state.age.shape[0])
+                    with perf.span("run.plan"):
+                        plans = gs.prepare(host_sched, base_key, day,
+                                           steps_left, leftover,
+                                           run.init_state.age.shape[0])
                     gs.start(cfg, arrays, schedules, state, carry, day,
                              plans)
             while steps_left > 0:

@@ -366,30 +366,23 @@ class GraphSet:
     def prepare(self, host: Schedules, base_key, day0: int, steps: int,
                 leftover, n_agents: int) -> List[S.DayPlan]:
         """The plans of days [day0, day0 + steps) of a build whose host
-        schedules are ``host``, and their rows and keys in the device
-        tables (one upload a run); their picks unset."""
-        from .engine import sched_row
+        schedules are ``host`` (``step.plan_days``, one pass over the
+        days), and their rows and keys in the device tables (one upload
+        a run); their picks unset."""
         if day0 + steps > self.rows:
             raise GraphError(f"days [{day0}, {day0 + steps}) on a set of "
                              f"{self.rows} days")
-        days = day0 + np.arange(steps)
-        dks = S.derive_day_keys(self.cfg, base_key, days)
-        plans = []
-        for i, d in enumerate(days):
-            plan = S.plan_day(self.cfg, sched_row(host, host, int(d)),
-                              leftover, int(d), dks.day(i), n_agents)
-            leftover = plan.leftover
-            plans.append(plan)
-        if plans:
-            rows = slice(day0, day0 + steps)
-            self.tab_i[rows].copy_(torch.from_numpy(
-                np.stack([p.ints for p in plans])))
-            self.tab_f[rows].copy_(torch.from_numpy(
-                np.stack([p.floats for p in plans])))
+        rows = slice(day0, day0 + steps)
+        dks = S.derive_day_keys(self.cfg, base_key, day0 + np.arange(steps))
+        plans = S.plan_days(self.cfg, Schedules(*(x[rows] for x in host)),
+                            leftover, day0, dks, n_agents)
+        if steps:
+            self.tab_i[rows].copy_(torch.from_numpy(plans.ints))
+            self.tab_f[rows].copy_(torch.from_numpy(plans.floats))
             self.tab_k[rows].copy_(torch.from_numpy(
                 S.key_table(self.cfg, dks).view(np.int32)))
             self.picks[rows].fill_(-1)
-        return plans
+        return plans.each()
 
     def start(self, cfg: S.EngineConfig, arrays: S.ModelArrays,
               schedules: Schedules, state: AgentState, carry: DayCarry,

@@ -76,12 +76,13 @@ from __future__ import annotations
 from bisect import bisect_left
 from dataclasses import dataclass
 from itertools import product
-from typing import Callable, Dict, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from . import constants as C
+from .schedule import Schedules
 from .state import AgentState, DayCarry
 from ..ops import prng
 from ..ops.clamped import clamped_counter_grants
@@ -612,37 +613,79 @@ class DayPlan(NamedTuple):
     floats: np.ndarray     # the float32 day row
 
 
+class DayPlans(NamedTuple):
+    """The plans of consecutive days: DayPlan's fields over a leading day
+    axis (``plan_days``)."""
+    day: np.ndarray        # (D,) int64
+    ct_active: np.ndarray  # (D,) bool
+    vacc: np.ndarray       # (D,) bool
+    imports: np.ndarray    # (D,) bool
+    problem: np.ndarray    # (D,) int64
+    leftover: np.ndarray   # (D, V) float32
+    mobility_limitation: np.ndarray  # (D,) float32
+    ints: np.ndarray       # (D, I_CUM_IMP + V) int32
+    floats: np.ndarray     # (D, F_VACC + S) float32
+
+    def each(self) -> List[DayPlan]:
+        """Each day's DayPlan: host scalars, and views of the day's rows."""
+        return [DayPlan(*p) for p in zip(
+            self.day.tolist(), self.ct_active.tolist(), self.vacc.tolist(),
+            self.imports.tolist(), self.problem.tolist(), self.leftover,
+            self.mobility_limitation, self.ints, self.floats)]
+
+
+def plan_days(cfg: EngineConfig, rows: Schedules, leftover, day0: int,
+              dks: DayKeys, n_agents: int) -> DayPlans:
+    """Phase 1's host arithmetic and the day rows of days [day0, day0 +
+    D), D the day axis of ``dks`` (``derive_day_keys`` over those days),
+    as arrays over the days. ``rows``: the host schedules of those days,
+    day axis first (their mobility and mask tables are not read);
+    ``leftover``: the weekly-import carry before day0; ``n_agents``: the
+    run's (padded) agent count, the range of the ledger's offset. The
+    weekly imports are float32, as the JAX package's device arithmetic,
+    and a day's carry is the day before's: one loop over the days."""
+    D, V = len(dks.base), cfg.nr_variants
+    inc = ((np.asarray(rows.weekly_amount, np.float32) / np.float32(7.0))
+           [:, None] * np.asarray(rows.weekly_shares, np.float32))
+    weekly = np.empty((D, V), np.int32)
+    left = np.empty((D, V), np.float32)
+    carry = np.asarray(leftover, np.float32)
+    for i in range(D):
+        carry = carry + inc[i]
+        weekly[i] = np.floor(carry).astype(np.int32)
+        carry = left[i] = carry - weekly[i].astype(np.float32)
+    cum_imp = np.cumsum(np.asarray(rows.import_today, np.int32) + weekly,
+                        axis=1).astype(np.int32)
+    tot_imports = cum_imp[:, -1]
+    mode = np.asarray(rows.testing_mode, np.int64)
+    ct_active = mode == C.TESTING_ALL_WITH_SYMPTOMS_CT
+    vacc_nr = np.asarray(rows.vacc_nr, np.float32)
+    days = day0 + np.arange(D, dtype=np.int64)
+    offsets = prng.randint(dks.base[:, 14], 0, n_agents)
+    ints = np.column_stack([days, mode, ct_active, rows.beds_build,
+                            rows.icu_build, offsets, tot_imports,
+                            cum_imp]).astype(np.int32)
+    floats = np.column_stack([rows.trace_p, rows.detect_anyway_p,
+                              np.floor(vacc_nr)]).astype(np.float32)
+    return DayPlans(
+        day=days, ct_active=ct_active,
+        vacc=np.sum(vacc_nr, axis=1) >= 1.0, imports=tot_imports > 0,
+        problem=np.where(tot_imports > cfg.import_buffer,
+                         C.PROBLEM_IMPORT_BUFFER_OVERFLOW, 0),
+        leftover=left,
+        mobility_limitation=np.float32(1.0) - np.asarray(
+            rows.mobility_scalar, np.float32),
+        ints=ints, floats=floats)
+
+
 def plan_day(cfg: EngineConfig, sched: SchedRow, leftover, day: int,
              dk: DayKeys, n_agents: int) -> DayPlan:
-    """Phase 1's host arithmetic (the weekly imports in float32, as the
-    JAX package's device arithmetic) and the day row; ``n_agents``: the
-    run's (padded) agent count, the range of the ledger's offset."""
-    leftover = (np.asarray(leftover, np.float32)
-                + np.float32(sched.weekly_amount) / np.float32(7.0)
-                * np.asarray(sched.weekly_shares, np.float32))
-    weekly_today = np.floor(leftover).astype(np.int32)
-    leftover = (leftover - weekly_today.astype(np.float32)).astype(np.float32)
-    import_counts = np.asarray(sched.import_today, np.int32) + weekly_today
-    cum_imp = np.cumsum(import_counts).astype(np.int32)
-    tot_imports = int(cum_imp[-1])
-    mode = int(sched.testing_mode)
-    ct_active = mode == C.TESTING_ALL_WITH_SYMPTOMS_CT
-    vacc_nr = np.asarray(sched.vacc_nr, np.float32)
-    offset = prng.randint_scalar(dk.base[14], 0, n_agents)
-    ints = np.array([day, mode, int(ct_active), int(sched.beds_build),
-                     int(sched.icu_build), offset, tot_imports, *cum_imp],
-                    np.int32)
-    floats = np.array([sched.trace_p, sched.detect_anyway_p,
-                       *np.floor(vacc_nr)], np.float32)
-    return DayPlan(
-        day=day, ct_active=ct_active,
-        vacc=bool(np.sum(vacc_nr) >= 1.0), imports=tot_imports > 0,
-        problem=(C.PROBLEM_IMPORT_BUFFER_OVERFLOW
-                 if tot_imports > cfg.import_buffer else 0),
-        leftover=leftover,
-        mobility_limitation=np.float32(1.0) - np.float32(
-            sched.mobility_scalar),
-        ints=ints, floats=floats)
+    """``plan_days`` of one day, from its schedule row and keys."""
+    host = sched._replace(mobility=None, mask_p=None)
+    rows = Schedules(*(x if x is None else np.asarray(x)[None]
+                       for x in host))
+    dks = DayKeys(*(np.asarray(x)[None] for x in dk))
+    return plan_days(cfg, rows, leftover, day, dks, n_agents).each()[0]
 
 
 class DayIn(NamedTuple):

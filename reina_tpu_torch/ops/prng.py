@@ -335,15 +335,23 @@ def gumbel(key, shape, device) -> torch.Tensor:
     return _draw(_GUMBEL, key, shape, device, 0, *affine(_TINY, 1.0))
 
 
-def randint_scalar(key, minval: int, maxval: int) -> int:
-    """jax.random.randint(key, (), minval, maxval) for int32 bounds —
-    the two-draw modulus algorithm, in uint32 arithmetic on the host."""
-    ks = split(host_key(key))
-    hi = int(np.bitwise_xor(*_threefry_np(ks[0, 0], ks[0, 1], 0, 0)))
-    lo = int(np.bitwise_xor(*_threefry_np(ks[1, 0], ks[1, 1], 0, 0)))
+def randint(keys, minval: int, maxval: int) -> np.ndarray:
+    """jax.random.randint(key, (), minval, maxval) for int32 bounds, of
+    each key of ``keys`` (..., 2) — the two-draw modulus algorithm, in
+    uint64 arithmetic on the host, vectorised over the leading axes.
+    Returns int64 of the leading shape."""
+    ks = split(np.asarray(keys, np.uint32))                  # (..., 2, 2)
+    bits = np.bitwise_xor(*_threefry_np(ks[..., 0], ks[..., 1], 0, 0))
+    hi, lo = bits[..., 0].astype(np.uint64), bits[..., 1].astype(np.uint64)
     span = (maxval - minval) & _M32 if maxval > minval else 1
     mult = (2 ** 16) % span
     mult = ((mult * mult) & _M32) % span
-    off = (((hi % span) * mult) & _M32) + lo % span
-    off = (off & _M32) % span
-    return minval + off
+    m32, span, mult = np.uint64(_M32), np.uint64(span), np.uint64(mult)
+    off = (((hi % span) * mult) & m32) + lo % span
+    off = (off & m32) % span
+    return minval + off.astype(np.int64)
+
+
+def randint_scalar(key, minval: int, maxval: int) -> int:
+    """``randint`` of one key."""
+    return int(randint(host_key(key), minval, maxval))

@@ -137,7 +137,8 @@ def test_members_are_spans_with_their_run_loops(ensemble):
 
 @pytest.mark.parametrize("callback,syncs", [(False, 1), (True, 3)])
 def test_graphed_run_loop_spans(ensemble, callback, syncs):
-    """The graph runner's CPU model over 8 days in chunks of 3: a
+    """The graph runner's CPU model over 8 days in chunks of 3: the
+    planning of the run's days a run.plan inside its run.prepare, a
     run.launch a chunk with its day-graph launches counted at the
     chunk's end, a run.wait and run.fetch a sync point (the run's end,
     or every chunk with a callback)."""
@@ -146,11 +147,32 @@ def test_graphed_run_loop_spans(ensemble, callback, syncs):
     with perf.span("t.graphed", id=f"graphed-{callback}"):
         run_days(run, graphs=True, chunk_days=3,
                  day_callback=(lambda day, out: True) if callback else None)
-    got = {k: len(v) for k, v in _spans(f"graphed-{callback}").items()}
-    assert got == {"run.prepare": 1, "run.launch": 3, "run.wait": syncs,
-                   "run.fetch": syncs, "t.graphed": 1}
+    spans = _spans(f"graphed-{callback}")
+    got = {k: len(v) for k, v in spans.items()}
+    assert got == {"run.prepare": 1, "run.plan": 1, "run.launch": 3,
+                   "run.wait": syncs, "run.fetch": syncs, "t.graphed": 1}
+    assert spans["run.plan"][0][0] == "run.prepare"
     assert {k: perf.STATS[k] - v for k, v in before.items()} == {
         "days": 8, "launches": 8}
+
+
+def test_graphed_members_plan_once_each(ensemble, monkeypatch):
+    """Each member of a graphed ensemble (as on a card: here the graph
+    runner's CPU model) plans its days once, one run.plan inside its
+    run.prepare, and the members equal the plain step's. The plain step
+    plans a day at a time and has no run.plan (the span counts of
+    test_members_are_spans_with_their_run_loops)."""
+    import functools
+    from reina_tpu_torch import ensemble as E
+    run, outs = ensemble
+    monkeypatch.setattr(E, "run_days",
+                        functools.partial(run_days, graphs=True))
+    n = perf.STATS["run.plan_n"]
+    with perf.span("t.plans", id="plans"):
+        got = run_ensemble(run, SEEDS[:2])
+    assert perf.STATS["run.plan_n"] - n == 2
+    assert [p for p, _ in _spans("plans")["run.plan"]] == ["run.prepare"] * 2
+    _assert_outputs_equal(got, DayOutputs(*(x[:2] for x in outs)))
 
 
 # ---- Monte-Carlo

@@ -602,3 +602,43 @@ def test_other_build_keys_get_sets_of_their_own():
                    longer.init_carry.weekly_leftover,
                    longer.init_state.age.shape[0])
     graphs.drop_idle()
+
+
+def test_prepare_tables_equal_day_by_day_planning():
+    """GraphSet.prepare plans its days in one pass (step.plan_days): the
+    plans, day rows, key table and picks rows it leaves equal planning
+    each day with plan_day and key_table, from day 0 and from a resume
+    at day 5 with that day's leftover; the rows of other days are left
+    as they were."""
+    run = build_synthetic_run("cpu", n_agents=3000, days=DAYS, seed=3,
+                              interventions=IVS)
+    cfg, steps = run.cfg, DAYS - 1
+    host = Schedules(*(x.numpy() for x in run.schedules))
+    key, n = prng.PRNGKey(run.random_seed), run.init_state.age.shape[0]
+    dks = S.derive_day_keys(cfg, key, np.arange(steps))
+    want, lefts = [], [run.init_carry.weekly_leftover]
+    for d in range(steps):
+        want.append(S.plan_day(cfg, sched_row(run.schedules, host, d),
+                               lefts[-1], d, dks.day(d), n))
+        lefts.append(want[-1].leftover)
+    assert {(p.vacc, p.imports, p.ct_active) for p in want} >= {
+        (False, True, False), (True, True, False), (True, True, True)}
+    for day0 in (0, 5):
+        gs = graphs.GraphSet(*_build(run), "cpu")
+        gs.picks.fill_(7)
+        plans = gs.prepare(host, key, day0, steps - day0, lefts[day0], n)
+        assert len(plans) == steps - day0
+        for p, q in zip(want[day0:], plans):
+            for f, a, b in zip(S.DayPlan._fields, p, q):
+                assert type(a) is type(b), (p.day, f)
+                np.testing.assert_array_equal(a, b, err_msg=f"{p.day} {f}")
+        for d in range(DAYS):
+            planned = day0 <= d < steps
+            rows = ((want[d].ints, want[d].floats.view(np.int32),
+                     S.key_table(cfg, dks.day(d)).view(np.int32))
+                    if planned else (0, 0, 0))
+            got = (gs.tab_i[d], gs.tab_f[d].view(torch.int32), gs.tab_k[d])
+            for name, a, b in zip(("tab_i", "tab_f", "tab_k"), rows, got):
+                assert (b.numpy() == a).all(), (day0, d, name)
+            assert (gs.picks[d] == (-1 if planned else 7)).all(), (day0, d)
+

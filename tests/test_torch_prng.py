@@ -90,6 +90,27 @@ def test_randint_scalar_exact(maxval):
             prng.randint_scalar(prng.PRNGKey(s), 0, maxval)
 
 
+# jax.random.randint of each key of a (D, 2) array, the bound traced
+_randint_each = jax.jit(jax.vmap(lambda k, hi: jr.randint(k, (), 0, hi),
+                                 in_axes=(0, None)))
+
+
+@pytest.mark.parametrize("maxval", [20480, 480256, 1686528])
+def test_randint_of_day_keys(maxval):
+    """The vectorised randint over the ledger offsets' keys of 564 days
+    (three seeds) equals randint_scalar key by key, and jax.random.randint
+    of each key."""
+    for seed in (0, 77, 2 ** 32 - 3):
+        keys = derive_day_keys(EngineConfig(), prng.PRNGKey(seed),
+                               np.arange(564)).base[:, 14]
+        got = prng.randint(keys, 0, maxval)
+        assert got.shape == (564,) and got.dtype == np.int64
+        assert got.tolist() == [prng.randint_scalar(k, 0, maxval)
+                                for k in keys]
+        np.testing.assert_array_equal(
+            np.asarray(_randint_each(jnp.asarray(keys), maxval)), got)
+
+
 @pytest.mark.parametrize("vacc_slots", [1, 3])
 def test_derive_day_keys_exact(vacc_slots):
     jcfg = JaxConfig(vacc_slots=vacc_slots)

@@ -439,6 +439,105 @@ def test_runs_without_jax(tmp_path):
         r.stdout[-2000:], r.stderr[-3000:])
 
 
+def _plan_day_scalar(cfg, host, leftover, day, key, n_agents):
+    """Day ``day``'s plan by scalar arithmetic, the reference of
+    step.plan_days: the weekly imports in float32, one day at a time,
+    and the ledger's offset by jax.random.randint's two-draw modulus on
+    Python integers from the scalar hash."""
+    from reina_tpu_torch.core import constants as C
+    from reina_tpu_torch.core import step as S
+    from reina_tpu_torch.ops import prng
+    m32 = 0xFFFFFFFF
+    leftover = (np.asarray(leftover, np.float32)
+                + np.float32(host.weekly_amount[day]) / np.float32(7.0)
+                * host.weekly_shares[day])
+    weekly = np.floor(leftover).astype(np.int32)
+    leftover = (leftover - weekly.astype(np.float32)).astype(np.float32)
+    cum = np.cumsum(host.import_today[day] + weekly).astype(np.int32)
+    tot = int(cum[-1])
+    mode = int(host.testing_mode[day])
+    ct = mode == C.TESTING_ALL_WITH_SYMPTOMS_CT
+    hi, lo = (int(np.bitwise_xor(*prng._threefry_np(k[0], k[1], 0, 0)))
+              for k in prng.split(key))
+    mult = (((2 ** 16 % n_agents) ** 2) & m32) % n_agents
+    off = ((((hi % n_agents) * mult) & m32) + lo % n_agents) & m32
+    ints = np.array([day, mode, int(ct), int(host.beds_build[day]),
+                     int(host.icu_build[day]), off % n_agents, tot, *cum],
+                    np.int32)
+    vacc_nr = host.vacc_nr[day]
+    floats = np.array([host.trace_p[day], host.detect_anyway_p[day],
+                       *np.floor(vacc_nr)], np.float32)
+    return S.DayPlan(
+        day, ct, bool(np.sum(vacc_nr) >= 1.0), tot > 0,
+        C.PROBLEM_IMPORT_BUFFER_OVERFLOW if tot > cfg.import_buffer else 0,
+        leftover, np.float32(1.0) - np.float32(host.mobility_scalar[day]),
+        ints, floats)
+
+
+def _assert_plans_equal(want, got):
+    assert len(want) == len(got)
+    for p, q in zip(want, got):
+        for f in p._fields:
+            a, b = getattr(p, f), getattr(q, f)
+            assert type(a) is type(b), (p.day, f, type(a), type(b))
+            if isinstance(a, np.ndarray):
+                assert a.dtype == b.dtype and a.shape == b.shape, (p.day, f)
+                assert a.tobytes() == b.tobytes(), (p.day, f, a, b)
+            else:
+                assert a == b, (p.day, f, a, b)
+
+
+@pytest.fixture(scope="module")
+def vs_calendar():
+    """The VS configuration's host schedules: the default calendar over
+    565 days."""
+    from reina_tpu_torch.config.interventions import get_active_interventions
+    from reina_tpu_torch.config.variables import VARIABLE_DEFAULTS
+    from reina_tpu_torch.core import params, schedule
+    v = dict(VARIABLE_DEFAULTS, area_name="Varsinais-Suomi")
+    _, names = params.compile_disease(params.create_disease_params(v),
+                                      v["max_age"] + 1)
+    sched, _ = schedule.compile_schedules(
+        get_active_interventions(v), v["start_date"], v["simulation_days"],
+        v["max_age"] + 1, names)
+    return sched
+
+
+@pytest.mark.parametrize("day0,n_days,seed", [(0, 565, 11), (200, 565, 12),
+                                              (0, 100, 2 ** 32 - 5)])
+def test_plan_days_equals_day_by_day(vs_calendar, day0, n_days, seed):
+    """step.plan_days plans a run's days in one pass over arrays: its
+    plans equal, field by field and bit for bit, the scalar reference's
+    and the plain step's plan_day's, a day at a time, for the VS calendar
+    at 20,480 agents: the whole run, a resume from day 200 with that
+    day's leftover, and a run of n_days 100."""
+    from reina_tpu_torch.core import step as S
+    from reina_tpu_torch.core.engine import sched_row
+    from reina_tpu_torch.core.schedule import Schedules
+    from reina_tpu_torch.ops import prng
+    host, n = vs_calendar, 20480
+    assert (host.weekly_amount > 0).sum() > 300   # the carry is exercised
+    cfg = S.EngineConfig(nr_variants=host.weekly_shares.shape[1],
+                         vacc_slots=host.vacc_nr.shape[1])
+    days = np.arange(n_days - 1)
+    dks = S.derive_day_keys(cfg, prng.PRNGKey(seed), days)
+    want, left = [], np.zeros(cfg.nr_variants, np.float32)
+    for d in days:
+        want.append(_plan_day_scalar(cfg, host, left, int(d),
+                                     dks.base[d, 14], n))
+        left = want[-1].leftover
+    start = want[day0 - 1].leftover if day0 else np.zeros_like(left)
+    got = S.plan_days(cfg, Schedules(*(x[day0:n_days - 1] for x in host)),
+                      start, day0, S.DayKeys(*(x[day0:] for x in dks)), n)
+    _assert_plans_equal(want[day0:], got.each())
+    one, left = [], start
+    for d in range(day0, n_days - 1):
+        one.append(S.plan_day(cfg, sched_row(host, host, d), left, d,
+                              dks.day(d), n))
+        left = one[-1].leftover
+    _assert_plans_equal(want[day0:], one)
+
+
 if __name__ == "__main__":
     sys.path.insert(0, _REPO)
     if sys.argv[1] == "--mesh-rank":
